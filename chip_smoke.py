@@ -5,18 +5,38 @@
 
 Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
-1. build ``grid_sweep.cu`` with nvcc (under 60 s);
+1. build ``grid_sweep.cu``, ``whole_circuit.cu`` and ``segment.cu``, one
+   nvcc each, all at once (under 60 s in all), with ptxas's registers and
+   spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
-3. 28 qubits, the main path: ``StateVectorSimulator(28).run`` then
-   ``get_state``, ``probabilities``, ``sample`` and ``histogram``, with the
-   launch counts zeroed just before and read just after; then the kernel's
-   state against its plain torch version on the card (max |d amp| <= 1e-7,
-   1 - fidelity <= 1e-5);
-4. 28-qubit closed forms through the kernel: GHZ probabilities and histogram,
-   QFT|0> amplitudes;
-5. timing of the 28-qubit run with CUDA events (median of 5 after a warm-up)
-   beside the plain version and the device-memory bound.
+3. whole-circuit kernel: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
+   16, 18 through the simulator against the oracle (max |d amp| <= 1e-6,
+   one launch per run);
+4. 18 qubits, the whole-circuit main path: ``StateVectorSimulator(18).run``
+   then ``get_state``, ``probabilities``, ``sample`` and ``histogram``,
+   counted; then the kernel against its plain version on the card
+   (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5); GHZ and QFT|0> closed forms;
+5. 19 qubits, the segmented main path, counted, against the oracle
+   (max |d amp| <= 1e-6; one launch per segment, the last a scatter
+   segment); each segment kernel against its plain version on the same
+   input (max |d amp| <= 1e-7); GHZ and QFT|0> closed forms;
+6. grid fallback: a 6-qubit dense gate at 22 qubits that the grid planner
+   refuses runs on the segmented engine and matches its plain version
+   (1e-6); ``random_circuit(24, 100, seed=42)`` through the segmented and
+   the grid-sweep programs agrees within 1e-6;
+7. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
+   then readout, counted; the kernel against its plain torch version
+   (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
+8. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
+   and histogram, QFT|0> amplitudes;
+9. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
+   grid-sweep run, the whole-circuit kernel at 12, 16 and 18 qubits and the
+   segment kernels at 19, beside the plain versions, the torch engine (the
+   route below 20 qubits before these kernels) and the bound. Below 20
+   qubits a kernel's time is its device time, from CUDA-graph replays of
+   its launches (many per event pair); the eager time through the Python
+   wrappers is printed beside it.
 
 Every check raises on failure. The last two lines are the kernels JSON and
 the device JSON; the exit code is 0 only if every phase passed.
@@ -36,10 +56,18 @@ import torch
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch import apply as ap
+from tpu_qsim_torch.fusion import fuse_circuit
+from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
-from tpu_qsim_torch.kernels.gridsweeps import grid_sweep
+from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, placeable_clusters
+from tpu_qsim_torch.kernels.gridsweeps import GridSweepProgram, grid_sweep
+from tpu_qsim_torch.kernels.segmented import SegmentedProgram, segment
+from tpu_qsim_torch.statevector import build_torch_run_fn
 
 N_MAIN = 28
+N_WHOLE = 18       # the whole-circuit kernel's main path
+N_SEG = 19         # the segmented engine's main path
+SMS = 132          # H100 SXM
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # non-tensor-core float32 peak, same source
 
@@ -78,16 +106,34 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 
 def phase_build() -> dict:
     t0 = time.perf_counter()
-    _build.grid_sweep_library()
+    names = tuple(_build.SIGNATURES)
+    _build.build_all(names)
+    for name in names:
+        _build.library(name)
     wall = time.perf_counter() - t0
-    built = _build.build_log.get("grid_sweep")
-    if built is not None:
-        for line in built[1].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()[:200]}")
-    log(f"build: grid_sweep.cu {'built' if built else 'reused'} in {wall:.2f} s")
+    for name in names:
+        built = _build.build_log.get(name)
+        if built is not None:
+            for line in built[1].splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    log(f"ptxas {name}: {line.strip()[:200]}")
+        log(f"build: {name}.cu {f'built in {built[0]:.2f} s' if built else 'reused'}")
+    log(f"build: {len(names)} libraries in {wall:.2f} s")
     check(wall < 60.0, f"build took {wall:.1f} s (limit 60 s)")
     return {"build_s": wall}
+
+
+def oracle_planes(circuit, device) -> torch.Tensor:
+    ref = tq.CPUReferenceSimulator(circuit.num_qubits)
+    ref.run(circuit)
+    return torch.from_numpy(np.stack([ref.state.real, ref.state.imag])).to(device)
+
+
+def random_planes(n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi /= np.linalg.norm(psi)
+    return torch.from_numpy(np.stack([psi.real, psi.imag]).astype(np.float32)).cuda()
 
 
 def phase_20q_oracle() -> dict:
@@ -107,12 +153,12 @@ def phase_20q_oracle() -> dict:
     return {"max_abs_err": err, "fidelity": fid}
 
 
-def phase_28q_main() -> dict:
-    """The main path, counted; then the kernel against its plain version."""
-    c = tq.random_circuit(N_MAIN, 100, seed=42)
+def phase_main(n: int, engine: str, kernels: tuple[str, ...]) -> dict:
+    """A main path, counted; then its kernels against their plain version."""
+    c = tq.random_circuit(n, 100, seed=42)
     t0 = time.perf_counter()
     reset_launches()
-    sim = tq.StateVectorSimulator(N_MAIN, seed=42)
+    sim = tq.StateVectorSimulator(n, seed=42)
     sim.run(c)
     psi = sim.get_state()
     probs = sim.probabilities()
@@ -120,42 +166,52 @@ def phase_28q_main() -> dict:
     samples = sim.sample(1000)
     hist = sim.histogram(1000)
     torch.cuda.synchronize()
-    launches = LAUNCHES["grid_sweep"]
+    launches = {k: LAUNCHES[k] for k in kernels}
     wall = time.perf_counter() - t0
-    engine, prog = sim.compiled_run(c)
-    check(sim.engine == "grid_sweep" and engine == "grid_sweep", f"28q ran on {sim.engine}")
-    check(launches == prog.num_sweeps, f"{launches} launches for {prog.num_sweeps} sweeps")
-    check(psi.shape == (1 << N_MAIN,) and bool(np.isfinite(psi).all()), "state not finite")
+    eng, prog = sim.compiled_run(c)
+    check(sim.engine == engine and eng == engine, f"{n}q ran on {sim.engine}")
+    check(sum(launches.values()) == sum(LAUNCHES.values()),
+          f"{n}q launched other kernels: {dict(LAUNCHES)}")
+    check(psi.shape == (1 << n,) and bool(np.isfinite(psi).all()), "state not finite")
     check(abs(total - 1.0) < 1e-4, f"total probability {total}")
     check(tuple(samples.shape) == (1000,) and int(samples.min()) >= 0
-          and int(samples.max()) < (1 << N_MAIN), "samples out of range")
+          and int(samples.max()) < (1 << n), "samples out of range")
     check(sum(hist.values()) == 1000, "histogram does not hold 1000 shots")
     check(bool((probs[samples] > 0).all()), "a sample hit a zero-probability state")
     del psi, probs
-    log(f"phase 28q_main: wall_s={wall:.3f} sweeps={prog.num_sweeps} launches={launches} "
-        f"gates_per_sweep={[len(g) for g in prog.sweep_gates]}")
+    log(f"phase {n}q_main: wall_s={wall:.3f} engine={engine} launches={launches}")
 
     t0 = time.perf_counter()
-    plain = prog.run_plain(ap.initial_state(N_MAIN, np.float32, device="cuda"))
+    plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
     err, fid = compare(sim.state_planes, plain)
     del plain
     wall = time.perf_counter() - t0
-    log(f"phase 28q_vs_plain: wall_s={wall:.3f} max_abs_err={err:.3e} (tol 1e-7) "
+    log(f"phase {n}q_vs_plain: wall_s={wall:.3f} max_abs_err={err:.3e} (tol 1e-7) "
         f"fidelity={fid:.9f} (tol 1 - 1e-5)")
-    check(err <= 1e-7, f"28q kernel vs plain max |d amp| {err} > 1e-7")
-    check(1.0 - fid <= 1e-5, f"28q 1 - fidelity {1.0 - fid} > 1e-5")
+    check(err <= 1e-7, f"{n}q kernel vs plain max |d amp| {err} > 1e-7")
+    check(1.0 - fid <= 1e-5, f"{n}q 1 - fidelity {1.0 - fid} > 1e-5")
     return {"sim": sim, "prog": prog, "launches": launches, "max_abs_err": err,
             "fidelity": fid}
 
 
-def phase_28q_closed_forms() -> dict:
-    n = N_MAIN
+def phase_28q_main() -> dict:
+    res = phase_main(N_MAIN, "grid_sweep", ("grid_sweep",))
+    prog = res["prog"]
+    check(res["launches"]["grid_sweep"] == prog.num_sweeps,
+          f"{res['launches']} launches for {prog.num_sweeps} sweeps")
+    log(f"phase 28q_main: sweeps={prog.num_sweeps} "
+        f"gates_per_sweep={[len(g) for g in prog.sweep_gates]}")
+    res["launches"] = res["launches"]["grid_sweep"]
+    return res
+
+
+def phase_closed_forms(n: int, engine: str) -> dict:
     last = (1 << n) - 1
     t0 = time.perf_counter()
-    before = LAUNCHES["grid_sweep"]
+    before = sum(LAUNCHES.values())
     sim = tq.StateVectorSimulator(n, seed=7)
     sim.run(tq.ghz_circuit(n))
-    check(sim.engine == "grid_sweep", f"GHZ ran on {sim.engine}")
+    check(sim.engine == engine, f"GHZ ran on {sim.engine}")
     p = sim.probabilities()
     p0, pl = float(p[0]), float(p[last])
     rest = float(p.sum(dtype=torch.float64)) - p0 - pl
@@ -165,7 +221,7 @@ def phase_28q_closed_forms() -> dict:
     ghz_fid = abs((a0 + al) * 2 ** -0.5) ** 2
     hist = sim.histogram(10000)
     del p
-    log(f"phase 28q_ghz: wall_s={time.perf_counter() - t0:.3f} p0={p0:.7f} plast={pl:.7f} "
+    log(f"phase {n}q_ghz: wall_s={time.perf_counter() - t0:.3f} p0={p0:.7f} plast={pl:.7f} "
         f"rest={rest:.3e} max_abs_err={ghz_err:.3e} fidelity={ghz_fid:.9f} hist={hist}")
     check(abs(p0 - 0.5) <= 1e-5 and abs(pl - 0.5) <= 1e-5, "GHZ end probabilities")
     check(rest <= 1e-5, f"GHZ leaked {rest}")
@@ -177,7 +233,7 @@ def phase_28q_closed_forms() -> dict:
     t0 = time.perf_counter()
     sim.reset()
     sim.run(tq.qft_circuit(n))
-    check(sim.engine == "grid_sweep", f"QFT ran on {sim.engine}")
+    check(sim.engine == engine, f"QFT ran on {sim.engine}")
     st = sim.state_planes
     amp = 2.0 ** -(n / 2)
     qft_err = 0.0
@@ -190,46 +246,240 @@ def phase_28q_closed_forms() -> dict:
     ov_im = float(st[1].sum(dtype=torch.float64)) * amp
     qft_fid = ov_re ** 2 + ov_im ** 2
     wall = time.perf_counter() - t0
-    log(f"phase 28q_qft: wall_s={wall:.3f} max_abs_err={qft_err:.3e} max_mag_err={mag_err:.3e} "
-        f"(tol 1e-6) fidelity={qft_fid:.9f} launches={LAUNCHES['grid_sweep'] - before}")
-    check(mag_err <= 1e-6, f"QFT |amp| off 2^-14 by {mag_err}")
+    log(f"phase {n}q_qft: wall_s={wall:.3f} max_abs_err={qft_err:.3e} max_mag_err={mag_err:.3e} "
+        f"(tol 1e-6) fidelity={qft_fid:.9f} launches={sum(LAUNCHES.values()) - before}")
+    check(mag_err <= 1e-6, f"QFT |amp| off 2^-{n / 2:g} by {mag_err}")
     return {"ghz_max_abs_err": ghz_err, "qft_max_mag_err": mag_err}
 
 
-def time_cuda(fn, reps: int) -> list[float]:
+def phase_whole_circuit_oracle() -> dict:
+    errs = {}
+    for n in (10, 14, 16, N_WHOLE):
+        t0 = time.perf_counter()
+        c = tq.random_circuit(n, 100, seed=42)
+        reset_launches()
+        sim = tq.StateVectorSimulator(n, seed=42)
+        sim.run(c)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        _, prog = sim.compiled_run(c)
+        err, fid = compare(sim.state_planes, oracle_planes(c, sim.device))
+        log(f"phase {n}q_whole_circuit_oracle: wall_s={time.perf_counter() - t0:.3f} "
+            f"max_abs_err={err:.3e} (tol 1e-6) fidelity={fid:.9f} launches={launches} "
+            f"cluster={1 << prog.cluster_bits} CTAs x {prog.threads} threads "
+            f"({placeable_clusters(sim.device, n, prog.cluster_bits, prog.threads)} "
+            f"placeable at once), ops={len(prog.gates)}")
+        check(sim.engine == "whole_circuit", f"{n}q ran on {sim.engine}")
+        check(launches == {"whole_circuit": 1}, f"{n}q launches {launches}")
+        check(err <= 1e-6, f"{n}q max |d amp| {err} > 1e-6")
+        errs[n] = err
+    return errs
+
+
+def phase_segmented() -> dict:
+    """19q: the segmented main path against the oracle, then each segment
+    kernel against its plain version on the same input."""
+    n = N_SEG
+    res = phase_main(n, "segmented", ("segment", "scatter_segment"))
+    prog = res["prog"]
+    kinds = [s.kernel for s in prog.steps]
+    want = {k: kinds.count(k) for k in ("segment", "scatter_segment")}
+    check(res["launches"] == want, f"launches {res['launches']} for segments {kinds}")
+    check(prog.restore == tuple(range(n)) or kinds[-1] == "scatter_segment",
+          "a non-identity restore without a scatter segment")
+    c = tq.random_circuit(n, 100, seed=42)
+    err, fid = compare(res["sim"].state_planes, oracle_planes(c, res["sim"].device))
+    log(f"phase {n}q_segmented_oracle: max_abs_err={err:.3e} (tol 1e-6) fidelity={fid:.9f} "
+        f"segments={kinds} local_bits={prog.local_bits} ops={[len(s.gates) for s in prog.steps]}")
+    check(err <= 1e-6, f"{n}q segmented max |d amp| {err} > 1e-6")
+    step_err = {"segment": 0.0, "scatter_segment": 0.0}
+    x = random_planes(n, 5)
+    for i, (step, (ints, coef, maps)) in enumerate(zip(prog.steps, prog._tables_on(x.device))):
+        out = x.clone() if step.in_place else torch.empty_like(x)
+        segment(out if step.in_place else x, out, ints, coef, maps, prog.local_bits,
+                step.gather_src is not None, step.scatter_dst is not None, prog.threads,
+                step.table.max_core)
+        e, _ = compare(out, prog.step_plain(x, i))
+        step_err[step.kernel] = max(step_err[step.kernel], e)
+        x = out
+    log(f"phase {n}q_segment_vs_plain: max_abs_err={step_err} (tol 1e-7)")
+    check(max(step_err.values()) <= 1e-7, f"segment kernels vs plain {step_err}")
+    res["oracle_err"] = err
+    res["step_err"] = step_err
+    return res
+
+
+def _dense_gate(k: int) -> str:
+    name = f"chip_smoke_dense{k}"
+    if name not in GATE_ARITY:
+        rng = np.random.default_rng(1)
+        m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
+        register_gate(name, np.linalg.qr(m)[0])
+    return name
+
+
+def phase_grid_fallback() -> dict:
+    n = 22
+    c = tq.random_circuit(n, 40, seed=42)
+    c.add(_dense_gate(6), *range(n - 6, n))
+    for g in tq.random_circuit(n, 40, seed=43).gates:
+        c.add(g.name, *g.qubits, param=g.param)
+    t0 = time.perf_counter()
+    reset_launches()
+    sim = tq.StateVectorSimulator(n, seed=1)
+    sim.run(c)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _, prog = sim.compiled_run(c)
+    plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
+    err, _ = compare(sim.state_planes, plain)
+    log(f"phase {n}q_grid_fallback: wall_s={time.perf_counter() - t0:.3f} engine={sim.engine} "
+        f"launches={launches} local_bits={prog.local_bits} max_abs_err={err:.3e} (tol 1e-6)")
+    check(sim.engine == "segmented", f"{n}q fallback ran on {sim.engine}")
+    check(sum(launches.values()) == prog.num_segments, f"launches {launches}")
+    check(err <= 1e-6, f"{n}q fallback vs plain {err} > 1e-6")
+    del sim, plain
+
+    n = 24
+    t0 = time.perf_counter()
+    c = tq.random_circuit(n, 100, seed=42)
+    sprog, gprog = SegmentedProgram(c), GridSweepProgram(c)
+    a = sprog.run(ap.initial_state(n, np.float32, device="cuda"))
+    b = gprog.run(ap.initial_state(n, np.float32, device="cuda"))
+    cross, fid = compare(a, b)
+    log(f"phase {n}q_cross_engine: wall_s={time.perf_counter() - t0:.3f} segments={sprog.num_segments} "
+        f"sweeps={gprog.num_sweeps} max_abs_err={cross:.3e} (tol 1e-6) fidelity={fid:.9f}")
+    check(cross <= 1e-6, f"{n}q segmented vs grid sweep {cross} > 1e-6")
+    return {"fallback_err": err, "cross_err": cross}
+
+
+def time_cuda(fn, reps: int, inner: int = 1) -> list[float]:
+    """``reps`` CUDA-event times of ``inner`` back-to-back calls, per call."""
     out = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        out.append(a.elapsed_time(b))
+        out.append(a.elapsed_time(b) / inner)
     return out
+
+
+def median_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    time_cuda(fn, 1, inner)                                      # warm-up
+    return statistics.median(time_cuda(fn, reps, inner))
+
+
+def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
+    """Device time of ``fn``'s launches: run once, captured once into a CUDA
+    graph, then ``median_ms`` of graph replays. Eager calls of a kernel this
+    short are bounded by the host's launch path instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay, reps, inner)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def torch_engine_ms(circuit, inner: int) -> float:
+    fn = build_torch_run_fn(fuse_circuit(circuit, 5), np.float32)
+    x = ap.initial_state(circuit.num_qubits, np.float32, device="cuda")
+    return median_ms(lambda: fn(x), inner=inner)
 
 
 def phase_timing(sim, prog) -> dict:
     state = sim.state_planes
-    time_cuda(lambda: prog.run(state), 1)                      # warm-up
-    ms = statistics.median(time_cuda(lambda: prog.run(state), 5))
+    ms = median_ms(lambda: prog.run(state))
     x0 = ap.initial_state(N_MAIN, np.float32, device="cuda")
-    time_cuda(lambda: prog.run_plain(x0), 1)
-    plain_ms = statistics.median(time_cuda(lambda: prog.run_plain(x0), 3))
+    plain_ms = median_ms(lambda: prog.run_plain(x0), reps=3)
     del x0
     # per-sweep split of one run
     per = []
     threads = prog.params.threads
-    for (ints, coef), lay in zip(prog._tables_on(state.device), prog.layouts):
-        per.append(time_cuda(lambda: grid_sweep(state, ints, coef, lay, threads), 3)[-1])
-    bytes_ms = prog.bytes_moved() / HBM_BYTES_PER_S * 1e3
-    flops_ms = prog.flops() / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
+    for (ints, coef), lay, t in zip(prog._tables_on(state.device), prog.layouts, prog.tables):
+        per.append(time_cuda(
+            lambda: grid_sweep(state, ints, coef, lay, threads, t.max_core), 3)[-1])
+    b = bound(prog.bytes_moved(), prog.flops())
     log(f"phase timing: n={N_MAIN} sweeps={prog.num_sweeps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} bytes_ms={bytes_ms:.4f} flops_ms={flops_ms:.4f} "
+        f"bound_ms={b['bound_ms']:.4f} bytes_ms={b['bytes_ms']:.4f} flops_ms={b['flops_ms']:.4f} "
         f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.params}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    return {"ms": ms, "plain_ms": plain_ms, **b}
+
+
+def phase_timing_whole_circuit() -> dict:
+    rows = {}
+    for n in (12, 16, N_WHOLE):
+        c = tq.random_circuit(n, 100, seed=42)
+        prog = WholeCircuitProgram(c)
+        x = ap.initial_state(n, np.float32, device="cuda")
+        ms = graph_ms(lambda: prog.run(x), inner=50)
+        eager_ms = median_ms(lambda: prog.run(x), inner=50)
+        plain_ms = median_ms(lambda: prog.run_plain(x), inner=5)
+        engine_ms = torch_engine_ms(c, inner=5)
+        b = bound(prog.bytes_moved(), prog.flops())
+        ctas = 1 << prog.cluster_bits
+        log(f"phase timing_whole_circuit: n={n} ops={len(prog.gates)} ms={ms:.5f} "
+            f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.4f} torch_engine_ms={engine_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.5f} bytes_ms={b['bytes_ms']:.5f} flops_ms={b['flops_ms']:.5f} "
+            f"cluster={ctas} CTAs x {prog.threads} threads, SMs <= {min(ctas, SMS)} of {SMS}")
+        rows[n] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                   "torch_engine_ms": engine_ms, **b}
+    return rows
+
+
+def phase_timing_segmented(prog: SegmentedProgram) -> dict:
+    """The whole 19q run (device time, and eager through the Python
+    wrappers), then each kernel's share: its segments timed one by one on
+    fixed buffers, beside the same segments' plain version."""
+    n = prog.num_qubits
+    c = tq.random_circuit(n, 100, seed=42)
+    x = ap.initial_state(n, np.float32, device="cuda")
+    run_ms = graph_ms(lambda: prog.run(x), inner=50)
+    eager_ms = median_ms(lambda: prog.run(x), inner=50)
+    plain_run_ms = median_ms(lambda: prog.run_plain(x), inner=5)
+    engine_ms = torch_engine_ms(c, inner=5)
+    a, out = random_planes(n, 1), torch.empty((2, 1 << n), device="cuda")
+    per = {"segment": [], "scatter_segment": []}
+    for i, (step, (ints, coef, maps)) in enumerate(zip(prog.steps, prog._tables_on(a.device))):
+        dst = a if step.in_place else out
+        ms = graph_ms(lambda: segment(a, dst, ints, coef, maps, prog.local_bits,
+                                      step.gather_src is not None,
+                                      step.scatter_dst is not None, prog.threads,
+                                      step.table.max_core), inner=50)
+        pms = median_ms(lambda: prog.step_plain(a, i), inner=5)
+        b = bound(2 * 2 * 4 * (1 << n), step.table.flops_per_amp * (1 << n))
+        per[step.kernel].append((ms, pms, b["bytes_ms"], b["flops_ms"]))
+    kernels = {}
+    for k, rows in per.items():
+        bytes_ms = sum(r[2] for r in rows)
+        flops_ms = sum(r[3] for r in rows)
+        kernels[k] = {"ms": sum(r[0] for r in rows), "plain_ms": sum(r[1] for r in rows),
+                      "bound_ms": max(bytes_ms, flops_ms),
+                      "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+                      "per_launch_ms": [r[0] for r in rows]}
+    b = bound(prog.bytes_moved(), prog.flops())
+    blocks = 1 << (n - prog.local_bits)
+    log(f"phase timing_segmented: n={n} segments={prog.num_segments} ms={run_ms:.5f} "
+        f"eager_ms={eager_ms:.5f} plain_ms={plain_run_ms:.4f} torch_engine_ms={engine_ms:.4f} "
+        f"bound_ms={b['bound_ms']:.5f} bytes_ms={b['bytes_ms']:.5f} flops_ms={b['flops_ms']:.5f} "
+        f"blocks={blocks} of 2^{prog.local_bits} x {prog.threads} threads, SMs <= {min(blocks, SMS)} of {SMS} "
+        f"per_kernel={json.dumps(kernels)}")
+    return {"run_ms": run_ms, "eager_ms": eager_ms, "plain_run_ms": plain_run_ms,
+            "torch_engine_ms": engine_ms, "kernels": kernels, **b}
 
 
 def main() -> int:
@@ -241,9 +491,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
     phase_20q_oracle()
+    phase_whole_circuit_oracle()
+    whole = phase_main(N_WHOLE, "whole_circuit", ("whole_circuit",))
+    check(whole["launches"] == {"whole_circuit": 1}, f"18q launches {whole['launches']}")
+    whole_closed = phase_closed_forms(N_WHOLE, "whole_circuit")
+    seg = phase_segmented()
+    seg_closed = phase_closed_forms(N_SEG, "segmented")
+    fallback = phase_grid_fallback()
     main_res = phase_28q_main()
-    closed = phase_28q_closed_forms()
+    closed = phase_closed_forms(N_MAIN, "grid_sweep")
     timing = phase_timing(main_res["sim"], main_res["prog"])
+    t_whole = phase_timing_whole_circuit()
+    t_seg = phase_timing_segmented(seg["prog"])
     kernels = [{
         "name": "grid_sweep",
         "route": "cuda",
@@ -259,7 +518,50 @@ def main() -> int:
         "fidelity": main_res["fidelity"],
         "ghz_max_abs_err": closed["ghz_max_abs_err"],
         "qft_max_mag_err": closed["qft_max_mag_err"],
+    }, {
+        "name": "whole_circuit",
+        "route": "cuda",
+        "source": "tpu_qsim_torch/kernels/csrc/whole_circuit.cu",
+        "replaces": "tpu_qsim/kernels/fused_circuit.py:1552",
+        "launches": whole["launches"]["whole_circuit"],
+        "max_abs_err": whole["max_abs_err"],
+        "ms": t_whole[N_WHOLE]["ms"],
+        "plain_ms": t_whole[N_WHOLE]["plain_ms"],
+        "bound_ms": t_whole[N_WHOLE]["bound_ms"],
+        "bound_by": t_whole[N_WHOLE]["bound_by"],
+        "library_ms": None,
+        "eager_ms": t_whole[N_WHOLE]["eager_ms"],
+        "torch_engine_ms": t_whole[N_WHOLE]["torch_engine_ms"],
+        "ms_by_qubits": {n: r["ms"] for n, r in t_whole.items()},
+        "fidelity": whole["fidelity"],
+        "ghz_max_abs_err": whole_closed["ghz_max_abs_err"],
+        "qft_max_mag_err": whole_closed["qft_max_mag_err"],
     }]
+    for name, line in (("segment", 162), ("scatter_segment", 307)):
+        k = t_seg["kernels"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_qsim_torch/kernels/csrc/segment.cu",
+            "replaces": f"tpu_qsim/kernels/segmented.py:{line}",
+            "launches": seg["launches"][name],
+            "max_abs_err": seg["step_err"][name],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+            "run_ms": t_seg["run_ms"],
+            "eager_run_ms": t_seg["eager_ms"],
+            "torch_engine_ms": t_seg["torch_engine_ms"],
+            "oracle_max_abs_err": seg["oracle_err"],
+            "ghz_max_abs_err": seg_closed["ghz_max_abs_err"],
+            "qft_max_mag_err": seg_closed["qft_max_mag_err"],
+            "fallback_max_abs_err": fallback["fallback_err"],
+            "cross_engine_max_abs_err": fallback["cross_err"],
+        })
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,8 @@
-"""The CUDA grid-sweep kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
+
+grid_sweep, whole_circuit, segment and scatter_segment each run against the
+plain version of their program; the simulator's routing and each wrapper's
+refusals are checked too.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -17,7 +21,9 @@ import torch
 import tpu_qsim_torch as tq
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
+from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
+from tpu_qsim_torch.kernels import segmented as seg
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +98,142 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         tgs.grid_sweep(x[:, : 1 << 19], ints, coef, prog.layouts[0])
     with pytest.raises(ValueError):
         tgs.grid_sweep(x, ints.cpu(), coef, prog.layouts[0])
+
+
+def _dense_gate(k: int) -> str:
+    name = f"torch_cuda_dense{k}"
+    if name not in GATE_ARITY:
+        rng = np.random.default_rng(k)
+        m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
+        register_gate(name, np.linalg.qr(m)[0])
+    return name
+
+
+def _wide_circuit(n: int, k: int, seed: int = 3) -> tq.Circuit:
+    """A k-qubit dense core on the top k qubits between two random layers."""
+    c = tq.random_circuit(n, 40, seed=seed)
+    c.add(_dense_gate(k), *range(n - k, n))
+    for g in tq.random_circuit(n, 40, seed=seed + 1).gates:
+        c.add(g.name, *g.qubits, param=g.param)
+    return c
+
+
+@pytest.mark.parametrize("n", [10, 14, 18])
+def test_whole_circuit_matches_plain(cuda_device, n):
+    prog = fc.WholeCircuitProgram(tq.random_circuit(n, 100, seed=42))
+    x = _random_planes(n, n, cuda_device)
+    reset_launches()
+    got = prog.run(x.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["whole_circuit"] == 1
+    want = prog.run_plain(x)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n,k", [(12, 5), (16, 5), (18, 6)])
+def test_whole_circuit_wide_dense_core(cuda_device, n, k):
+    prog = fc.WholeCircuitProgram(_wide_circuit(n, k))
+    x = _random_planes(n, k, cuda_device)
+    got = prog.run(x.clone())
+    want = prog.run_plain(x)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [19, 22])
+def test_segments_match_plain(cuda_device, n):
+    prog = seg.SegmentedProgram(tq.random_circuit(n, 100, seed=42))
+    kinds = [s.kernel for s in prog.steps]
+    assert kinds[-1] == "scatter_segment" and prog.restore != tuple(range(n))
+    x = _random_planes(n, n, cuda_device)
+    reset_launches()
+    got = prog.run(x.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment"] == kinds.count("segment")
+    assert LAUNCHES["scatter_segment"] == 1
+    want = prog.run_plain(x)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_simulator_routes_by_size(cuda_device):
+    for n in range(10, 20):
+        reset_launches()
+        sim = tq.StateVectorSimulator(n).run(tq.ghz_circuit(n))
+        want = "whole_circuit" if n <= 18 else "segmented"
+        assert sim.engine == want
+        assert sum(LAUNCHES.values()) >= 1 and set(LAUNCHES) <= {
+            "whole_circuit", "segment", "scatter_segment"}
+        p = sim.probabilities()
+        assert abs(float(p[0]) - 0.5) < 1e-6 and abs(float(p[-1]) - 0.5) < 1e-6
+    sim = tq.StateVectorSimulator(9).run(tq.ghz_circuit(9))
+    assert sim.engine == "torch"
+
+
+def test_grid_fallback_routes_to_segments(cuda_device):
+    c = _wide_circuit(22, 6)
+    reset_launches()
+    sim = tq.StateVectorSimulator(22).run(c)
+    torch.cuda.synchronize()
+    assert sim.engine == "segmented" and LAUNCHES["segment"] >= 1
+    _, prog = sim.compiled_run(c)
+    want = prog.run_plain(tq.apply.initial_state(22, np.float32, device=cuda_device))
+    assert float((sim.state_planes - want).abs().max()) <= 1e-6
+
+
+def test_new_wrappers_reject_bad_inputs(cuda_device):
+    wprog = fc.WholeCircuitProgram(tq.random_circuit(12, 20, seed=1))
+    ints, coef = wprog._tables_on(cuda_device)
+    x = _random_planes(12, 0, cuda_device)
+    for bad in (x.double(), x.cpu(), x[:, : 1 << 11], x.t().contiguous()):
+        with pytest.raises(ValueError):
+            fc.whole_circuit(bad, ints, coef, wprog.cluster_bits, wprog.threads)
+    sprog = seg.SegmentedProgram(tq.random_circuit(19, 60, seed=1))
+    ints, coef, maps = sprog._tables_on(cuda_device)[-1]
+    y = _random_planes(19, 0, cuda_device)
+    out = torch.empty_like(y)
+    for bad in (y.double(), y.cpu(), y[:, : 1 << 18]):
+        with pytest.raises(ValueError):
+            seg.segment(bad, out, ints, coef, maps, sprog.local_bits, True, True)
+    with pytest.raises(ValueError, match="in place"):
+        seg.segment(y, y, ints, coef, maps, sprog.local_bits, True, True)
+
+
+@pytest.mark.parametrize("kernel", ["grid_sweep", "whole_circuit", "segment"])
+def test_narrow_and_wide_instances_agree(cuda_device, kernel):
+    # each kernel is built for cores of up to 4 qubits and of up to 6; on a
+    # table of narrow cores both instances give the same amplitudes
+    n = {"grid_sweep": 20, "whole_circuit": 16, "segment": 19}[kernel]
+    c = tq.random_circuit(n, 100, seed=7)
+    x = _random_planes(n, 3, cuda_device)
+    out = []
+    for max_core in (None, 6):
+        y = x.clone()
+        if kernel == "grid_sweep":
+            prog = tgs.GridSweepProgram(c)
+            for (ints, coef), lay, t in zip(prog._tables_on(cuda_device), prog.layouts,
+                                            prog.tables):
+                assert t.max_core <= 4
+                tgs.grid_sweep(y, ints, coef, lay, prog.params.threads, max_core or t.max_core)
+        elif kernel == "whole_circuit":
+            prog = fc.WholeCircuitProgram(c)
+            ints, coef = prog._tables_on(cuda_device)
+            fc.whole_circuit(y, ints, coef, prog.cluster_bits, prog.threads,
+                             max_core or prog.table.max_core)
+        else:
+            prog = seg.SegmentedProgram(c)
+            step, (ints, coef, maps) = prog.steps[0], prog._tables_on(cuda_device)[0]
+            dst = y if step.in_place else torch.empty_like(y)
+            seg.segment(y, dst, ints, coef, maps, prog.local_bits,
+                        step.gather_src is not None, step.scatter_dst is not None,
+                        prog.threads, max_core or step.table.max_core)
+            y = dst
+        out.append(y)
+    torch.cuda.synchronize()
+    assert float((out[0] - out[1]).abs().max()) <= 1e-7
+
+
+def test_wrappers_refuse_cores_wider_than_six(cuda_device):
+    prog = fc.WholeCircuitProgram(tq.random_circuit(12, 20, seed=1))
+    ints, coef = prog._tables_on(cuda_device)
+    x = _random_planes(12, 0, cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fc.whole_circuit(x, ints, coef, prog.cluster_bits, prog.threads, 7)

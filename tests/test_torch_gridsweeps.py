@@ -271,20 +271,28 @@ def test_cpu_program_runs_plain_version_without_launching():
 def test_program_bytes_and_flops():
     prog = tgs.GridSweepProgram(tq.Circuit(N).h(0).rz(1, 0.3).cnot(0, 12), PORT_P)
     assert prog.bytes_moved() == prog.num_sweeps * 16 * (1 << N)
-    # h: dense 1q (16 flops/amp); rz: diagonal (6); cnot: dense 1q on half
-    assert prog.flops() == (16 + 6 + 8) * (1 << N)
+    # h: two real multiplies and an add per amplitude (6 flops); rz: one
+    # complex multiply (6); cnot: a permutation, no arithmetic (0)
+    assert prog.flops() == (6 + 6 + 0) * (1 << N)
 
 
 def test_dispatch_routing_table():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for n in range(10, 19):
+        assert dispatch.engine_for(n, np.float32, cuda) == "whole_circuit"
+    assert dispatch.engine_for(19, np.float32, cuda) == "segmented"
     assert dispatch.engine_for(20, np.float32, cuda) == "grid_sweep"
     assert dispatch.engine_for(30, np.float32, cuda) == "grid_sweep"
-    assert dispatch.engine_for(19, np.float32, cuda) == "torch"
+    assert dispatch.engine_for(9, np.float32, cuda) == "torch"
+    assert dispatch.engine_for(16, np.float64, cuda) == "torch"
     assert dispatch.engine_for(28, np.float64, cuda) == "torch"
     assert dispatch.engine_for(28, np.float32, cpu) == "torch"
+    assert dispatch.engine_for(14, np.float32, cpu) == "torch"
 
 
-def test_dispatch_raises_for_unplaceable_circuit():
+def _unplaceable(n: int) -> "tq.Circuit":
+    """A dense 6-qubit gate on the top six qubits: more moving high qubits
+    than a grid sweep's active budget of 5."""
     from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 
     rng = np.random.default_rng(1)
@@ -292,6 +300,54 @@ def test_dispatch_raises_for_unplaceable_circuit():
     u, _ = np.linalg.qr(m)
     if "torch_port_dense6" not in GATE_ARITY:
         register_gate("torch_port_dense6", u)
-    c = tq.Circuit(22).add("torch_port_dense6", 16, 17, 18, 19, 20, 21)
-    with pytest.raises(NotImplementedError, match="sweeps, segmented"):
-        dispatch.build_grid_run(c)
+    return tq.Circuit(n).add("torch_port_dense6", *range(n - 6, n))
+
+
+def test_dispatch_raises_for_unplaceable_circuit():
+    # a dense core wider than any kernel takes (6 qubits): the grid planner
+    # refuses it and the segmented engine's op table raises, naming the limit
+    from tpu_qsim_torch.gates import GATE_ARITY, register_gate
+
+    rng = np.random.default_rng(2)
+    m = rng.standard_normal((128, 128)) + 1j * rng.standard_normal((128, 128))
+    if "torch_port_dense7" not in GATE_ARITY:
+        register_gate("torch_port_dense7", np.linalg.qr(m)[0])
+    c = tq.Circuit(22).add("torch_port_dense7", *range(15, 22))
+    with pytest.raises(ValueError):
+        tgs.GridSweepProgram(c)
+    with pytest.raises(NotImplementedError, match="at most 6"):
+        dispatch.plan_run(c, np.float32, torch.device("cuda"))
+
+
+def test_dispatch_routes_unplaceable_circuit_to_segmented():
+    # the grid planner refuses the circuit; dispatch routes it to the
+    # segmented engine, the JAX package's final fallback up to 26q
+    c = _unplaceable(22)
+    with pytest.raises(ValueError):
+        tgs.GridSweepProgram(c)
+    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    assert engine == "segmented" and prog.num_segments >= 1
+    assert prog.local_bits >= 13                 # room for 6 relocated qubits
+
+
+def test_dispatch_unplaceable_above_segmented_range_takes_torch_engine():
+    # above 26q the JAX package takes its XLA engine; the port its torch engine
+    engine, prog = dispatch.plan_run(_unplaceable(28), np.float32, torch.device("cuda"))
+    assert engine == "torch" and prog is None
+
+
+@pytest.mark.parametrize("n,engine", [
+    (9, "torch"), (10, "whole_circuit"), (13, "whole_circuit"), (18, "whole_circuit"),
+    (19, "segmented"), (20, "grid_sweep"), (22, "grid_sweep"),
+])
+def test_dispatch_plans_the_engine_of_the_table(n, engine):
+    from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram
+    from tpu_qsim_torch.kernels.segmented import SegmentedProgram
+
+    got, prog = dispatch.plan_run(tq.ghz_circuit(n), np.float32, torch.device("cuda"))
+    assert got == engine
+    kind = {"torch": type(None), "whole_circuit": WholeCircuitProgram,
+            "segmented": SegmentedProgram, "grid_sweep": tgs.GridSweepProgram}[engine]
+    assert isinstance(prog, kind)
+    got, prog = dispatch.plan_run(tq.ghz_circuit(n), np.float32, torch.device("cpu"))
+    assert (got, prog) == ("torch", None)

@@ -32,9 +32,10 @@ def test_port_has_the_slice_modules():
     names = set(_port_modules())
     for mod in (
         "gates", "circuit", "config", "commute", "cpu_reference", "fusion",
-        "apply", "base", "statevector", "convert", "kernels.fused_circuit",
-        "kernels.sweeps", "kernels.gridsweeps", "kernels.dispatch",
-        "kernels._build",
+        "apply", "base", "statevector", "convert", "schedule",
+        "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
+        "kernels.segmented", "kernels.dispatch", "kernels._build",
+        "kernels.tune_grid", "kernels.tune_small",
     ):
         assert f"tpu_qsim_torch.{mod}" in names
 

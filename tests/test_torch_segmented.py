@@ -1,0 +1,310 @@
+"""Segmented engine of the port against the JAX package's.
+
+* The port's ``plan_segments`` and ``plan_blockswap_segments`` give the JAX
+  planners' plans: the same segments, gates, ``perm_src`` and restore.
+* The port's ``permute_qubits`` agrees with the JAX one exactly (a copy of
+  the same values), and with a plain numpy relabeling on the bits the JAX
+  one refuses to move.
+* ``SegmentedProgram.run_plain`` agrees with the JAX segmented engine in
+  Pallas interpret mode at 12 qubits within 5e-5, the tolerance of
+  ``tests/test_segmented.py``.
+* The gather and scatter maps and the op tables, executed by a numpy mirror
+  of ``csrc/segment.cu`` (lookup tables included), agree with the complex128
+  oracle within 1e-6. The CUDA kernels run only on the card
+  (tests/test_torch_cuda.py).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_qsim as jq
+import tpu_qsim.apply as jap
+from tpu_qsim import schedule as jsched
+from tpu_qsim.kernels.segmented import build_segmented_run
+
+import tpu_qsim_torch as tq
+from tpu_qsim_torch import schedule as tsched
+from tpu_qsim_torch.convert import circuit_from_jax
+from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
+from tpu_qsim_torch.kernels import segmented as seg
+
+from conftest import random_state
+from test_torch_whole_circuit import emulate_ops
+
+N = 13
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_jax_cache_writes():
+    """Keep this module's JAX compiles out of the persistent cache."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    prev = getattr(jax.config, key)
+    jax.config.update(key, 1e9)
+    yield
+    jax.config.update(key, prev)
+
+
+def _mixed_circuit(n: int) -> "jq.Circuit":
+    c = jq.Circuit(n)
+    c.h(n - 1).h(0).toffoli(n - 1, 3, n - 2).cry(1, n - 1, 0.3)
+    c.mcz(0, 5, n - 2, n - 1).swap(n - 2, n - 1).crz(n - 1, 2, 0.7)
+    c.cp(n - 2, n - 1, 1.1).swap(0, n - 3).rx(n - 3, 0.4).cz(n - 1, 4)
+    c.ry(n - 2, 1.3).cnot(n - 3, n - 1).t(n - 1).s(0).y(n - 2)
+    return c
+
+
+def _same_gate(pg, jg) -> bool:
+    return (pg.name, tuple(pg.qubits), pg.param, pg.matrix_bytes) == (
+        jg.name, tuple(jg.qubits), jg.param, jg.matrix_bytes)
+
+
+# ---------------------------------------------------------------------------
+# planner parity
+# ---------------------------------------------------------------------------
+
+
+def _low_first(c: "jq.Circuit") -> "jq.Circuit":
+    """``c`` behind an h on qubit 0: with ``stage_min`` both planners refuse
+    a relocation before the first segment, and spin when no ready gate is
+    local, so a staged plan has to open on a local gate."""
+    out = jq.Circuit(c.num_qubits).h(0)
+    for g in c.gates:
+        out.append(g)
+    return out
+
+
+@pytest.mark.parametrize("local_bits,stage_min", [(10, None), (11, None), (12, None), (12, 10)])
+@pytest.mark.parametrize("name", ["random0", "random1", "random2", "qft", "mixed"])
+def test_plan_segments_matches_jax(name, local_bits, stage_min):
+    c = {
+        "random0": lambda: jq.random_circuit(N, 120, seed=0),
+        "random1": lambda: jq.random_circuit(N, 80, seed=1),
+        "random2": lambda: jq.random_circuit(N, 200, seed=2),
+        "qft": lambda: jq.qft_circuit(N),
+        "mixed": lambda: _mixed_circuit(N),
+    }[name]()
+    if stage_min is not None:
+        c = _low_first(c)
+    jsegs, jrest = jsched.plan_segments(c, local_bits, stage_min=stage_min)
+    psegs, prest = tsched.plan_segments(circuit_from_jax(c), local_bits, stage_min=stage_min)
+    assert prest == jrest
+    assert len(psegs) == len(jsegs)
+    for ps, js in zip(psegs, jsegs):
+        assert ps.perm_src == js.perm_src
+        assert len(ps.gates) == len(js.gates)
+        assert all(_same_gate(pg, jg) for pg, jg in zip(ps.gates, js.gates))
+
+
+@pytest.mark.parametrize("device_bits,swap_min", [(1, 7), (2, 3)])
+def test_plan_blockswap_segments_matches_jax(device_bits, swap_min):
+    c = jq.random_circuit(N, 100, seed=device_bits)
+    jsegs, jpos = jsched.plan_blockswap_segments(c, device_bits, swap_min)
+    psegs, ppos = tsched.plan_blockswap_segments(circuit_from_jax(c), device_bits, swap_min)
+    assert ppos == jpos and len(psegs) == len(jsegs)
+    for ps, js in zip(psegs, jsegs):
+        assert ps.victims == js.victims
+        assert [q for _, q in ps.gates] == [q for _, q in js.gates]
+        for (pu, _), (ju, _) in zip(ps.gates, js.gates):
+            np.testing.assert_array_equal(pu, ju)
+
+
+def test_plan_segments_refuses_like_jax():
+    c = jq.random_circuit(N, 10, seed=0)
+    for mod, circ in ((jsched, c), (tsched, circuit_from_jax(c))):
+        with pytest.raises(ValueError, match="whole-circuit"):
+            mod.plan_segments(circ, N)
+        with pytest.raises(ValueError, match="swap slots"):
+            mod.plan_segments(circ, 9)
+
+
+# ---------------------------------------------------------------------------
+# permute_qubits
+# ---------------------------------------------------------------------------
+
+
+def _numpy_permute(psi: np.ndarray, src) -> np.ndarray:
+    n = len(src)
+    new = np.arange(1 << n)
+    old = np.zeros_like(new)
+    for i, s in enumerate(src):
+        old |= ((new >> i) & 1) << s
+    return psi[old]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_permute_qubits_matches_jax(seed):
+    n = 12
+    rng = np.random.default_rng(seed)
+    src = tuple(range(7)) + tuple(7 + rng.permutation(n - 7))
+    psi = random_state(n, rng)
+    want = jap.to_complex(jap.permute_qubits(jap.from_complex(psi, np.float32), src))
+    x = tq.apply.from_complex(psi, np.float32, "cpu")
+    got = tq.apply.to_complex(tq.apply.permute_qubits(x, src))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_permute_qubits_moves_low_bits(seed):
+    n = 9
+    rng = np.random.default_rng(seed)
+    src = tuple(int(s) for s in rng.permutation(n))
+    psi = random_state(n, rng)
+    x = tq.apply.from_complex(psi, np.float64, "cpu")
+    got = tq.apply.to_complex(tq.apply.permute_qubits(x, src))
+    np.testing.assert_array_equal(got, _numpy_permute(psi, src))
+    assert tq.apply.permute_qubits(x, tuple(range(n))) is x
+    with pytest.raises(ValueError, match="permutation"):
+        tq.apply.permute_qubits(x, (0,) * n)
+
+
+# ---------------------------------------------------------------------------
+# program against the JAX segmented engine (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_program_matches_jax_segmented(seed):
+    n = 12
+    c = jq.random_circuit(n, 80, seed=seed)
+    fn = build_segmented_run(c, np.float32, local_bits=10, interpret=True)
+    want = jap.to_complex(fn(jap.initial_state(n, np.float32)))
+    prog = seg.SegmentedProgram(circuit_from_jax(c), local_bits=10)
+    assert prog.local_bits == 10
+    got = tq.apply.to_complex(prog.run(tq.apply.initial_state(n, np.float32, device="cpu")))
+    np.testing.assert_allclose(got, want, atol=5e-5)
+    ora = jq.CPUReferenceSimulator(n)
+    ora.run(c)
+    np.testing.assert_allclose(got, ora.get_state(), atol=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# maps and op tables, executed by a numpy mirror of csrc/segment.cu
+# ---------------------------------------------------------------------------
+
+
+def _lut_map(bits, n: int, lb: int, b: int) -> np.ndarray:
+    """segment.cu's index map for block b: the block's share plus the two
+    lookup tables (bits 0-7 and 8-13 of the slot index)."""
+    def map_bits(x, start, count):
+        y = np.zeros_like(x)
+        for i in range(count):
+            y |= ((x >> i) & 1) << int(bits[start + i])
+        return y
+
+    nlo, nhi = min(lb, 8), max(lb - 8, 0)
+    lo = map_bits(np.arange(256) & ((1 << nlo) - 1), 0, nlo)
+    hi = map_bits(np.arange(64) & ((1 << nhi) - 1), 8, nhi)
+    block = int(map_bits(np.array([b]), lb, n - lb)[0])
+    ls = np.arange(1 << lb)
+    return block | lo[ls & 255] | hi[ls >> 8]
+
+
+def emulate_segments(psi: np.ndarray, prog: seg.SegmentedProgram) -> np.ndarray:
+    """Run the program's launches as segment.cu does, block by block."""
+    n, lb = prog.num_qubits, prog.local_bits
+    cur = psi.astype(np.complex128).copy()
+    for step in prog.steps:
+        maps = seg.segment_maps(step, n)
+        out = cur if step.in_place else np.full_like(cur, np.nan)
+        for b in range(1 << (n - lb)):
+            ident = (b << lb) | np.arange(1 << lb)
+            src = ident if step.gather_src is None else _lut_map(maps, n, lb, b)
+            block = cur[src].copy().reshape(1, -1)
+            emulate_ops(block, step.table)
+            dst = ident if step.scatter_dst is None else _lut_map(maps[seg.MAP_WORDS:], n, lb, b)
+            out[dst] = block[0]
+        assert not np.isnan(out).any()
+        cur = out
+    return cur
+
+
+@pytest.mark.parametrize("n,local_bits", [(12, 10), (13, 11), (13, 12)])
+@pytest.mark.parametrize("name", ["random", "qft", "mixed"])
+def test_maps_emulation_matches_oracle(name, n, local_bits):
+    c = {
+        "random": lambda: tq.random_circuit(n, 100, seed=n + local_bits),
+        "qft": lambda: tq.qft_circuit(n),
+        "mixed": lambda: circuit_from_jax(_mixed_circuit(n)),
+    }[name]()
+    prog = seg.SegmentedProgram(c, local_bits=local_bits)
+    psi = random_state(n, np.random.default_rng(local_bits))
+    got = emulate_segments(psi, prog)
+    ref = tq.CPUReferenceSimulator(n)
+    ref.set_state(psi)
+    ref.run(c)
+    np.testing.assert_allclose(got, ref.state, atol=1e-6, rtol=0)
+    x = torch.from_numpy(np.stack([psi.real, psi.imag]).astype(np.float32))
+    np.testing.assert_allclose(
+        tq.apply.to_complex(prog.run_plain(x)), ref.state, atol=1e-5, rtol=0
+    )
+
+
+def test_lut_map_is_the_relabeling():
+    n, lb = 13, 11
+    rng = np.random.default_rng(0)
+    src = tuple(int(s) for s in rng.permutation(n))
+    full = np.concatenate([_lut_map(src, n, lb, b) for b in range(1 << (n - lb))])
+    psi = random_state(n, rng)
+    np.testing.assert_array_equal(psi[full], _numpy_permute(psi, src))
+
+
+# ---------------------------------------------------------------------------
+# program and wrapper on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_program_steps_and_restore():
+    c = tq.random_circuit(N, 100, seed=5)
+    prog = seg.SegmentedProgram(c, local_bits=10)
+    segs, restore = tsched.plan_segments(c, 10)
+    assert prog.num_segments == len(segs) and prog.restore == restore
+    assert [s.gather_src for s in prog.steps] == [s.perm_src for s in segs]
+    for step, sg in zip(prog.steps[:-1], segs):
+        assert step.in_place == (sg.perm_src is None) and step.kernel == "segment"
+    assert restore != tuple(range(N))
+    last = prog.steps[-1]
+    assert last.kernel == "scatter_segment"
+    assert [restore[d] for d in last.scatter_dst] == list(range(N))
+    assert all(s.scatter_dst is None for s in prog.steps[:-1])
+    assert prog.bytes_moved() == prog.num_segments * 16 * (1 << N)
+    assert prog.flops() == sum(s.table.flops_per_amp for s in prog.steps) * (1 << N)
+
+
+def test_program_widens_block_for_wide_gates():
+    from tpu_qsim_torch.gates import GATE_ARITY, register_gate
+
+    rng = np.random.default_rng(1)
+    m = rng.standard_normal((64, 64)) + 1j * rng.standard_normal((64, 64))
+    if "torch_seg_dense6" not in GATE_ARITY:
+        register_gate("torch_seg_dense6", np.linalg.qr(m)[0])
+    # 13 qubits: a 6-qubit gate needs a block of 7 + 6 = 13 bits, the whole state
+    c = tq.random_circuit(N, 30, seed=1).add("torch_seg_dense6", 12, 11, 10, 9, 8, 7)
+    with pytest.raises(ValueError, match="needs local_bits"):
+        seg.SegmentedProgram(c, local_bits=10)
+    c14 = tq.random_circuit(14, 30, seed=1).add("torch_seg_dense6", 13, 12, 11, 10, 9, 8)
+    prog = seg.SegmentedProgram(c14, local_bits=10)
+    assert prog.local_bits == 13
+    psi = random_state(14, np.random.default_rng(2))
+    ref = tq.CPUReferenceSimulator(14)
+    ref.set_state(psi)
+    ref.run(c14)
+    np.testing.assert_allclose(emulate_segments(psi, prog), ref.state, atol=1e-6, rtol=0)
+
+
+def test_cpu_program_runs_plain_version_without_launching():
+    reset_launches()
+    prog = seg.SegmentedProgram(tq.random_circuit(N, 60, seed=3), local_bits=10)
+    x = tq.apply.initial_state(N, np.float32, device="cpu")
+    np.testing.assert_array_equal(prog.run(x).numpy(), prog.run_plain(x).numpy())
+    assert LAUNCHES["segment"] == LAUNCHES["scatter_segment"] == 0
+    ints, coef, maps = prog._tables_on(torch.device("cpu"))[-1]
+    with pytest.raises(ValueError, match="CUDA"):
+        seg.segment(x, torch.empty_like(x), ints, coef, maps, 10, True, True)
+    with pytest.raises(ValueError, match="float32"):
+        prog.run(x.double())
+    with pytest.raises(ValueError, match="local_bits"):
+        seg.SegmentedProgram(tq.random_circuit(20, 10, seed=3), local_bits=15)
+    with pytest.raises(ValueError, match="n <= 26"):
+        seg.SegmentedProgram(tq.Circuit(27).h(0))

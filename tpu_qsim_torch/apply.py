@@ -187,6 +187,49 @@ def apply_diagonal(
     return y.reshape(2, 1 << n)
 
 
+def permute_qubits(state: torch.Tensor, src: tuple[int, ...]) -> torch.Tensor:
+    """Relabel index bits: new index bit ``i`` = old index bit ``src[i]``.
+
+    The counterpart of ``tpu_qsim/apply.py::permute_qubits`` and the plain
+    version of the segment kernels' gather and scatter maps. The JAX
+    function refuses to move bits 0..6, which are the TPU's 128-lane axis;
+    nothing here depends on that layout, so any permutation of ``range(n)``
+    is taken. Each maximal run of unmoved bits stays one axis of the
+    transpose, so the copy has at most ``2 * moved + 1`` axes.
+    """
+    n = num_qubits_of(state)
+    src = tuple(int(s) for s in src)
+    if sorted(src) != list(range(n)):
+        raise ValueError("src must be a permutation of range(n)")
+    moved = {i for i in range(n) if src[i] != i}
+    if not moved:
+        return state
+    shape: list[int] = []
+    axis_of_bit: dict[int, int] = {}
+    slot_bit: list[int | None] = []     # per axis: the exposed bit, or None
+    i = n - 1
+    while i >= 0:
+        if i in moved:
+            axis_of_bit[i] = len(shape)
+            slot_bit.append(i)
+            shape.append(2)
+            i -= 1
+        else:
+            j = i
+            while j >= 0 and j not in moved:
+                j -= 1
+            slot_bit.append(None)
+            shape.append(1 << (i - j))
+            i = j
+    # the axis that holds new bit b takes the old axis of bit src[b]; the
+    # moved set is closed under src, so every such axis exists
+    perm = [0] + [
+        1 + (axis_of_bit[src[b]] if b is not None else k)
+        for k, b in enumerate(slot_bit)
+    ]
+    return state.reshape([2] + shape).permute(perm).reshape(2, 1 << n)
+
+
 # ---------------------------------------------------------------------------
 # Readout / measurement primitives
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ through simulator constructors. The JAX package's Pallas knobs
 (``use_pallas``, ``pallas_interpret``, ``pallas_whole_circuit_max``,
 ``donate_state``) have no counterpart here: the engine is chosen by size,
 dtype and device in :mod:`tpu_qsim_torch.kernels.dispatch`, and the CUDA
-kernel updates the state in place.
+kernels update the state in place or in a second buffer.
 """
 
 from __future__ import annotations
@@ -22,12 +22,12 @@ class SimConfig:
 
     Attributes:
       dtype: complex dtype name for the state ("complex64" or "complex128").
-        complex64 runs as float32 planes and takes the CUDA grid-sweep
-        kernel at 20-30 qubits; complex128 runs as float64 planes on the
-        torch engine.
+        complex64 runs as float32 planes and takes the CUDA kernels at
+        10-30 qubits (:mod:`tpu_qsim_torch.kernels.dispatch`); complex128
+        runs as float64 planes on the torch engine.
       fuse: run the gate-fusion pass before the torch engine applies the
         circuit (one reshape-and-matmul pass per fused group instead of one
-        per gate). The grid-sweep kernel plans its own sweeps and ignores it.
+        per gate). The CUDA kernels plan their own ops and ignore it.
       max_fused_qubits: cap on the qubit count of one fused gate group.
       renorm_every: renormalize the state every N gate groups on the torch
         engine (0 = never); the float32 norm drift mitigation of

@@ -1,11 +1,14 @@
 """Build and load the CUDA kernels with a plain ``nvcc`` subprocess.
 
-Each ``csrc/*.cu`` source is compiled into a shared library with a plain C
-interface and loaded with :mod:`ctypes`: no ``torch.utils.cpp_extension``,
-no ninja and no PyTorch headers, so a build takes seconds. Libraries land in
-``kernels/_build/`` (not tracked by git), keyed by a hash of the source and
-the compiler flags, so the first call on a fresh checkout builds and later
-calls reuse the library. A failed build raises; nothing falls back.
+Each ``csrc/<name>.cu`` source is compiled into a shared library with a
+plain C interface and loaded with :mod:`ctypes` by :func:`library`: no
+``torch.utils.cpp_extension``, no ninja and no PyTorch headers, so a build
+takes seconds. Libraries land in ``kernels/_build/`` (not tracked by git),
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+compiler flags, so the first call on a fresh checkout builds, a change to
+``ops.cuh`` rebuilds every kernel, and later calls reuse the library.
+:func:`build_all` starts one ``nvcc`` per source at once. A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -43,10 +46,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# name -> {C function: argtypes}; every launch returns an int (cudaError_t)
+# and every library has <name>_error_string(int) -> const char*
+SIGNATURES: dict[str, dict[str, list]] = {
+    "grid_sweep": {
+        # state, dim, table, coef, kbits, steps, threads, max_core, stream
+        "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _I, _P],
+    },
+    "whole_circuit": {
+        # n, cluster_bits, threads, int* clusters
+        "whole_circuit_prepare": [_I, _I, _I, _P],
+        # state, n, table, coef, cluster_bits, threads, max_core, stream
+        "whole_circuit_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    },
+    "segment": {
+        "segment_prepare": [],
+        # in, out, dim, n, table, coef, maps, gather, local_bits, threads,
+        # max_core, stream
+        "segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "scatter_segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    key = hashlib.sha256()
+    key.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -55,7 +85,7 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -72,20 +102,34 @@ def build(name: str) -> Path:
     return out
 
 
-def grid_sweep_library() -> ctypes.CDLL:
-    """The loaded, bound library of ``csrc/grid_sweep.cu``, built on first
-    use."""
+def build_all(names=tuple(SIGNATURES)) -> None:
+    """Build every named library at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(build, name) for name in names]:
+            fut.result()
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` with its functions' argument
+    types set (pointers and the stream as ``c_void_p``), built on first use."""
     with _lock:
-        lib = _libs.get("grid_sweep")
+        lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build("grid_sweep")))
-            lib.grid_sweep_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.grid_sweep_launch.restype = ctypes.c_int
-            lib.grid_sweep_error_string.argtypes = [ctypes.c_int]
-            lib.grid_sweep_error_string.restype = ctypes.c_char_p
-            _libs["grid_sweep"] = lib
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
         return lib
+
+
+def check(name: str, lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise RuntimeError when a launch function returned non-zero."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")

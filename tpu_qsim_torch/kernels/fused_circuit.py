@@ -1,25 +1,34 @@
-"""Planner gates and the grid-sweep kernel's device op table.
+"""Planner gates, the device op table, and the whole-circuit kernel's program.
 
 Host half of ``tpu_qsim/kernels/fused_circuit.py``: ``PGate``, ``as_pgates``,
 ``merge_1q_chains`` and the matrix tests the planners share, copied without
-JAX. The whole-circuit kernel of that module (``build_pallas_run_gates``) is
-not ported yet.
+JAX.
 
 :func:`build_op_table` replaces ``materialize_ops`` for the CUDA card. The
 TPU planner composed 7-qubit lane/row windows into 128x128 matmuls and
 resolved out-of-block bits through per-step ``ext`` scalars; both are TPU
-layout. Here a sweep's gates become a flat int32 table of ops (one header per
+layout. Here a block's gates become a flat int32 table of ops (one header per
 op) plus a float32 table of coefficients composed on the host in complex128,
-which one compiled kernel (``csrc/grid_sweep.cu``) interprets for any circuit.
+which the compiled kernels (``csrc/ops.cuh``, included by ``grid_sweep.cu``,
+``whole_circuit.cu`` and ``segment.cu``) interpret for any circuit.
+
+:class:`WholeCircuitProgram` is the counterpart of ``build_pallas_run`` /
+``build_pallas_run_gates``: the whole circuit in one launch of
+``csrc/whole_circuit.cu``, on a state held in the distributed shared memory
+of one thread-block cluster (10-18 qubits).
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from .. import apply as ap
 from ..gates import op_matrix
+from . import LAUNCHES
 
 _SWAP_U = np.array(
     [[1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
@@ -152,10 +161,11 @@ def merge_1q_chains(pgates: list[PGate]) -> list[PGate]:
 
 
 # ---------------------------------------------------------------------------
-# Device op table (read by csrc/grid_sweep.cu; keep the two in step)
+# Device op table (read by csrc/ops.cuh; keep the two in step)
 # ---------------------------------------------------------------------------
 
 SWEEP_HEADER = 64        # int32 words before the first op
+HEADER_MAX_CORE = 4      # header word: the widest dense core (ops.cuh checks it)
 OP_HEADER = 32           # int32 words per op
 KIND_DIAG = 0
 KIND_DENSE = 1
@@ -163,8 +173,8 @@ KIND_DENSE = 1
 # read from the CTA's share of the global index (bits outside the block)
 EXT = 32
 MAX_DIAG_QUBITS = 16     # op words [8, 24)
-MAX_DENSE_QUBITS = 4     # per-thread gather of 2^m amplitudes in registers
-MAX_BLOCK_BITS = 14      # 2 planes x 2^14 x 4 B = 128 KB of shared memory
+MAX_DENSE_QUBITS = 6     # per-thread gather of 2^m amplitudes (op words 24-30)
+MAX_BLOCK_BITS = 14      # 2 planes x 2^14 x 4 B = 128 KB of one CTA's shared memory
 
 
 @dataclass(frozen=True)
@@ -201,7 +211,37 @@ class OpTable:
 
     ints: np.ndarray          # (SWEEP_HEADER + OP_HEADER * n_ops,) int32
     coef: np.ndarray          # (n_coef, 2) float32
-    flops_per_amp: float      # real flops per amplitude the ops apply
+    flops_per_amp: float      # real flops per amplitude the ops need (min_flops)
+    max_core: int             # widest dense core, 0 without one
+
+
+def _mul_flops(z: np.ndarray) -> np.ndarray:
+    """Real flops of multiplying an amplitude by each coefficient: 0 for
+    +-1 and +-i (a sign or a swap of planes), 2 for any other real or
+    imaginary number, 6 for a general complex one."""
+    real = np.abs(z.imag) <= 1e-12
+    imag = np.abs(z.real) <= 1e-12
+    unit = (real & np.isclose(np.abs(z.real), 1.0, rtol=0, atol=1e-12)) | (
+        imag & np.isclose(np.abs(z.imag), 1.0, rtol=0, atol=1e-12)
+    )
+    return np.where(unit, 0.0, np.where(real | imag, 2.0, 6.0))
+
+
+def min_flops(u: np.ndarray, diagonal: bool) -> float:
+    """Real flops per amplitude that applying ``u`` needs at the least.
+
+    A diagonal multiplies each amplitude by its entry. A dense core forms
+    each output from the nonzero entries of its row: one multiply per entry
+    (:func:`_mul_flops`) and a complex add (2 flops) per entry after the
+    first. So a permutation with unit phases (X, CNOT's core, SWAP) needs
+    nothing, and H 6 flops per amplitude.
+    """
+    if diagonal:
+        return float(_mul_flops(np.diagonal(u)).mean())
+    nz = np.abs(u) > 1e-12
+    mul = np.where(nz, _mul_flops(u), 0.0).sum()
+    adds = 2.0 * np.maximum(nz.sum(axis=1) - 1, 0).sum()
+    return float(mul + adds) / u.shape[0]
 
 
 def _peel_controls(u: np.ndarray, qubits: tuple[int, ...]):
@@ -217,19 +257,23 @@ def _peel_controls(u: np.ndarray, qubits: tuple[int, ...]):
     return ctrls, u, qubits
 
 
-def build_op_table(pgates: list[PGate], layout: BlockLayout) -> OpTable:
-    """Turn one sweep's gates into the kernel's device op table.
+def build_op_table(
+    pgates: list[PGate], layout: BlockLayout, max_bits: int = MAX_BLOCK_BITS,
+) -> OpTable:
+    """Turn one block's gates into the kernels' device op table.
 
     A diagonal gate becomes one DIAG op over all its qubits (any bit, in or
     out of the block). Any other gate peels its control layers into a mask
     on the block-local index and a mask on the CTA's out-of-block bits, and
     its core becomes one DENSE op whose qubits must lie in the block (the
-    planner's ``moving_qubits`` guarantee).
+    planner's ``moving_qubits`` guarantee). ``max_bits`` is the largest
+    block the caller's kernel holds: one CTA's shared memory, or a cluster's
+    for the whole-circuit kernel.
     """
-    if layout.kbits > MAX_BLOCK_BITS:
+    if layout.kbits > max_bits:
         raise ValueError(
             f"a block of 2^{layout.kbits} amplitudes exceeds shared memory "
-            f"(at most 2^{MAX_BLOCK_BITS})"
+            f"(at most 2^{max_bits})"
         )
     head = np.zeros(SWEEP_HEADER, dtype=np.int32)
     inact = layout.inactive
@@ -243,6 +287,7 @@ def build_op_table(pgates: list[PGate], layout: BlockLayout) -> OpTable:
     coefs: list[np.ndarray] = []
     n_coef = 0
     flops = 0.0
+    max_core = 0
     for op, g in zip(ops, pgates):
         u = np.asarray(g.u, dtype=np.complex128)
         if _is_diagonal(u):
@@ -255,7 +300,7 @@ def build_op_table(pgates: list[PGate], layout: BlockLayout) -> OpTable:
             op[0] = KIND_DIAG
             op[8:8 + m] = [layout.code(q) for q in g.qubits]
             c = np.diagonal(u)
-            flops += 6.0
+            flops += min_flops(u, diagonal=True)
         else:
             ctrls, core, qs = _peel_controls(u, tuple(g.qubits))
             m = len(qs)
@@ -282,16 +327,215 @@ def build_op_table(pgates: list[PGate], layout: BlockLayout) -> OpTable:
             op[8:8 + m] = codes
             op[24:24 + m] = sorted(codes)
             c = core.reshape(-1)
-            # 2^m outputs per group of 2^m inputs, one complex MAC (8 flops)
-            # each, on the 2^-len(ctrls) share of amplitudes the controls pass
-            flops += 8.0 * (1 << m) / (1 << len(ctrls))
+            max_core = max(max_core, m)
+            # on the 2^-len(ctrls) share of amplitudes the controls pass
+            flops += min_flops(core, diagonal=False) / (1 << len(ctrls))
         op[1] = m
         op[2] = n_coef
         coefs.append(c)
         n_coef += c.size
+    head[HEADER_MAX_CORE] = max_core
     flat = np.concatenate(coefs) if coefs else np.zeros(1, np.complex128)
     coef = np.stack([flat.real, flat.imag], axis=1).astype(np.float32)
     return OpTable(
         np.concatenate([head, ops.reshape(-1)]), np.ascontiguousarray(coef),
-        flops,
+        flops, max_core,
     )
+
+
+def apply_pgates(state: torch.Tensor, pgates: list[PGate]) -> torch.Tensor:
+    """The kernels' plain version: ``pgates`` one by one through the torch
+    engine, in the order the op table applies them."""
+    rdtype = np.float32
+    for g in pgates:
+        if _is_diagonal(g.u):
+            dr, di = ap.split_matrix(np.diagonal(g.u), rdtype)
+            state = ap.apply_diagonal(state, dr, di, g.qubits)
+        else:
+            ur, ui = ap.split_matrix(g.u, rdtype)
+            state = ap.apply_unitary(state, ur, ui, g.qubits)
+    return state
+
+
+def check_planes(state: torch.Tensor, n: int, what: str) -> None:
+    """Raise ValueError unless ``state`` is (2, 2^n) float32 planes."""
+    if tuple(state.shape) != (2, 1 << n):
+        raise ValueError(f"state shape {tuple(state.shape)} != (2, {1 << n})")
+    if state.dtype != torch.float32:
+        raise ValueError(f"the {what} path is float32-only")
+
+
+def check_kernel_inputs(
+    state: torch.Tensor, ints: torch.Tensor, coef: torch.Tensor,
+) -> int:
+    """Raise ValueError unless ``state`` is contiguous (2, 2^n) float32
+    planes on a CUDA device and ``ints``/``coef`` contiguous int32/float32
+    tables on the same device; return n."""
+    if not state.is_cuda or state.dtype != torch.float32:
+        raise ValueError("the kernel takes a float32 CUDA state")
+    dim = state.shape[-1]
+    if (
+        state.dim() != 2 or state.shape[0] != 2 or dim & (dim - 1)
+        or not state.is_contiguous()
+    ):
+        raise ValueError(
+            f"state must be contiguous (2, 2^n) planes, got {tuple(state.shape)}"
+        )
+    for t, dt in ((ints, torch.int32), (coef, torch.float32)):
+        if t.device != state.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("op tables must be contiguous, typed, on the state's device")
+    return int(dim).bit_length() - 1
+
+
+# ---------------------------------------------------------------------------
+# Whole-circuit kernel (csrc/whole_circuit.cu)
+# ---------------------------------------------------------------------------
+
+MIN_WHOLE_CIRCUIT_QUBITS = 10   # as the JAX package's MIN_PALLAS_QUBITS
+MAX_WHOLE_CIRCUIT_QUBITS = 18   # 16 CTAs x 2^14 slots; the JAX policy ceiling too
+MAX_CLUSTER_BITS = 4            # 16 CTAs, the card's non-portable maximum
+# qubits -> (log2 of the cluster's CTAs, threads per CTA), chosen on the H100
+# with ``python -m tpu_qsim_torch.kernels.tune_small`` (PERF.md)
+GEOMETRY = {
+    10: (1, 512), 11: (2, 512), 12: (3, 512), 13: (4, 512), 14: (4, 256),
+    15: (4, 256), 16: (4, 512), 17: (4, 1024), 18: (4, 1024),
+}
+
+# (device, n, cluster bits, threads) -> clusters the card holds at once
+_placeable: dict[tuple, int] = {}
+
+
+def placeable_clusters(
+    device: torch.device, n: int, cluster_bits: int, threads: int,
+) -> int:
+    """How many clusters of ``2^cluster_bits`` CTAs for an ``n``-qubit
+    state the card can hold at once (0: it cannot place one), from
+    ``cudaOccupancyMaxActiveClusters`` after the kernel's attributes are
+    set. Asked once per process and geometry."""
+    from . import _build
+
+    key = (torch.device(device), n, cluster_bits, threads)
+    if key not in _placeable:
+        lib = _build.library("whole_circuit")
+        clusters = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = lib.whole_circuit_prepare(
+                n, cluster_bits, threads, ctypes.byref(clusters)
+            )
+        _build.check("whole_circuit", lib, err, "whole_circuit_prepare")
+        _placeable[key] = clusters.value
+    return _placeable[key]
+
+
+def whole_circuit(
+    state: torch.Tensor,
+    ints: torch.Tensor,
+    coef: torch.Tensor,
+    cluster_bits: int,
+    threads: int,
+    max_core: int = MAX_DENSE_QUBITS,
+) -> torch.Tensor:
+    """Launch the whole-circuit kernel on ``state`` (in place).
+
+    ``ints``/``coef`` are the device copies of the circuit's
+    :class:`OpTable` over ``BlockLayout(n, n, ())``, ``max_core`` its widest
+    dense core (the kernel instance for narrow cores is launched when it is
+    at most 4). Raises when the card
+    cannot place one cluster of ``2^cluster_bits`` CTAs. Launches on the
+    current stream without synchronizing and raises on a refused launch.
+    """
+    from . import _build
+
+    n = check_kernel_inputs(state, ints, coef)
+    if placeable_clusters(state.device, n, cluster_bits, threads) < 1:
+        raise RuntimeError(
+            f"the card cannot place a cluster of {1 << cluster_bits} CTAs x "
+            f"{8 << (n - cluster_bits)} B of shared memory"
+        )
+    lib = _build.library("whole_circuit")
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = lib.whole_circuit_launch(
+            state.data_ptr(), n, ints.data_ptr(), coef.data_ptr(),
+            cluster_bits, threads, max_core, stream,
+        )
+    _build.check("whole_circuit", lib, err, "whole_circuit launch")
+    LAUNCHES["whole_circuit"] += 1
+    return state
+
+
+class WholeCircuitProgram:
+    """The whole circuit as one launch of the whole-circuit kernel.
+
+    The counterpart of ``build_pallas_run`` (10-18 qubits). ``run`` maps
+    (2, 2^n) float32 planes to planes: on a CUDA tensor it launches the
+    kernel once, in place; on a CPU tensor it runs the plain version,
+    :meth:`run_plain`. ``cluster_bits`` and ``threads`` default to the
+    card's table :data:`GEOMETRY`.
+    """
+
+    def __init__(
+        self,
+        circuit,
+        cluster_bits: int | None = None,
+        threads: int | None = None,
+    ):
+        n = circuit.num_qubits
+        if not MIN_WHOLE_CIRCUIT_QUBITS <= n <= MAX_WHOLE_CIRCUIT_QUBITS:
+            raise ValueError(
+                f"the whole-circuit kernel takes {MIN_WHOLE_CIRCUIT_QUBITS}.."
+                f"{MAX_WHOLE_CIRCUIT_QUBITS} qubits, got {n}"
+            )
+        c = GEOMETRY[n][0] if cluster_bits is None else int(cluster_bits)
+        threads = GEOMETRY[n][1] if threads is None else int(threads)
+        if not (0 <= c <= MAX_CLUSTER_BITS and n - c <= MAX_BLOCK_BITS):
+            raise ValueError(
+                f"a cluster of 2^{c} CTAs cannot hold {n} qubits (at most "
+                f"2^{MAX_CLUSTER_BITS} CTAs of 2^{MAX_BLOCK_BITS} slots)"
+            )
+        if not 32 <= threads <= 1024:
+            raise ValueError(f"threads must be in [32, 1024], got {threads}")
+        self.num_qubits = n
+        self.cluster_bits = c
+        self.threads = threads
+        self.gates = merge_1q_chains(as_pgates(circuit.gates))
+        self.layout = BlockLayout(n, n, ())
+        self.table = build_op_table(self.gates, self.layout, max_bits=n)
+        self._device_tables: dict[torch.device, tuple] = {}
+
+    def _tables_on(self, device: torch.device) -> tuple:
+        tabs = self._device_tables.get(device)
+        if tabs is None:
+            tabs = (torch.from_numpy(self.table.ints).to(device),
+                    torch.from_numpy(self.table.coef).to(device))
+            self._device_tables[device] = tabs
+        return tabs
+
+    def run(self, state: torch.Tensor) -> torch.Tensor:
+        check_planes(state, self.num_qubits, "whole-circuit")
+        if state.device.type == "cpu":
+            return self.run_plain(state)
+        if state.device.type != "cuda":
+            raise ValueError(f"no whole-circuit kernel for device {state.device}")
+        state = state.contiguous()
+        ints, coef = self._tables_on(state.device)
+        return whole_circuit(
+            state, ints, coef, self.cluster_bits, self.threads, self.table.max_core
+        )
+
+    __call__ = run
+
+    def run_plain(self, state: torch.Tensor) -> torch.Tensor:
+        """The plain version: the merged gate list through the torch engine,
+        op by op, as the kernel applies it."""
+        check_planes(state, self.num_qubits, "whole-circuit")
+        return apply_pgates(state, self.gates)
+
+    def flops(self) -> float:
+        """Real flops one run needs (from the op table)."""
+        return float(self.table.flops_per_amp) * (1 << self.num_qubits)
+
+    def bytes_moved(self) -> int:
+        """Device-memory bytes one run must move: both float32 planes read
+        and written once."""
+        return 2 * 2 * 4 * (1 << self.num_qubits)

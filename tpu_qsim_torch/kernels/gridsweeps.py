@@ -24,18 +24,20 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import apply as ap
 from ..circuit import Circuit
 from ..gates import gate_matrix
 from . import LAUNCHES
 from .fused_circuit import (
+    MAX_DENSE_QUBITS,
     BlockLayout,
     OpTable,
     PGate,
     _SWAP_U,
-    _is_diagonal,
+    apply_pgates,
     as_pgates,
     build_op_table,
+    check_kernel_inputs,
+    check_planes,
     merge_1q_chains,
 )
 from .sweeps import MAX_SWEEP_GATES, moving_qubits
@@ -290,35 +292,31 @@ def grid_sweep(
     coef: torch.Tensor,
     layout: BlockLayout,
     threads: int = THREADS,
+    max_core: int = MAX_DENSE_QUBITS,
 ) -> torch.Tensor:
     """Launch the CUDA kernel for one sweep on ``state`` (in place).
 
     ``ints``/``coef`` are the device copies of the sweep's
-    :class:`~tpu_qsim_torch.kernels.fused_circuit.OpTable`. Launches on the
-    current stream without synchronizing and raises on a refused launch.
+    :class:`~tpu_qsim_torch.kernels.fused_circuit.OpTable`, ``max_core`` its
+    widest dense core (the kernel instance for narrow cores is launched when
+    it is at most 4). Launches on the current stream without synchronizing
+    and raises on a refused launch.
     """
-    from ._build import grid_sweep_library
+    from . import _build
 
+    if check_kernel_inputs(state, ints, coef) != layout.n:
+        raise ValueError(f"state must be (2, 2^{layout.n}) planes")
     dim = 1 << layout.n
-    if not state.is_cuda or state.dtype != torch.float32:
-        raise ValueError("grid_sweep takes a float32 CUDA state")
-    if tuple(state.shape) != (2, dim) or not state.is_contiguous():
-        raise ValueError(f"state must be a contiguous (2, {dim}) tensor")
-    for t, dt in ((ints, torch.int32), (coef, torch.float32)):
-        if t.device != state.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError("op tables must be contiguous, typed, on the state's device")
-    lib = grid_sweep_library()
+    lib = _build.library("grid_sweep")
     kbits = layout.kbits
     steps = 1 << len(layout.inactive)
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.grid_sweep_launch(
             state.data_ptr(), dim, ints.data_ptr(), coef.data_ptr(), kbits,
-            steps, min(threads, 1 << kbits), stream,
+            steps, min(threads, 1 << kbits), max_core, stream,
         )
-    if err != 0:
-        msg = lib.grid_sweep_error_string(err).decode()
-        raise RuntimeError(f"grid_sweep launch failed: {msg} ({err})")
+    _build.check("grid_sweep", lib, err, "grid_sweep launch")
     LAUNCHES["grid_sweep"] += 1
     return state
 
@@ -369,23 +367,17 @@ class GridSweepProgram:
             self._device_tables[device] = tabs
         return tabs
 
-    def _check(self, state: torch.Tensor) -> None:
-        if tuple(state.shape) != (2, 1 << self.num_qubits):
-            raise ValueError(
-                f"state shape {tuple(state.shape)} != (2, {1 << self.num_qubits})"
-            )
-        if state.dtype != torch.float32:
-            raise ValueError("the grid sweep path is float32-only")
-
     def run(self, state: torch.Tensor) -> torch.Tensor:
-        self._check(state)
+        check_planes(state, self.num_qubits, "grid sweep")
         if state.device.type == "cpu":
             return self.run_plain(state)
         if state.device.type != "cuda":
             raise ValueError(f"no grid-sweep kernel for device {state.device}")
         state = state.contiguous()
-        for (ints, coef), lay in zip(self._tables_on(state.device), self.layouts):
-            grid_sweep(state, ints, coef, lay, self.params.threads)
+        for (ints, coef), lay, table in zip(
+            self._tables_on(state.device), self.layouts, self.tables
+        ):
+            grid_sweep(state, ints, coef, lay, self.params.threads, table.max_core)
         return state
 
     __call__ = run
@@ -393,20 +385,13 @@ class GridSweepProgram:
     def run_plain(self, state: torch.Tensor) -> torch.Tensor:
         """The plain version: each sweep's gate list through the torch
         engine, in the order the kernel applies it."""
-        self._check(state)
-        rdtype = np.float32
+        check_planes(state, self.num_qubits, "grid sweep")
         for gates in self.sweep_gates:
-            for g in gates:
-                if _is_diagonal(g.u):
-                    dr, di = ap.split_matrix(np.diagonal(g.u), rdtype)
-                    state = ap.apply_diagonal(state, dr, di, g.qubits)
-                else:
-                    ur, ui = ap.split_matrix(g.u, rdtype)
-                    state = ap.apply_unitary(state, ur, ui, g.qubits)
+            state = apply_pgates(state, gates)
         return state
 
     def flops(self) -> float:
-        """Real flops one run applies (from the op tables)."""
+        """Real flops one run needs (from the op tables)."""
         return float(sum(t.flops_per_amp for t in self.tables)) * (1 << self.num_qubits)
 
     def bytes_moved(self) -> int:

@@ -1,6 +1,7 @@
 """Time the grid-sweep kernel across block geometries on the card.
 
     python -m tpu_qsim_torch.kernels.tune_grid [--qubits 28] [--gates 100]
+        [--candidate BLK,A,THREADS ...]
 
 For each (blk_bits, a_max, threads) candidate: plan ``random_circuit(n, g,
 seed=42)``, check one run against the plain torch version, then print the
@@ -47,7 +48,13 @@ def main() -> None:
     ap_ = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap_.add_argument("--qubits", type=int, default=28)
     ap_.add_argument("--gates", type=int, default=100)
+    ap_.add_argument("--candidate", action="append", default=None,
+                     metavar="BLK,A,THREADS",
+                     help="time only these geometries (repeatable)")
     args = ap_.parse_args()
+    candidates = CANDIDATES if args.candidate is None else [
+        tuple(int(v) for v in text.split(",")) for text in args.candidate
+    ]
     if not torch.cuda.is_available():
         raise SystemExit("tune_grid needs a CUDA card")
     card = subprocess.run(
@@ -57,11 +64,11 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     n = args.qubits
     c = random_circuit(n, args.gates, seed=42)
-    progs = {cand: GridSweepProgram(c, GridParams(*cand)) for cand in CANDIDATES}
+    progs = {cand: GridSweepProgram(c, GridParams(*cand)) for cand in candidates}
     x0 = ap.initial_state(n, np.float32, device="cuda")
-    plain = progs[CANDIDATES[0]].run_plain(x0.clone())
+    plain = progs[candidates[0]].run_plain(x0.clone())
     rows = []
-    for pass_ in (CANDIDATES, CANDIDATES[::-1]):
+    for pass_ in (candidates, candidates[::-1]):
         for blk, a, threads in pass_:
             prog = progs[(blk, a, threads)]
             state = prog.run(x0.clone())

@@ -1,10 +1,12 @@
 """State-vector simulator: the port's main path.
 
 The counterpart of ``tpu_qsim/statevector.py``. ``run`` routes a circuit
-through :mod:`tpu_qsim_torch.kernels.dispatch`: float32 states of 20-30
-qubits on the card go through the hand-written grid-sweep kernel, which
-updates the state in place; everything else goes through the fused torch
-engine. Readout is inherited from :class:`tpu_qsim_torch.base.BaseSimulator`.
+through :mod:`tpu_qsim_torch.kernels.dispatch`: float32 states on the card
+go through the hand-written kernels (whole-circuit at 10-18 qubits,
+segmented at 19, grid-sweep at 20-30, segmented again where the grid planner
+refuses a circuit of up to 26 qubits); everything else goes through the
+fused torch engine. Readout is inherited from
+:class:`tpu_qsim_torch.base.BaseSimulator`.
 """
 
 from __future__ import annotations
@@ -78,12 +80,8 @@ class StateVectorSimulator(BaseSimulator):
         key = circuit.signature()
         hit = self._run_cache.get(key)
         if hit is None:
-            engine = dispatch.engine_for(
-                self.num_qubits, self._rdtype, self.device
-            )
-            if engine == "grid_sweep":
-                fn = dispatch.build_grid_run(circuit)
-            else:
+            engine, fn = dispatch.plan_run(circuit, self._rdtype, self.device)
+            if fn is None:
                 groups = (
                     fuse_circuit(circuit, self.config.max_fused_qubits)
                     if self.config.fuse
