@@ -5,9 +5,9 @@
 
 Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
-1. build ``grid_sweep.cu``, ``whole_circuit.cu`` and ``segment.cu``, one
-   nvcc each, all at once (under 60 s in all), with ptxas's registers and
-   spills;
+1. build ``grid_sweep.cu``, ``whole_circuit.cu``, ``segment.cu`` and
+   ``sweep.cu``, one nvcc each, all at once (under 60 s in all), with
+   ptxas's registers and spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
 3. whole-circuit kernel: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
@@ -25,18 +25,33 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    refuses runs on the segmented engine and matches its plain version
    (1e-6); ``random_circuit(24, 100, seed=42)`` through the segmented and
    the grid-sweep programs agrees within 1e-6;
-7. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
+7. sweeps engine: ``random_circuit(22, 100, seed=42)`` through
+   ``build_sweep_run`` against the oracle (1e-6); 26 qubits, the sweeps main
+   path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
+   qubits 10-17 (the grid planner refuses it), ``random_circuit(26, 40,
+   seed=43)`` through ``StateVectorSimulator(26).run`` then readout,
+   counted (only ``low_sweep``/``high_sweep``), against its plain version
+   (1e-7, 1 - fidelity <= 1e-5), and each sweep kernel against its plain
+   version on one input (1e-7); ``random_circuit(26, 100, seed=42)`` through
+   the sweeps and the grid-sweep programs agrees within 1e-6;
+8. dense cores of 7 and 8 qubits through ``run``: the whole circuit at 12
+   qubits against the oracle, segments at 22 (7 qubits on 15-21) and the grid
+   sweep at 26 (on qubits 0..k-1) against their plain versions (1e-6);
+9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
-8. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
-   and histogram, QFT|0> amplitudes;
-9. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
-   grid-sweep run, the whole-circuit kernel at 12, 16 and 18 qubits and the
-   segment kernels at 19, beside the plain versions, the torch engine (the
-   route below 20 qubits before these kernels) and the bound. Below 20
-   qubits a kernel's time is its device time, from CUDA-graph replays of
-   its launches (many per event pair); the eager time through the Python
-   wrappers is printed beside it.
+10. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
+    and histogram, QFT|0> amplitudes;
+11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
+    grid-sweep run, the whole-circuit kernel at 12, 16 and 18 qubits, the
+    segment kernels at 19 and the 26-qubit sweeps runs (each sweep, each
+    kernel's share, and the grid sweep on the same random circuit), beside
+    the plain versions, the torch engine (the route below 20 qubits before
+    these kernels) and the bound; and the cost of one 6-, 7- and 8-qubit
+    dense op in a low sweep and a grid sweep at 26 qubits. Below 20 qubits a
+    kernel's time is its device time, from CUDA-graph replays of its
+    launches (many per event pair); the eager time through the Python
+    wrappers is printed beside it.
 
 Every check raises on failure. The last two lines are the kernels JSON and
 the device JSON; the exit code is 0 only if every phase passed.
@@ -62,11 +77,14 @@ from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
 from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, placeable_clusters
 from tpu_qsim_torch.kernels.gridsweeps import GridSweepProgram, grid_sweep
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, segment
+from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
 from tpu_qsim_torch.statevector import build_torch_run_fn
 
 N_MAIN = 28
 N_WHOLE = 18       # the whole-circuit kernel's main path
 N_SEG = 19         # the segmented engine's main path
+N_SWEEPS = 26      # the sweeps engine's main path
+N_SWEEPS_ORACLE = 22
 SMS = 132          # H100 SXM
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # non-tensor-core float32 peak, same source
@@ -153,9 +171,10 @@ def phase_20q_oracle() -> dict:
     return {"max_abs_err": err, "fidelity": fid}
 
 
-def phase_main(n: int, engine: str, kernels: tuple[str, ...]) -> dict:
-    """A main path, counted; then its kernels against their plain version."""
-    c = tq.random_circuit(n, 100, seed=42)
+def phase_main(n: int, engine: str, kernels: tuple[str, ...], circuit=None) -> dict:
+    """A main path (``random_circuit(n, 100, seed=42)`` unless ``circuit`` is
+    given), counted; then its kernels against their plain version."""
+    c = tq.random_circuit(n, 100, seed=42) if circuit is None else circuit
     t0 = time.perf_counter()
     reset_launches()
     sim = tq.StateVectorSimulator(n, seed=42)
@@ -353,6 +372,125 @@ def phase_grid_fallback() -> dict:
     return {"fallback_err": err, "cross_err": cross}
 
 
+def wide_core_circuit(n: int, k: int, lo: int) -> "tq.Circuit":
+    """``random_circuit(n, 40, seed=42)``, a k-qubit dense gate on qubits
+    lo..lo+k-1, then ``random_circuit(n, 40, seed=43)``."""
+    c = tq.random_circuit(n, 40, seed=42)
+    c.add(_dense_gate(k), *range(lo, lo + k))
+    for g in tq.random_circuit(n, 40, seed=43).gates:
+        c.add(g.name, *g.qubits, param=g.param)
+    return c
+
+
+def phase_22q_sweeps_oracle() -> dict:
+    n = N_SWEEPS_ORACLE
+    t0 = time.perf_counter()
+    c = tq.random_circuit(n, 100, seed=42)
+    prog = build_sweep_run(c)
+    reset_launches()
+    got = prog.run(ap.initial_state(n, np.float32, device="cuda"))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    err, fid = compare(got, oracle_planes(c, got.device))
+    log(f"phase {n}q_sweeps_oracle: wall_s={time.perf_counter() - t0:.3f} max_abs_err={err:.3e} "
+        f"(tol 1e-6) fidelity={fid:.9f} sweeps={prog.sweep_kinds} "
+        f"ops={[len(g) for g in prog.sweep_gates]} launches={launches}")
+    check(launches == {k: prog.sweep_kinds.count(k[:-6]) for k in ("low_sweep", "high_sweep")},
+          f"{n}q sweeps launches {launches}")
+    check(err <= 1e-6, f"{n}q sweeps max |d amp| {err} > 1e-6")
+    return {"max_abs_err": err}
+
+
+def phase_sweeps_main() -> dict:
+    """26q, the sweeps main path: a circuit the grid planner refuses (an
+    8-qubit dense gate on qubits 10-17) through the simulator, counted; each
+    sweep kernel against its plain version on one input."""
+    n = N_SWEEPS
+    c = wide_core_circuit(n, 8, 10)
+    check(grid_planner_refuses(c), "the grid planner took the sweeps main-path circuit")
+    res = phase_main(n, "sweeps", ("low_sweep", "high_sweep"), circuit=c)
+    prog = res["prog"]
+    kinds = prog.sweep_kinds
+    want = {f"{k}_sweep": kinds.count(k) for k in ("low", "high")}
+    check(res["launches"] == want, f"launches {res['launches']} for sweeps {kinds}")
+    step_err = {"low_sweep": 0.0, "high_sweep": 0.0}
+    t0 = time.perf_counter()
+    x = random_planes(n, 5)
+    for i, kind in enumerate(kinds):
+        got = prog.launch(x.clone(), i)
+        want_i = prog.step_plain(x, i)
+        e, _ = compare(got, want_i)
+        step_err[f"{kind}_sweep"] = max(step_err[f"{kind}_sweep"], e)
+        del got
+        x = want_i
+    del x
+    log(f"phase {n}q_sweep_vs_plain: wall_s={time.perf_counter() - t0:.3f} "
+        f"max_abs_err={step_err} (tol 1e-7) sweeps={kinds} "
+        f"ops={[len(g) for g in prog.sweep_gates]} max_core={[t.max_core for t in prog.tables]} "
+        f"active={[lay.active for lay in prog.layouts]}")
+    check(max(step_err.values()) <= 1e-7, f"sweep kernels vs plain {step_err}")
+    res["step_err"] = step_err
+    res["circuit"] = c
+    return res
+
+
+def grid_planner_refuses(c) -> bool:
+    try:
+        GridSweepProgram(c)
+    except ValueError:
+        return True
+    return False
+
+
+def phase_sweeps_cross_engine() -> dict:
+    n = N_SWEEPS
+    t0 = time.perf_counter()
+    c = tq.random_circuit(n, 100, seed=42)
+    sprog, gprog = build_sweep_run(c), GridSweepProgram(c)
+    a = sprog.run(ap.initial_state(n, np.float32, device="cuda"))
+    b = gprog.run(ap.initial_state(n, np.float32, device="cuda"))
+    cross, fid = compare(a, b)
+    del a, b
+    log(f"phase {n}q_sweeps_cross_engine: wall_s={time.perf_counter() - t0:.3f} "
+        f"sweeps={sprog.sweep_kinds} grid_sweeps={gprog.num_sweeps} max_abs_err={cross:.3e} "
+        f"(tol 1e-6) fidelity={fid:.9f}")
+    check(cross <= 1e-6, f"{n}q sweeps vs grid sweep {cross} > 1e-6")
+    return {"cross_err": cross, "sprog": sprog, "gprog": gprog}
+
+
+def phase_wide_cores() -> dict:
+    """Dense cores of 7 and 8 qubits through ``run`` on every kernel: the
+    whole circuit at 12q against the oracle, segments (22q, qubits 15-21)
+    and the grid sweep (26q, qubits 0..k-1) against their plain version."""
+    errs = {}
+    for n, k, lo, engine in ((12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
+                             (22, 7, 15, "segmented"), (26, 7, 0, "grid_sweep"),
+                             (26, 8, 0, "grid_sweep")):
+        t0 = time.perf_counter()
+        c = wide_core_circuit(n, k, lo)
+        reset_launches()
+        sim = tq.StateVectorSimulator(n, seed=1)
+        sim.run(c)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        ran = sim.engine
+        _, prog = sim.compiled_run(c)
+        if n <= 14:
+            want, ref = oracle_planes(c, sim.device), "oracle"
+        else:
+            want, ref = prog.run_plain(ap.initial_state(n, np.float32, device="cuda")), "plain"
+        err, _ = compare(sim.state_planes, want)
+        del sim, want
+        log(f"phase wide_core: n={n} k={k} qubits={lo}..{lo + k - 1} engine={ran} "
+            f"wall_s={time.perf_counter() - t0:.3f} launches={launches} "
+            f"max_abs_err={err:.3e} vs {ref} (tol 1e-6)")
+        check(ran == engine and sum(launches.values()) >= 1 and err <= 1e-6,
+              f"{k}-qubit core at {n}q: engine {ran} (want {engine}), "
+              f"launches {launches}, error {err}")
+        errs[f"{n}q_{k}"] = err
+    return errs
+
+
 def time_cuda(fn, reps: int, inner: int = 1) -> list[float]:
     """``reps`` CUDA-event times of ``inner`` back-to-back calls, per call."""
     out = []
@@ -482,6 +620,68 @@ def phase_timing_segmented(prog: SegmentedProgram) -> dict:
             "torch_engine_ms": engine_ms, "kernels": kernels, **b}
 
 
+def sweeps_timing(prog, label: str) -> dict:
+    """One sweeps program at 26q: the run, each sweep, each kernel's share,
+    beside the plain versions and the bound."""
+    n = prog.num_qubits
+    x = random_planes(n, 2)
+    ms = median_ms(lambda: prog.run(x))
+    plain_ms = median_ms(lambda: prog.run_plain(x), reps=3)
+    per, per_plain = [], []
+    for i in range(prog.num_sweeps):
+        per.append(median_ms(lambda: prog.launch(x, i), reps=3))
+        per_plain.append(median_ms(lambda: prog.step_plain(x, i), reps=3))
+    del x
+    b = bound(prog.bytes_moved(), prog.flops())
+    kernels = {}
+    for kind in ("low", "high"):
+        idx = [i for i, k in enumerate(prog.sweep_kinds) if k == kind]
+        bytes_ms = len(idx) * 16 * (1 << n) / HBM_BYTES_PER_S * 1e3
+        flops_ms = sum(prog.tables[i].flops_per_amp for i in idx) * (1 << n) / FP32_FLOP_PER_S * 1e3
+        kernels[f"{kind}_sweep"] = {
+            "ms": sum(per[i] for i in idx), "plain_ms": sum(per_plain[i] for i in idx),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "per_launch_ms": [per[i] for i in idx]}
+    log(f"phase timing_sweeps: {label} n={n} sweeps={prog.sweep_kinds} "
+        f"ops={[len(g) for g in prog.sweep_gates]} max_core={[t.max_core for t in prog.tables]} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.4f} "
+        f"bytes_ms={b['bytes_ms']:.4f} flops_ms={b['flops_ms']:.4f} "
+        f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.geometry} "
+        f"per_kernel={json.dumps(kernels)}")
+    return {"ms": ms, "plain_ms": plain_ms, "kernels": kernels, **b}
+
+
+def phase_timing_sweeps(main_prog, cross: dict) -> dict:
+    """The sweeps main path's run (an 8-qubit core among 80 random gates),
+    then ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid
+    sweep, then the wide-core op's cost: one op of a k-qubit core in a low
+    sweep (qubits 17-k..16) and in a grid sweep (qubits 0..k-1) at 26q, less
+    the same sweep with one 1-qubit op."""
+    res = {"main": sweeps_timing(main_prog, "main_path"),
+           "random": sweeps_timing(cross["sprog"], "random_circuit_100")}
+    n = N_SWEEPS
+    x = random_planes(n, 3)
+    grid_ms = median_ms(lambda: cross["gprog"].run(x))
+    log(f"phase timing_sweeps: random_circuit_100 grid_sweep_ms={grid_ms:.4f} "
+        f"sweeps_ms={res['random']['ms']:.4f}")
+    res["grid_ms"] = grid_ms
+    one_op = {}
+    for k in (1, 6, 7, 8):
+        gate = "h" if k == 1 else _dense_gate(k)
+        # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
+        sprog = SweepProgram(tq.Circuit(n).add(gate, *range(17 - k, 17)))
+        gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)))
+        check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
+        one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
+    del x
+    res["wide_op_ms"] = {k: {"low_sweep": one_op[k][0] - one_op[1][0],
+                             "grid_sweep": one_op[k][1] - one_op[1][1]} for k in (6, 7, 8)}
+    log(f"phase timing_wide_op: n={n} one_op_ms(low_sweep, grid_sweep)={one_op} "
+        f"per_op_ms_beyond_a_1q_op={json.dumps(res['wide_op_ms'])}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -498,11 +698,16 @@ def main() -> int:
     seg = phase_segmented()
     seg_closed = phase_closed_forms(N_SEG, "segmented")
     fallback = phase_grid_fallback()
+    sweeps_oracle = phase_22q_sweeps_oracle()
+    sweeps = phase_sweeps_main()
+    cross = phase_sweeps_cross_engine()
+    wide = phase_wide_cores()
     main_res = phase_28q_main()
     closed = phase_closed_forms(N_MAIN, "grid_sweep")
     timing = phase_timing(main_res["sim"], main_res["prog"])
     t_whole = phase_timing_whole_circuit()
     t_seg = phase_timing_segmented(seg["prog"])
+    t_sweeps = phase_timing_sweeps(sweeps["prog"], cross)
     kernels = [{
         "name": "grid_sweep",
         "route": "cuda",
@@ -559,6 +764,30 @@ def main() -> int:
             "qft_max_mag_err": seg_closed["qft_max_mag_err"],
             "fallback_max_abs_err": fallback["fallback_err"],
             "cross_engine_max_abs_err": fallback["cross_err"],
+        })
+    for name, line in (("low_sweep", 292), ("high_sweep", 370)):
+        k = t_sweeps["main"]["kernels"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_qsim_torch/kernels/csrc/sweep.cu",
+            "replaces": f"tpu_qsim/kernels/sweeps.py:{line}",
+            "launches": sweeps["launches"][name],
+            "max_abs_err": sweeps["step_err"][name],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+            "run_ms": t_sweeps["main"]["ms"],
+            "run_bound_ms": t_sweeps["main"]["bound_ms"],
+            "run_fidelity": sweeps["fidelity"],
+            "random_circuit_run_ms": t_sweeps["random"]["ms"],
+            "random_circuit_grid_sweep_ms": t_sweeps["grid_ms"],
+            "oracle_22q_max_abs_err": sweeps_oracle["max_abs_err"],
+            "cross_engine_max_abs_err": cross["cross_err"],
+            "wide_op_ms": t_sweeps["wide_op_ms"],
+            "wide_core_max_abs_err": wide,
         })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain torch versions, on the card.
 
-grid_sweep, whole_circuit, segment and scatter_segment each run against the
-plain version of their program; the simulator's routing and each wrapper's
-refusals are checked too.
+grid_sweep, whole_circuit, segment, scatter_segment, low_sweep and
+high_sweep each run against the plain version of their program, dense cores
+of 7 and 8 qubits on each kernel too; the simulator's routing and each
+wrapper's refusals are checked as well.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -24,6 +25,7 @@ from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
 from tpu_qsim_torch.kernels import segmented as seg
+from tpu_qsim_torch.kernels import sweeps as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -197,17 +199,24 @@ def test_new_wrappers_reject_bad_inputs(cuda_device):
         seg.segment(y, y, ints, coef, maps, sprog.local_bits, True, True)
 
 
-@pytest.mark.parametrize("kernel", ["grid_sweep", "whole_circuit", "segment"])
+@pytest.mark.parametrize("kernel", ["grid_sweep", "whole_circuit", "segment", "sweep"])
 def test_narrow_and_wide_instances_agree(cuda_device, kernel):
-    # each kernel is built for cores of up to 4 qubits and of up to 6; on a
+    # each kernel is built for cores of up to 4 qubits and of up to 8; on a
     # table of narrow cores both instances give the same amplitudes
-    n = {"grid_sweep": 20, "whole_circuit": 16, "segment": 19}[kernel]
+    n = {"grid_sweep": 20, "whole_circuit": 16, "segment": 19, "sweep": 22}[kernel]
     c = tq.random_circuit(n, 100, seed=7)
     x = _random_planes(n, 3, cuda_device)
     out = []
-    for max_core in (None, 6):
+    for max_core in (None, 8):
         y = x.clone()
-        if kernel == "grid_sweep":
+        if kernel == "sweep":
+            prog = ts.SweepProgram(c)
+            for (ints, coef), kind, lay, t in zip(prog._tables_on(cuda_device), prog.sweep_kinds,
+                                                  prog.layouts, prog.tables):
+                assert t.max_core <= 4
+                fn = ts.low_sweep if kind == "low" else ts.high_sweep
+                fn(y, ints, coef, lay, prog.geometry, max_core or t.max_core)
+        elif kernel == "grid_sweep":
             prog = tgs.GridSweepProgram(c)
             for (ints, coef), lay, t in zip(prog._tables_on(cuda_device), prog.layouts,
                                             prog.tables):
@@ -232,8 +241,67 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
 
 
 def test_wrappers_refuse_cores_wider_than_six(cuda_device):
+    # since the wide-core op the kernels take cores of up to 8 qubits
+    # (MAX_DENSE_QUBITS); a launch for a wider one is refused
     prog = fc.WholeCircuitProgram(tq.random_circuit(12, 20, seed=1))
     ints, coef = prog._tables_on(cuda_device)
     x = _random_planes(12, 0, cuda_device)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fc.whole_circuit(x, ints, coef, prog.cluster_bits, prog.threads, 7)
+        fc.whole_circuit(x, ints, coef, prog.cluster_bits, prog.threads,
+                         fc.MAX_DENSE_QUBITS + 1)
+
+
+@pytest.mark.parametrize("n", [22, 26])
+def test_sweep_kernels_match_plain(cuda_device, n):
+    prog = ts.SweepProgram(tq.random_circuit(n, 100, seed=42))
+    kinds = prog.sweep_kinds
+    assert set(kinds) == {"low", "high"}
+    x = _random_planes(n, n, cuda_device)
+    reset_launches()
+    for i in range(prog.num_sweeps):
+        got = prog.launch(x.clone(), i)
+        want = prog.step_plain(x, i)
+        assert float((got - want).abs().max()) <= 1e-6, (i, kinds[i])
+        x = want
+    torch.cuda.synchronize()
+    assert LAUNCHES["low_sweep"] == kinds.count("low")
+    assert LAUNCHES["high_sweep"] == kinds.count("high")
+
+
+@pytest.mark.parametrize("geometry", [
+    ts.SweepGeometry(256, 1), ts.SweepGeometry(512, 4), ts.SweepGeometry(1024, 2),
+])
+def test_sweep_geometries_agree(cuda_device, geometry):
+    c = tq.random_circuit(24, 100, seed=5)
+    x = _random_planes(24, 1, cuda_device)
+    want = ts.SweepProgram(c).run(x.clone())
+    got = ts.SweepProgram(c, geometry=geometry).run(x.clone())
+    assert float((got - want).abs().max()) <= 1e-7
+
+
+def _dense_core_circuit(n: int, k: int, lo: int) -> tq.Circuit:
+    """A k-qubit dense gate on qubits lo..lo+k-1 between two random layers."""
+    c = tq.random_circuit(n, 40, seed=k)
+    c.add(_dense_gate(k), *range(lo, lo + k))
+    for g in tq.random_circuit(n, 40, seed=k + 1).gates:
+        c.add(g.name, *g.qubits, param=g.param)
+    return c
+
+
+@pytest.mark.parametrize("n,k,lo,engine", [
+    (12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
+    (22, 7, 0, "grid_sweep"), (22, 8, 0, "grid_sweep"),
+    (22, 7, 15, "segmented"),
+    (22, 7, 8, "sweeps"), (24, 7, 12, "sweeps"), (24, 8, 10, "sweeps"),
+    (26, 8, 10, "sweeps"),
+])
+def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
+    c = _dense_core_circuit(n, k, lo)
+    reset_launches()
+    sim = tq.StateVectorSimulator(n).run(c)
+    torch.cuda.synchronize()
+    assert sim.engine == engine
+    assert sum(LAUNCHES.values()) >= 1
+    _, prog = sim.compiled_run(c)
+    want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
+    assert float((sim.state_planes - want).abs().max()) <= 1e-6

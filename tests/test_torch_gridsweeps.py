@@ -132,6 +132,13 @@ def test_program_matches_jax_grid_engine(seed):
 # ---------------------------------------------------------------------------
 
 
+def core_matrix(w: np.ndarray, off: int, m: int) -> np.ndarray:
+    """A dense op's 2^m x 2^m core from the coefficient table: row-major up
+    to ``GATHER_CORE`` qubits, column-major above (ops.cuh's wide op)."""
+    u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
+    return u if m <= fc.GATHER_CORE else u.T
+
+
 def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
     """Apply one sweep's op table in place, CTA by CTA, as the kernel does."""
     ints, coef = table.ints, table.coef
@@ -173,7 +180,7 @@ def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
                 for j in range(1 << m)
             ]
             x = np.stack([s[base | d] for d in offs])
-            y = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m) @ x
+            y = core_matrix(w, off, m) @ x
             for j, d in enumerate(offs):
                 s[base | d] = y[j]
         re[g], im[g] = s.real, s.imag
@@ -304,9 +311,12 @@ def _unplaceable(n: int) -> "tq.Circuit":
 
 
 def test_dispatch_raises_for_unplaceable_circuit():
-    # a dense core wider than any kernel takes (6 qubits): the grid planner
-    # refuses it and the segmented engine's op table raises, naming the limit
+    # a 7-qubit dense core on the top seven qubits: the grid planner and the
+    # sweep planner refuse it, and since the wide-core op the segmented
+    # engine takes it (a 14-bit block holds 7 + 7 bits); before, its op
+    # table raised NotImplementedError
     from tpu_qsim_torch.gates import GATE_ARITY, register_gate
+    from tpu_qsim_torch.kernels.sweeps import SweepProgram
 
     rng = np.random.default_rng(2)
     m = rng.standard_normal((128, 128)) + 1j * rng.standard_normal((128, 128))
@@ -315,8 +325,11 @@ def test_dispatch_raises_for_unplaceable_circuit():
     c = tq.Circuit(22).add("torch_port_dense7", *range(15, 22))
     with pytest.raises(ValueError):
         tgs.GridSweepProgram(c)
-    with pytest.raises(NotImplementedError, match="at most 6"):
-        dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    with pytest.raises(ValueError):
+        SweepProgram(c)
+    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    assert engine == "segmented" and prog.local_bits == fc.MAX_BLOCK_BITS
+    assert max(s.table.max_core for s in prog.steps) == 7
 
 
 def test_dispatch_routes_unplaceable_circuit_to_segmented():

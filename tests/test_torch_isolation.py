@@ -35,7 +35,7 @@ def test_port_has_the_slice_modules():
         "apply", "base", "statevector", "convert", "schedule",
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
         "kernels.segmented", "kernels.dispatch", "kernels._build",
-        "kernels.tune_grid", "kernels.tune_small",
+        "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
     ):
         assert f"tpu_qsim_torch.{mod}" in names
 

@@ -1,0 +1,425 @@
+"""Sweeps engine of the port against the JAX package's.
+
+* The port's ``plan_sweeps`` gives the JAX planner's plans sweep by sweep
+  (kind, gates, active tops) at the default geometry at 22, 24 and 26
+  qubits (host planning only) and at the shrunk geometry
+  ``SweepParams(k_bits=2, rb_bits=2)`` of ``tests/test_sweeps.py``, SWAP
+  decomposition and both refusals included.
+* The op tables over the sweeps' block layouts, executed by a numpy mirror of
+  ``csrc/sweep.cu`` (:func:`emulate_sweep`: unit by unit, each op split over
+  a group's CTAs, slots at ``GlobalSlots``' state index), agree with the
+  complex128 oracle within 1e-6.
+* ``SweepProgram.run`` on the CPU (its plain version) agrees with the JAX
+  sweep engine in Pallas interpret mode and with the oracle at 12-13 qubits
+  within 1e-5 (two float32 engines; amplitudes <= 1, ~1e-7 rounding per
+  gate). The CUDA kernels run only on the card (tests/test_torch_cuda.py).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_qsim as jq
+import tpu_qsim.apply as jap
+import tpu_qsim.gates as jgates
+from tpu_qsim.kernels import sweeps as js
+
+import tpu_qsim_torch as tq
+import tpu_qsim_torch.gates as tgates
+from tpu_qsim_torch.convert import circuit_from_jax
+from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
+from tpu_qsim_torch.kernels import fused_circuit as fc
+from tpu_qsim_torch.kernels import sweeps as ts
+
+from conftest import random_state
+from test_torch_gridsweeps import core_matrix
+
+P_JAX = js.SweepParams(k_bits=2, rb_bits=2)     # blk_bits 9, 4 parts
+P = ts.SweepParams(k_bits=2, rb_bits=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_jax_cache_writes():
+    """Keep this module's JAX compiles out of the persistent cache."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    prev = getattr(jax.config, key)
+    jax.config.update(key, 1e9)
+    yield
+    jax.config.update(key, prev)
+
+
+def register_both(name: str, u: np.ndarray) -> None:
+    for mod in (jgates, tgates):
+        if name not in mod.GATE_ARITY:
+            mod.register_gate(name, u)
+
+
+def _unitary(k: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
+    return np.linalg.qr(m)[0]
+
+
+def _external_bits_circuit(n: int = 12) -> "jq.Circuit":
+    """Every flavour of out-of-block resolution under P (tops n-2, n-1; mid
+    9..n-3): diagonals on two external qubits, external controls, split
+    toffoli controls, a swap across the regions."""
+    c = jq.Circuit(n)
+    c.h(0).h(n - 1).cz(n - 2, n - 1).cp(9, n - 1, 0.4).cnot(n - 1, 2).cnot(9, 3)
+    c.toffoli(n - 1, 4, 8).cry(n - 2, 2, 0.6).crz(n - 1, 1, 0.2)
+    c.swap(8, n - 1).rz(n - 2, 0.9).x(9).h(n - 2).swap(9, n - 1)
+    return c
+
+
+CIRCUITS = {
+    "random": lambda n: jq.random_circuit(n, 100, seed=42),
+    "qft": lambda n: jq.qft_circuit(n),
+    "ghz": lambda n: jq.ghz_circuit(n),
+}
+
+
+# ---------------------------------------------------------------------------
+# planner parity
+# ---------------------------------------------------------------------------
+
+
+def _assert_same_plan(port_plan, jax_plan):
+    assert len(port_plan) == len(jax_plan)
+    for ps, js_ in zip(port_plan, jax_plan):
+        assert ps.kind == js_.kind and ps.tops == js_.tops
+        assert [(g.name, g.qubits, g.param, g.matrix_bytes) for g in ps.gates] == [
+            (g.name, g.qubits, g.param, g.matrix_bytes) for g in js_.gates]
+
+
+@pytest.mark.parametrize("name", sorted(CIRCUITS))
+@pytest.mark.parametrize("n", [22, 24, 26])
+def test_plan_matches_jax_planner_default_geometry(n, name):
+    c = CIRCUITS[name](n)
+    _assert_same_plan(ts.plan_sweeps(circuit_from_jax(c), n), js.plan_sweeps(c, n))
+
+
+@pytest.mark.parametrize("n,seed", [(12, 0), (12, 1), (13, 2), (13, 3), (14, 4)])
+def test_plan_matches_jax_planner_shrunk_geometry(n, seed):
+    c = jq.random_circuit(n, 120, seed=seed)
+    _assert_same_plan(ts.plan_sweeps(circuit_from_jax(c), n, P), js.plan_sweeps(c, n, P_JAX))
+
+
+@pytest.mark.parametrize("name", ["qft", "ghz", "external"])
+def test_plan_matches_jax_planner_structured(name):
+    c = _external_bits_circuit() if name == "external" else CIRCUITS[name](12)
+    _assert_same_plan(ts.plan_sweeps(circuit_from_jax(c), 12, P), js.plan_sweeps(c, 12, P_JAX))
+
+
+def test_gate_cap_matches_jax():
+    c = jq.Circuit(12)
+    for i in range(3 * ts.MAX_SWEEP_GATES):
+        c.h(i % 8)
+    plan = ts.plan_sweeps(circuit_from_jax(c), 12, P)
+    _assert_same_plan(plan, js.plan_sweeps(c, 12, P_JAX))
+    assert all(len(s.gates) <= ts.MAX_SWEEP_GATES for s in plan)
+
+
+def test_swap_across_regions_decomposes_in_both_planners():
+    c = jq.Circuit(12).swap(9, 11)          # mid 9 <-> top 11
+    plan = ts.plan_sweeps(circuit_from_jax(c), 12, P)
+    _assert_same_plan(plan, js.plan_sweeps(c, 12, P_JAX))
+    names = [g.name for s in plan for g in s.gates]
+    assert names == ["cnot"] * 3
+    assert [g.qubits for s in plan for g in s.gates] == [(9, 11), (11, 9), (9, 11)]
+
+
+def test_mid_and_top_gate_raises_in_both_planners():
+    theta = 0.3
+    u = np.kron(
+        np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]]),
+        np.array([[np.cos(theta), 1j * np.sin(theta)], [1j * np.sin(theta), np.cos(theta)]]),
+    )
+    register_both("torch_sweep_dense2", u)
+    c = jq.Circuit(12).add("torch_sweep_dense2", 10, 9)   # top 10 + mid 9
+    with pytest.raises(ValueError, match="mid and a top"):
+        js.plan_sweeps(c, 12, P_JAX)
+    with pytest.raises(ValueError, match="mid and a top"):
+        ts.plan_sweeps(circuit_from_jax(c), 12, P)
+
+
+def test_too_many_tops_raises_in_both_planners():
+    x5 = np.array([[1.0]])
+    for _ in range(5):
+        x5 = np.kron(x5, np.array([[0.0, 1.0], [1.0, 0.0]]))
+    register_both("torch_sweep_dense5", x5)
+    c = jq.Circuit(15).add("torch_sweep_dense5", 14, 13, 12, 11, 10)
+    with pytest.raises(ValueError, match="top qubits"):
+        js.plan_sweeps(c, 15, js.SweepParams(k_bits=5, rb_bits=2))
+    with pytest.raises(ValueError, match="top qubits"):
+        ts.plan_sweeps(circuit_from_jax(c), 15, ts.SweepParams(k_bits=5, rb_bits=2))
+
+
+def test_layouts_are_the_jax_relabelings():
+    n = 12
+    c = _external_bits_circuit(n)
+    plan = js.plan_sweeps(c, n, P_JAX)
+    for s in plan:
+        if s.kind == "low":
+            lay = ts.low_layout(n, P)
+            want = js._relabel_low(s.gates, n, P_JAX)
+        else:
+            lay = ts.high_layout(ts.Sweep(s.kind, [], set(s.tops)), n, P)
+            active = sorted(lay.active)
+            assert set(s.tops) <= set(active) and len(active) == min(js.MAX_ACTIVE_TOPS, P.k_bits)
+            want = js._relabel_high(s.gates, n, active, P_JAX)
+        for g, w in zip(s.gates, want):
+            codes = [lay.code(q) for q in g.qubits]
+            assert [k if k < fc.EXT else k - fc.EXT + js._EXT_BASE for k in codes] == list(w.qubits)
+
+
+# ---------------------------------------------------------------------------
+# the op tables, executed by a numpy mirror of csrc/sweep.cu
+# ---------------------------------------------------------------------------
+
+
+def emulate_sweep(
+    re: np.ndarray, im: np.ndarray, table: fc.OpTable, group_bits: int = 0,
+) -> None:
+    """Apply one sweep's op table to the flat planes in place, as sweep.cu
+    does: unit by unit (the inactive bits' assignments: a low sweep's parts,
+    a high sweep's steps), each op in turn, CTA r of a group of
+    ``2^group_bits`` taking the r-th contiguous part of the op's items, and
+    slot l at state index ``cta_g | (l & (2^blk - 1)) | hi_off[l >> blk]``."""
+    ints = table.ints
+    n_ops, blk, a, n_inact = (int(v) for v in ints[:4])
+    active = [int(p) for p in ints[16:16 + a]]
+    inact = [int(p) for p in ints[32:32 + n_inact]]
+    kbits = blk + a
+    hi_off = np.array([sum(1 << active[j] for j in range(a) if (h >> j) & 1)
+                       for h in range(1 << a)], dtype=np.int64)
+    w = table.coef[:, 0].astype(np.complex128) + 1j * table.coef[:, 1]
+    for u in range(1 << n_inact):
+        cta_g = sum(1 << p for b, p in enumerate(inact) if (u >> b) & 1)
+
+        def index(ls):
+            return cta_g | (ls & ((1 << blk) - 1)) | hi_off[ls >> blk]
+
+        def bit(code, ls):
+            if code < fc.EXT:
+                return (ls >> code) & 1
+            return np.full_like(ls, (cta_g >> (code - fc.EXT)) & 1)
+
+        for o in range(n_ops):
+            op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
+            if (cta_g & int(op[5])) != int(op[6]):
+                continue
+            m, off = int(op[1]), int(op[2])
+            codes = [int(x) for x in op[8:8 + m]]
+            if op[0] == fc.KIND_DIAG:
+                per = (1 << kbits) >> group_bits
+                for r in range(1 << group_bits):
+                    ls = np.arange(r * per, (r + 1) * per, dtype=np.int64)
+                    idx = np.zeros_like(ls)
+                    for code in codes:
+                        idx = (idx << 1) | bit(code, ls)
+                    g = index(ls)
+                    amp = (re[g] + 1j * im[g]) * w[off + idx]
+                    re[g], im[g] = amp.real, amp.imag
+                continue
+            pos = [int(x) for x in op[24:24 + m]]
+            assert pos == sorted(codes) and max(codes) < kbits
+            offs = [sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
+                    for j in range(1 << m)]
+            core = core_matrix(w, off, m)
+            per = (1 << (kbits - m)) >> group_bits
+            assert per >= 1
+            for r in range(1 << group_bits):
+                base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
+                for p in pos:                  # insert a 0 at each target
+                    base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+                base = base[(base & int(op[3])) == int(op[4])]
+                gs = [index(base | d) for d in offs]
+                y = core @ np.stack([re[g] + 1j * im[g] for g in gs])
+                for j, g in enumerate(gs):
+                    re[g], im[g] = y[j].real, y[j].imag
+
+
+def to_jax(c: tq.Circuit) -> "jq.Circuit":
+    """The JAX package's copy of a port circuit (its gates registered in
+    both packages, as :func:`register_both` does)."""
+    out = jq.Circuit(c.num_qubits)
+    for g in c.gates:
+        out.append(jq.Gate(g.name, g.qubits, g.param, g.matrix_bytes))
+    return out
+
+
+def jax_oracle(c: tq.Circuit, psi: np.ndarray) -> np.ndarray:
+    """``psi`` after the port circuit ``c``, by the JAX package's complex128
+    oracle."""
+    ref = jq.CPUReferenceSimulator(c.num_qubits)
+    ref.set_state(psi.astype(np.complex128))
+    ref.run(to_jax(c))
+    return ref.get_state()
+
+
+def _wide_sweep_circuit(n: int) -> "jq.Circuit":
+    """A 7-qubit core under a control outside every block (top n-1), an
+    8-qubit core with a controlled 7-qubit core inside it, on low bits, and
+    a 3-qubit core on the top bits, among random gates."""
+    register_both("torch_sweep_dense7", _unitary(7, 7))
+    register_both("torch_sweep_dense8", _unitary(8, 8))
+    cu = np.eye(256, dtype=np.complex128)
+    cu[128:, 128:] = _unitary(7, 17)
+    register_both("torch_sweep_cdense7", cu)
+    register_both("torch_sweep_dense3", _unitary(3, 3))
+    c = jq.random_circuit(n, 30, seed=n)
+    c.add("torch_sweep_dense8", 6, 0, 7, 1, 5, 2, 4, 3)
+    c.add("torch_sweep_cdense7", n - 1, 3, 8, 1, 6, 0, 5, 2)
+    c.add("torch_sweep_dense3", n - 1, n - 2, 2)
+    c.add("torch_sweep_cdense7", 4, 0, 1, 2, 3, 5, 6, 7)
+    return c.extend(jq.random_circuit(n, 30, seed=n + 1).gates)
+
+
+@pytest.mark.parametrize("group_bits", [0, 2])
+@pytest.mark.parametrize("name", ["random", "qft", "external", "wide"])
+def test_op_table_emulation_matches_oracle(name, group_bits):
+    n = 12
+    c = {
+        "random": lambda: tq.random_circuit(n, 100, seed=9),
+        "qft": lambda: tq.qft_circuit(n),
+        "external": lambda: circuit_from_jax(_external_bits_circuit(n)),
+        "wide": lambda: circuit_from_jax(_wide_sweep_circuit(n)),
+    }[name]()
+    prog = ts.SweepProgram(c, P)
+    assert set(prog.sweep_kinds) == {"low", "high"} or name == "wide"
+    psi = random_state(n, np.random.default_rng(group_bits))
+    re, im = psi.real.copy(), psi.imag.copy()
+    for table in prog.tables:
+        emulate_sweep(re, im, table, group_bits)
+    np.testing.assert_allclose(re + 1j * im, jax_oracle(c, psi), atol=1e-6, rtol=0)
+
+
+def test_sweep_tables_at_full_width():
+    # 26 qubits: a low block of 21 bits and a high block of 20, planned only
+    c = tq.random_circuit(26, 100, seed=42)
+    prog = ts.SweepProgram(c)
+    assert prog.sweep_kinds == ["high", "low", "high", "low"]
+    for kind, lay, t in zip(prog.sweep_kinds, prog.layouts, prog.tables):
+        head = t.ints[:fc.SWEEP_HEADER]
+        if kind == "low":
+            assert (lay.blk_bits, lay.active) == (21, ())
+            assert list(head[1:4]) == [21, 0, 5] and list(head[32:37]) == [21, 22, 23, 24, 25]
+        else:
+            assert lay.blk_bits == 16 and len(lay.active) == 4 and lay.kbits == 20
+            assert list(head[1:4]) == [16, 4, 6]
+            assert list(head[32:38]) == [16, 17, 18, 19, 20] + sorted(
+                set(range(21, 26)) - set(lay.active))
+    with pytest.raises(ValueError, match="exceeds"):
+        fc.build_op_table([], ts.low_layout(27), max_bits=fc.MAX_SWEEP_BITS)
+
+
+# ---------------------------------------------------------------------------
+# program against the JAX sweep engine (interpret mode) and the oracle
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,n", [("random", 12), ("external", 12), ("qft", 13)])
+def test_program_matches_jax_sweep_engine(name, n):
+    c = {
+        "random": lambda: jq.random_circuit(n, 60, seed=7),
+        "external": lambda: _external_bits_circuit(n),
+        "qft": lambda: jq.qft_circuit(n),
+    }[name]()
+    psi = random_state(n, np.random.default_rng(n)).astype(np.complex64)
+    jprog = js.build_sweep_run(c, np.float32, interpret=True, params=P_JAX)
+    want = jap.to_complex(jprog.run(jap.from_complex(psi, np.float32)))
+    prog = ts.build_sweep_run(circuit_from_jax(c), np.float32, params=P, device="cpu")
+    assert prog.sweep_kinds == jprog.sweep_kinds
+    got = tq.apply.to_complex(prog.run(tq.apply.from_complex(psi, np.float32, "cpu")))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    ora = jq.CPUReferenceSimulator(n)
+    ora.set_state(psi.astype(np.complex128))
+    ora.run(c)
+    np.testing.assert_allclose(got, ora.get_state(), atol=1e-5, rtol=0)
+
+
+def test_program_with_wide_cores_matches_jax_planner_and_oracle():
+    # 7- and 8-qubit cores: the JAX engine's interpret-mode compile of such
+    # cores takes minutes here, so its planner and its oracle stand in
+    n = 12
+    c = _wide_sweep_circuit(n)
+    prog = ts.build_sweep_run(circuit_from_jax(c), np.float32, params=P, device="cpu")
+    _assert_same_plan(ts.plan_sweeps(circuit_from_jax(c), n, P), js.plan_sweeps(c, n, P_JAX))
+    assert prog.sweep_kinds == [s.kind for s in js.plan_sweeps(c, n, P_JAX)]
+    assert max(t.max_core for t in prog.tables) == 8
+    psi = random_state(n, np.random.default_rng(n)).astype(np.complex64)
+    got = tq.apply.to_complex(prog.run(tq.apply.from_complex(psi, np.float32, "cpu")))
+    ora = jq.CPUReferenceSimulator(n)
+    ora.set_state(psi.astype(np.complex128))
+    ora.run(c)
+    np.testing.assert_allclose(got, ora.get_state(), atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# program, wrappers and geometry on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_program_runs_plain_version_without_launching():
+    reset_launches()
+    prog = ts.SweepProgram(tq.random_circuit(12, 40, seed=4), P)
+    x = tq.apply.initial_state(12, np.float32, device="cpu")
+    np.testing.assert_array_equal(prog.run(x).numpy(), prog.run_plain(x).numpy())
+    assert LAUNCHES["low_sweep"] == LAUNCHES["high_sweep"] == 0
+    ints, coef = prog._tables_on(torch.device("cpu"))[0]
+    for wrapper in (ts.low_sweep, ts.high_sweep):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(x, ints, coef, prog.layouts[0])
+    with pytest.raises(ValueError, match="float32"):
+        prog.run(x.double())
+    y = x
+    for i in range(prog.num_sweeps):
+        y = prog.step_plain(y, i)
+    np.testing.assert_array_equal(prog.run_plain(x).numpy(), y.numpy())
+
+
+def test_build_sweep_run_validates():
+    c = tq.random_circuit(12, 5, seed=1)
+    with pytest.raises(ValueError, match="22 <= n <= 26"):
+        ts.build_sweep_run(c, np.float32, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        ts.build_sweep_run(c, np.float64, params=P, device="cpu")
+    with pytest.raises(ValueError, match="exceed"):
+        ts.SweepProgram(tq.random_circuit(11, 5, seed=1), P)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ts.build_sweep_run(c, np.float32, params=P)
+
+
+def test_program_bytes_and_flops():
+    prog = ts.SweepProgram(tq.Circuit(12).h(0).rz(11, 0.3).cnot(0, 11), P)
+    assert prog.bytes_moved() == prog.num_sweeps * 16 * (1 << 12)
+    # h 6 flops per amplitude, rz 6, cnot (a permutation) 0
+    assert prog.flops() == (6 + 6 + 0) * (1 << 12)
+
+
+@pytest.mark.parametrize("n,in_flight,max_core,want", [
+    (26, 1, 1, (1, 9)),         # 528 resident -> 512 CTAs, one unit at a time
+    (26, 4, 1, (4, 7)),
+    (26, 64, 1, (32, 4)),       # no more groups than the low sweep's 32 parts
+    (26, 1, 8, (1, 9)),         # kbits 21 - 8 = 13 >= 9
+    (26, 2, 8, (2, 8)),
+    (26, None, 1, (1, 9)),      # 16 MB parts: one fits the L2 budget
+    (24, None, 1, (4, 7)),      # 4 MB parts: 6 fit, a power of two in flight
+    (22, None, 1, (16, 5)),     # 1 MB parts
+])
+def test_launch_grid(n, in_flight, max_core, want):
+    lay = ts.low_layout(n)
+    got = ts.launch_grid(lay, ts.SweepGeometry(512, in_flight), max_core, 528)
+    assert got == want
+    high = ts.high_layout(ts.Sweep("high", [], {n - 1}), n)      # 8 MB steps
+    assert ts.launch_grid(high, ts.SweepGeometry(512, None), 1, 528)[0] == min(
+        2, 1 << (n - 20))
+    # a group never has more CTAs than the widest core has groups of slots
+    small = ts.low_layout(12, P)          # 10 block bits
+    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 8, 528) == (1, 2)
+    # the resident count rounds down to a power of two
+    assert ts.launch_grid(lay, ts.SweepGeometry(512, 1), 1, 300) == (1, 8)
+    with pytest.raises(RuntimeError, match="resident"):
+        ts.launch_grid(lay, ts.SweepGeometry(512, 1), 1, 0)

@@ -171,6 +171,8 @@ def emulate_ops(slices: np.ndarray, table: fc.OpTable) -> None:
             for j in range(1 << m)
         ]
         u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
+        if m > fc.GATHER_CORE:          # the wide op's column-major core
+            u = u.T
         per = (1 << (kbits - m)) >> c
         for r in range(parts):
             base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
@@ -300,7 +302,15 @@ def test_op_table_takes_six_qubit_cores_and_refuses_seven():
     assert op[0] == fc.KIND_DENSE and op[1] == 6
     assert list(op[8:14]) == [0, 11, 3, 9, 5, 7] and list(op[24:30]) == [0, 3, 5, 7, 9, 11]
     assert t.coef.shape == (64 * 64, 2)
-    with pytest.raises(NotImplementedError, match="at most 6"):
-        fc.build_op_table(fc.as_pgates([(_unitary(7, 1), tuple(range(7)))]), lay, max_bits=12)
+    u6 = _unitary(6, 1)
+    np.testing.assert_allclose(t.coef[:, 0] + 1j * t.coef[:, 1], u6.reshape(-1), atol=1e-7)
+    # since the wide-core op, 7 qubits are taken too, their core column-major;
+    # the limit is MAX_DENSE_QUBITS = 8
+    u7 = _unitary(7, 1)
+    t7 = fc.build_op_table(fc.as_pgates([(u7, tuple(range(7)))]), lay, max_bits=12)
+    assert t7.max_core == 7 and t7.coef.shape == (128 * 128, 2)
+    np.testing.assert_allclose(t7.coef[:, 0] + 1j * t7.coef[:, 1], u7.T.reshape(-1), atol=1e-7)
+    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
+        fc.build_op_table(fc.as_pgates([(_unitary(9, 1), tuple(range(9)))]), lay, max_bits=12)
     with pytest.raises(ValueError, match="shared memory"):
         fc.build_op_table([], fc.BlockLayout(15, 15, ()))

@@ -1,0 +1,202 @@
+"""Dense cores wider than six qubits in every kernel of the port, and the
+grid-fallback routes they open.
+
+* ``build_op_table`` takes cores of 7 and 8 qubits (``MAX_DENSE_QUBITS``),
+  their coefficients column-major for ops.cuh's wide op, and refuses wider
+  ones, naming the limit. The tables, executed by the numpy mirrors of the
+  whole-circuit, grid-sweep, segment and sweep kernels, agree with the JAX
+  package's complex128 oracle within 1e-5, a controlled wide core included.
+* Dispatch plans every circuit that the JAX package plans with such a gate
+  (sweeps, grid sweep or segmented), and raises a ValueError naming each
+  refusal for a circuit that no engine in reach takes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_qsim_torch as tq
+from tpu_qsim_torch.kernels import dispatch
+from tpu_qsim_torch.kernels import fused_circuit as fc
+from tpu_qsim_torch.kernels import gridsweeps as tgs
+from tpu_qsim_torch.kernels import segmented as seg
+from tpu_qsim_torch.kernels import sweeps as ts
+
+from conftest import random_state
+from test_torch_gridsweeps import emulate_sweep as emulate_grid_sweep
+from test_torch_segmented import emulate_segments
+from test_torch_sweeps import register_both, emulate_sweep, jax_oracle
+from test_torch_whole_circuit import emulate_ops
+
+TOL = 1e-5
+CUDA = torch.device("cuda")
+
+
+def _dense(k: int, controls: int = 0) -> str:
+    """A random k-qubit unitary under ``controls`` MSB controls, registered
+    in both packages."""
+    name = f"torch_wide_dense{k}" + (f"_c{controls}" if controls else "")
+    rng = np.random.default_rng(100 + 10 * k + controls)
+    m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
+    u = np.eye(1 << (k + controls), dtype=np.complex128)
+    u[-(1 << k):, -(1 << k):] = np.linalg.qr(m)[0]
+    register_both(name, u)
+    return name
+
+
+def _between_random(n: int, *gates, seed: int = 3) -> tq.Circuit:
+    """``gates`` ((name, qubits) pairs) between two random layers."""
+    c = tq.random_circuit(n, 30, seed=seed)
+    for name, qubits in gates:
+        c.add(name, *qubits)
+    for g in tq.random_circuit(n, 30, seed=seed + 1).gates:
+        c.append(g)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# the op table
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [7, 8])
+def test_op_table_takes_wide_cores_column_major(k):
+    lay = fc.BlockLayout(12, 12, ())
+    qubits = (11, 0, 7, 3, 9, 1, 5, 2)[:k]
+    u = tq.gates.gate_matrix(_dense(k))
+    t = fc.build_op_table(fc.as_pgates([(u, qubits)]), lay, max_bits=12)
+    op = t.ints[fc.SWEEP_HEADER:fc.SWEEP_HEADER + fc.OP_HEADER]
+    assert op[0] == fc.KIND_DENSE and op[1] == k and t.max_core == k
+    assert list(op[8:8 + k]) == list(qubits) and list(op[24:24 + k]) == sorted(qubits)
+    np.testing.assert_allclose(t.coef[:, 0] + 1j * t.coef[:, 1], u.T.reshape(-1), atol=1e-7)
+    assert t.ints[fc.HEADER_MAX_CORE] == k
+
+
+def test_core_past_the_limit_raises_naming_it():
+    assert fc.MAX_DENSE_QUBITS == 8
+    n = 12
+    c = tq.Circuit(n).add(_dense(9), *range(9))
+    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
+        fc.build_op_table(fc.as_pgates(c.gates), fc.BlockLayout(n, n, ()), max_bits=n)
+    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
+        dispatch.plan_run(c, np.float32, CUDA)
+    # controls peel off: a 9-qubit gate with an 8-qubit core is taken
+    ok = tq.Circuit(n).add(_dense(8, controls=1), *range(9))
+    engine, prog = dispatch.plan_run(ok, np.float32, CUDA)
+    assert engine == "whole_circuit" and prog.table.max_core == 8
+
+
+def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():
+    c = tq.Circuit(10).add(_dense(8), *range(8))
+    assert fc.WholeCircuitProgram(c).table.max_core == 8      # GEOMETRY: 2 CTAs
+    with pytest.raises(ValueError, match="fewer groups"):
+        fc.WholeCircuitProgram(c, cluster_bits=3, threads=256)
+
+
+# ---------------------------------------------------------------------------
+# the tables through each kernel's numpy mirror
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cluster_bits", [0, 2])
+@pytest.mark.parametrize("k,controls", [(7, 0), (8, 0), (7, 1)])
+def test_whole_circuit_emulation(k, controls, cluster_bits):
+    n = 11
+    qubits = (10, 2, 9, 0, 5, 8, 1, 4, 6)[:k + controls]
+    c = _between_random(n, (_dense(k, controls), qubits))
+    prog = fc.WholeCircuitProgram(c, cluster_bits=cluster_bits, threads=256)
+    assert prog.table.max_core == k
+    psi = random_state(n, np.random.default_rng(k))
+    slices = psi.copy().reshape(1 << cluster_bits, -1)
+    emulate_ops(slices, prog.table)
+    np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("k,controls,lo", [(7, 0, 0), (8, 0, 0), (7, 1, 1)])
+def test_grid_sweep_emulation(k, controls, lo):
+    # the core on the block bits 0..7, a control on a high bit (12)
+    n = 13
+    qubits = ((12,) if controls else ()) + tuple(range(lo, lo + k))
+    c = _between_random(n, (_dense(k, controls), qubits))
+    prog = tgs.GridSweepProgram(c)
+    assert max(t.max_core for t in prog.tables) == k
+    psi = random_state(n, np.random.default_rng(k + 1))
+    re, im = psi.real.copy(), psi.imag.copy()
+    for table in prog.tables:
+        emulate_grid_sweep(re, im, table)
+    np.testing.assert_allclose(re + 1j * im, jax_oracle(c, psi), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("qubits", [(14, 3, 12, 0, 9, 7, 13), (8, 9, 10, 11, 12, 13, 14)])
+def test_segment_emulation(qubits):
+    # a 7-qubit gate needs a block of SWAP_MIN + 7 = 14 bits, the most a
+    # segment holds (the planner makes every qubit of a gate local, controls
+    # too): 15 qubits give two blocks
+    n = 15
+    c = _between_random(n, (_dense(7), qubits))
+    prog = seg.SegmentedProgram(c)
+    assert prog.local_bits == fc.MAX_BLOCK_BITS
+    assert max(s.table.max_core for s in prog.steps) == 7
+    psi = random_state(n, np.random.default_rng(7))
+    np.testing.assert_allclose(emulate_segments(psi, prog), jax_oracle(c, psi), atol=TOL, rtol=0)
+
+
+def test_segments_hold_no_core_wider_than_seven():
+    c = tq.Circuit(20).add(_dense(8), *range(12, 20))
+    with pytest.raises(ValueError, match="local_bits"):
+        seg.SegmentedProgram(c)
+
+
+@pytest.mark.parametrize("group_bits", [0, 1])
+@pytest.mark.parametrize("k,controls", [(7, 0), (8, 0), (7, 1)])
+def test_sweep_emulation(k, controls, group_bits):
+    # SweepParams(2, 2): low block bits 0..9, high block 0..8 + tops 10, 11;
+    # the core on low bits, a control on a top bit (11)
+    n = 12
+    qubits = ((11,) if controls else ()) + (8, 1, 6, 0, 5, 2, 7, 4)[:k]
+    c = _between_random(n, (_dense(k, controls), qubits), ("h", (11,)), ("cnot", (10, 3)))
+    prog = ts.SweepProgram(c, ts.SweepParams(k_bits=2, rb_bits=2))
+    assert max(t.max_core for t in prog.tables) == k
+    psi = random_state(n, np.random.default_rng(k + 2))
+    re, im = psi.real.copy(), psi.imag.copy()
+    for table in prog.tables:
+        emulate_sweep(re, im, table, group_bits)
+    np.testing.assert_allclose(re + 1j * im, jax_oracle(c, psi), atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: each row of the fault's table, now planned
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,lo,engine", [
+    (22, 6, 8, "sweeps"),        # the port's grid (blk 8, 5 active bits) refuses
+    (22, 7, 8, "sweeps"),
+    (24, 7, 12, "sweeps"),       # low + high sweeps
+    (26, 8, 10, "sweeps"),
+    (26, 7, 0, "grid_sweep"),    # the core on block bits, the wide instance
+    (22, 7, 15, "segmented"),    # grid and sweeps refuse (mid + top)
+])
+def test_dispatch_plans_wide_core_circuits(n, k, lo, engine):
+    c = tq.Circuit(n).h(0).add(_dense(k), *range(lo, lo + k)).cnot(0, n - 1)
+    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert got == engine
+    kind = {"sweeps": ts.SweepProgram, "grid_sweep": tgs.GridSweepProgram,
+            "segmented": seg.SegmentedProgram}[engine]
+    assert isinstance(prog, kind)
+    tables = [s.table for s in prog.steps] if engine == "segmented" else prog.tables
+    assert max(t.max_core for t in tables) == k
+
+
+def test_dispatch_raises_when_every_engine_refuses():
+    # an 8-qubit core on qubits 14-21 of 22: 8 high qubits for the grid, a mid
+    # and a top qubit for the sweeps, more than 7 for a segment
+    c = tq.Circuit(22).add(_dense(8), *range(14, 22))
+    with pytest.raises(ValueError) as err:
+        dispatch.plan_run(c, np.float32, CUDA)
+    msg = str(err.value)
+    for name in ("grid_sweep:", "sweeps:", "segmented:"):
+        assert name in msg
+    # above the segmented engine's range the torch engine takes it
+    c28 = tq.Circuit(28).add(_dense(8), *range(20, 28))
+    assert dispatch.plan_run(c28, np.float32, CUDA) == ("torch", None)

@@ -5,8 +5,9 @@ same simulator API as the JAX package ``tpu_qsim``, which stays beside it as
 the reference. ``StateVectorSimulator.run`` takes float32 states of 10-30
 qubits on an NVIDIA H100 through hand-written CUDA kernels
 (``kernels/csrc/``: whole-circuit at 10-18 qubits, segment and
-scatter-segment at 19, grid-sweep at 20-30) and everything else through a
-torch engine.
+scatter-segment at 19, grid-sweep at 20-30, and the low- and high-sweep
+kernels where the grid planner refuses a circuit of 22-26 qubits) and
+everything else through a torch engine.
 Entry points run on the card (``device=None``) unless the caller passes
 ``device="cpu"``. This package imports neither JAX nor ``tpu_qsim``.
 """

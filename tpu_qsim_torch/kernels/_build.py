@@ -67,6 +67,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
         "scatter_segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "sweep": {
+        # threads, int* ctas
+        "sweep_prepare": [_I, _P],
+        # high, state, dim, table, coef, kbits, barriers, groups, group_bits,
+        # threads, max_core, stream
+        "sweep_launch": [_I, _P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 

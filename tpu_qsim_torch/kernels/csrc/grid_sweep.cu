@@ -19,11 +19,11 @@
 // names state bit p outside the block, read from the CTA's share of the
 // global index. That replaces the TPU kernel's ext scalars and relabeling.
 //
-// The op semantics (apply_op: diagonal ops and dense cores of up to 6
-// qubits) live in ops.cuh, shared with the whole-circuit and segment kernels.
-// The kernel is built twice, for cores of up to NARROW_CORE and of up to
-// MAX_CORE qubits; a sweep whose cores are all narrow launches the first, so
-// the wide cores' per-thread arrays cost it nothing.
+// The op semantics (apply_op: diagonal ops and dense cores of up to 8
+// qubits) live in ops.cuh, shared with the whole-circuit, segment and sweep
+// kernels. The kernel is built twice, for cores of up to NARROW_CORE and of
+// up to MAX_CORE qubits; a sweep whose cores are all narrow launches the
+// first, so the wide cores' code costs it nothing.
 //
 // Bound on this card: device-memory bytes. A sweep must read and write both
 // planes once (16 B per amplitude); the ops run on shared memory. The design
@@ -115,7 +115,8 @@ extern "C" int grid_sweep_launch(float* state, long long dim,
                                  const int* table, const float* coef,
                                  int kbits, long long steps, int threads,
                                  int max_core, void* stream) {
-  if (max_core > MAX_CORE) return (int)cudaErrorInvalidValue;
+  if (max_core > MAX_CORE || !threads_fit_core(threads, max_core))
+    return (int)cudaErrorInvalidValue;
   return max_core <= NARROW_CORE
              ? launch<NARROW_CORE>(state, dim, table, coef, kbits, steps,
                                    threads, (cudaStream_t)stream)

@@ -1,7 +1,7 @@
 // Op semantics shared by the port's kernels: how one op of the device op
 // table (tpu_qsim_torch/kernels/fused_circuit.py::build_op_table) acts on a
-// block of 2^kbits amplitude slots. grid_sweep.cu, whole_circuit.cu and
-// segment.cu all include this one copy.
+// block of 2^kbits amplitude slots. grid_sweep.cu, whole_circuit.cu,
+// segment.cu and sweep.cu all include this one copy.
 //
 // Replaces the op body that every TPU kernel of tpu_qsim shares,
 // tpu_qsim/kernels/fused_circuit.py::emit_ops (XOR-shift gate emission,
@@ -14,7 +14,10 @@
 //   LocalSlots   - this CTA's own shared memory holds the slots l with one
 //                  value of l >> local_bits, at l & mask;
 //   ClusterSlots - a thread-block cluster's distributed shared memory: slot l
-//                  lives in CTA l >> local_bits, at l & mask there.
+//                  lives in CTA l >> local_bits, at l & mask there;
+//   GlobalSlots  - device memory (the sweep kernels): slot l is the state
+//                  index of l under the block layout of the current part or
+//                  step, see below.
 // Which work items a CTA takes is a Part: an op's items are split into 2^log2
 // equal contiguous parts and the CTA takes part `index`. In a cluster, part
 // r of an op that moves no bit >= local_bits touches only CTA r's slots, so
@@ -31,7 +34,7 @@ constexpr int SWEEP_HEADER = 64;    // int32 words before the first op
 constexpr int HEADER_MAX_CORE = 4;  // header word: the table's widest dense core
 constexpr int OP_HEADER = 32;       // int32 words per op
 constexpr int EXT = 32;             // codes >= EXT name bits outside the block
-constexpr int KIND_DIAG = 0;        // any other kind is a dense core of 1-6 qubits
+constexpr int KIND_DIAG = 0;        // any other kind is a dense core of 1-8 qubits
 
 // Masking every access of a single-CTA block (LocalSlots with mask size - 1)
 // cost the 28q grid sweep 3% against this type on the H100 (PERF.md).
@@ -62,6 +65,27 @@ struct ClusterSlots {
     return cooperative_groups::this_cluster().map_shared_rank(si, l >> local_bits) +
            (l & ((1u << local_bits) - 1u));
   }
+};
+
+// The sweep kernels' block: kernel bits [0, blk) are state bits [0, blk),
+// kernel bit blk + j is state bit active[j] (the high sweep's active top
+// bits; hi_off[h] deposits h there), and the state bits outside the block
+// are cta_g, the current part's or step's share of the global index. With
+// DEPOSIT false (the low sweep) the block is state bits [0, kbits), so slot
+// l is cta_g + l.
+template <bool DEPOSIT>
+struct GlobalSlots {
+  float* sr;  // the state's planes
+  float* si;
+  unsigned cta_g;
+  int blk;
+  const unsigned* hi_off;  // 2^a entries, in shared memory
+  __device__ unsigned index(unsigned l) const {
+    if constexpr (!DEPOSIT) return cta_g + l;
+    return cta_g | (l & ((1u << blk) - 1u)) | hi_off[l >> blk];
+  }
+  __device__ float* re(unsigned l) const { return sr + index(l); }
+  __device__ float* im(unsigned l) const { return si + index(l); }
 };
 
 struct Part {
@@ -117,10 +141,10 @@ __device__ void apply_diag(const S& s, const int* op, const float2* coef,
   }
 }
 
-// Dense op on M block qubits, under block-local controls: one thread per
-// group of 2^M slots, gathered to registers and multiplied by the row-major
-// 2^M x 2^M core. Cores of up to 4 qubits unroll fully; 5 and 6 qubits keep
-// their 32 or 64 amplitudes in (spilled) per-thread arrays.
+// Dense op on M <= GATHER_CORE block qubits, under block-local controls: one
+// thread per group of 2^M slots, gathered to registers and multiplied by the
+// row-major 2^M x 2^M core. Cores of up to 4 qubits unroll fully; 5 and 6
+// qubits keep their 32 or 64 amplitudes in (spilled) per-thread arrays.
 template <int M, class S>
 __device__ void apply_dense(const S& s, const int* op, const float2* coef,
                             int kbits, Part part) {
@@ -178,6 +202,80 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
   }
 }
 
+// Dense op on M > GATHER_CORE block qubits: 2^M amplitudes are too many for
+// one thread's registers (at 5-6 qubits apply_dense's arrays already spill),
+// so the 32 lanes of a warp share a group. Lane t loads and keeps the
+// amplitudes j = t + 32 i of the group, i < 2^M / 32; each column is then
+// broadcast from the lane holding it (__shfl_sync), and lane t sums its rows
+// t + 32 i against the core, which build_op_table stores column-major for
+// these widths, so a warp's coefficient loads are coalesced (read through
+// L1/L2: 128 KB at 7 qubits, 512 KB at 8, too large for shared memory
+// beside a block). Lane t writes back only the slots it loaded, after every
+// lane has loaded, so the group's reads all come before its writes. Needs a
+// block of whole warps (the launchers check); warps take the groups of the
+// CTA's part in turn.
+constexpr int GATHER_CORE = 6;
+
+template <int M, class S>
+__device__ void apply_dense_wide(const S& s, const int* op, const float2* coef,
+                                 int kbits, Part part) {
+  constexpr int D = 1 << M;
+  constexpr int R = D / 32;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const unsigned lmask = op[3], lval = op[4];
+  unsigned offs[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const unsigned j = lane + 32u * i;
+    unsigned o = 0;
+    for (int b = 0; b < M; ++b)
+      if ((j >> (M - 1 - b)) & 1u) o |= 1u << op[8 + b];
+    offs[i] = o;
+  }
+  int pos[M];
+  for (int i = 0; i < M; ++i) pos[i] = op[24 + i];
+  const float2* u = coef + op[2];  // column-major: u[c * D + r]
+  const unsigned groups = 1u << (kbits - M);
+  const unsigned lo = part.begin(groups), hi = part.end(groups);
+  for (unsigned gi = lo + warp; gi < hi; gi += n_warps) {
+    unsigned base = gi;
+    for (int i = 0; i < M; ++i) {  // insert a 0 at each target, ascending
+      const unsigned low = base & ((1u << pos[i]) - 1u);
+      base = ((base >> pos[i]) << (pos[i] + 1)) | low;
+    }
+    if ((base & lmask) != lval) continue;  // the same for the whole warp
+    float xr[R], xi[R], ar[R], ai[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      xr[i] = *s.re(base | offs[i]);
+      xi[i] = *s.im(base | offs[i]);
+      ar[i] = 0.f;
+      ai[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll 4
+      for (int src = 0; src < 32; ++src) {
+        const float br = __shfl_sync(0xffffffffu, xr[i], src);
+        const float bi = __shfl_sync(0xffffffffu, xi[i], src);
+        const float2* col = u + (size_t)(32 * i + src) * D + lane;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float2 w = col[32 * r];
+          ar[r] += w.x * br - w.y * bi;
+          ai[r] += w.x * bi + w.y * br;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      *s.re(base | offs[r]) = ar[r];
+      *s.im(base | offs[r]) = ai[r];
+    }
+  }
+}
+
 // MAXM is the widest dense core a kernel instance takes: each kernel is
 // built for NARROW_CORE (every core unrolls fully, and no code for a wider
 // one is inlined) and for MAX_CORE, and the host launches the narrow
@@ -185,7 +283,13 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
 // check_core_width once before its ops, so a table too wide for the
 // instance traps instead of skipping ops; the ops themselves do not check.
 constexpr int NARROW_CORE = 4;
-constexpr int MAX_CORE = 6;
+constexpr int MAX_CORE = 8;
+
+// Whether a launch of `threads` threads per CTA can run a table whose widest
+// core is `max_core`: cores wider than GATHER_CORE take whole warps.
+inline bool threads_fit_core(int threads, int max_core) {
+  return max_core <= GATHER_CORE || threads % 32 == 0;
+}
 
 template <int MAXM>
 __device__ __forceinline__ void check_core_width(const int* table) {
@@ -212,6 +316,12 @@ __device__ void apply_op(const S& s, const int* op, const float2* coef,
       break;
     case 6:
       if constexpr (MAXM >= 6) apply_dense<6>(s, op, coef, kbits, part);
+      break;
+    default:  // only the wide instance has code for these widths
+      if constexpr (MAXM > GATHER_CORE) {
+        if (op[1] == 7) apply_dense_wide<7>(s, op, coef, kbits, part);
+        else if (op[1] == 8) apply_dense_wide<8>(s, op, coef, kbits, part);
+      }
       break;
   }
 }

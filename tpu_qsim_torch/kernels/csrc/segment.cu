@@ -12,7 +12,9 @@
 //      (or from the new index itself when the segment has no relabeling);
 //   2. the segment's ops run on shared memory (ops.cuh, one CTA barrier
 //      between ops; as in grid_sweep.cu, an instance for cores of up to
-//      NARROW_CORE qubits and one for MAX_CORE);
+//      NARROW_CORE qubits and one for MAX_CORE; the planner keeps SWAP_MIN = 7
+//      of a block's at most 14 bits for relocations, so cores of up to 7
+//      qubits reach this kernel);
 //   3. store: to the new index, or, in the scatter segment, to the index the
 //      restore-to-canonical relabeling gives it, sum_j bit_j(x) << dst[j]
 //      with dst the inverse of the plan's restore.
@@ -136,7 +138,8 @@ int launch_checked(const float* in, float* out, long long dim, int n,
                    int gather, int local_bits, int threads, int max_core,
                    void* stream) {
   if (local_bits < 1 || local_bits > MAX_LOCAL_BITS || local_bits >= n ||
-      n > MAP_WORDS || threads < 32 || threads > 1024 || max_core > MAX_CORE)
+      n > MAP_WORDS || threads < 32 || threads > 1024 || max_core > MAX_CORE ||
+      !threads_fit_core(threads, max_core))
     return (int)cudaErrorInvalidValue;
   return max_core <= NARROW_CORE
              ? launch<SCATTER, NARROW_CORE>(in, out, dim, n, table, coef, maps,

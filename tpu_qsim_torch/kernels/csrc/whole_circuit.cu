@@ -166,7 +166,10 @@ extern "C" int whole_circuit_prepare(int n, int cluster_bits, int threads,
 extern "C" int whole_circuit_launch(float* state, int n, const int* table,
                                     const float* coef, int cluster_bits,
                                     int threads, int max_core, void* stream) {
-  if (max_core > MAX_CORE) return (int)cudaErrorInvalidValue;
+  // a core's groups are split over the cluster's CTAs: at least one each
+  if (max_core > MAX_CORE || max_core > n - cluster_bits ||
+      !threads_fit_core(threads, max_core))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       launch_config(n, cluster_bits, threads, (cudaStream_t)stream, &attr);

@@ -5,18 +5,21 @@
 | float32 | 10..18  | cuda   | whole-circuit program (``csrc/whole_circuit.cu``)    |
 | float32 | 19      | cuda   | segmented program (``csrc/segment.cu``)              |
 | float32 | 20..30  | cuda   | grid-sweep program (``csrc/grid_sweep.cu``)          |
-| float32 | 20..26  | cuda   | segmented program, when the grid planner refuses     |
+| float32 | 22..26  | cuda   | sweep program (``csrc/sweep.cu``), when the grid     |
+|         |         |        | planner refuses                                      |
+| float32 | 20..26  | cuda   | segmented program, when the grid planner and (at     |
+|         |         |        | 22-26q) the sweep planner refuse                     |
 | float32 | 27..30  | cuda   | torch engine, when the grid planner refuses          |
 | any     | any     | any    | torch engine (:mod:`tpu_qsim_torch.apply`)           |
 
-It follows ``tpu_qsim/kernels/dispatch.py`` row by row. Where the grid
-planner refuses a circuit (a dense gate that moves more high qubits than a
-sweep's active budget), the JAX package tries its ``sweeps`` engine at
-22-26q and then its segmented engine up to 26q; the port has no ``sweeps``
-engine yet, so it goes straight to the segmented engine, the JAX package's
-final fallback there. Above 26q the JAX package takes its XLA engine, and
-the port the torch engine. The route is decided when a circuit is planned
-and never changes because a build or a launch failed.
+It follows ``tpu_qsim/kernels/dispatch.py`` row by row. The grid planner
+refuses a circuit with a dense gate that moves more high qubits than a
+sweep's active budget; the JAX package then tries its ``sweeps`` engine at
+22-26q, then its segmented engine up to 26q, and above 26q its XLA engine,
+as the port does with its sweep, segmented and torch engines. Where every
+engine in reach refuses (at most 26 qubits), :func:`plan_run` raises a
+ValueError that names each refusal. The route is decided when a circuit is
+planned and never changes because a build or a launch failed.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from ..circuit import Circuit
 from .fused_circuit import MAX_WHOLE_CIRCUIT_QUBITS, MIN_WHOLE_CIRCUIT_QUBITS
 from .segmented import MAX_SEGMENTED_QUBITS
+from .sweeps import MAX_SWEEP_QUBITS, MIN_SWEEP_QUBITS
 
 MIN_GRID_QUBITS = 20
 MAX_GRID_QUBITS = 30
@@ -56,6 +60,7 @@ def plan_run(
     from .fused_circuit import WholeCircuitProgram
     from .gridsweeps import GridSweepProgram
     from .segmented import SegmentedProgram
+    from .sweeps import SweepProgram
 
     n = circuit.num_qubits
     engine = engine_for(n, rdtype, device)
@@ -63,12 +68,21 @@ def plan_run(
         return engine, WholeCircuitProgram(circuit)
     if engine == "segmented":
         return engine, SegmentedProgram(circuit)
-    if engine == "grid_sweep":
+    if engine != "grid_sweep":
+        return "torch", None
+    fallbacks = [("grid_sweep", GridSweepProgram)]
+    if MIN_SWEEP_QUBITS <= n <= MAX_SWEEP_QUBITS:
+        fallbacks.append(("sweeps", SweepProgram))
+    if n <= MAX_SEGMENTED_QUBITS:
+        fallbacks.append(("segmented", SegmentedProgram))
+    refusals = []
+    for name, program in fallbacks:
         try:
-            return engine, GridSweepProgram(circuit)
-        except ValueError:
-            # e.g. a dense gate wider than the active budget
-            if n <= MAX_SEGMENTED_QUBITS:
-                return "segmented", SegmentedProgram(circuit)
-            return "torch", None
-    return "torch", None
+            return name, program(circuit)
+        except ValueError as e:   # e.g. a dense gate wider than the block
+            refusals.append(f"{name}: {e}")
+    if n > MAX_SEGMENTED_QUBITS:
+        return "torch", None
+    raise ValueError(
+        f"no engine takes this {n}-qubit circuit; " + "; ".join(refusals)
+    )

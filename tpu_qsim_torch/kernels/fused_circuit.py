@@ -10,7 +10,8 @@ resolved out-of-block bits through per-step ``ext`` scalars; both are TPU
 layout. Here a block's gates become a flat int32 table of ops (one header per
 op) plus a float32 table of coefficients composed on the host in complex128,
 which the compiled kernels (``csrc/ops.cuh``, included by ``grid_sweep.cu``,
-``whole_circuit.cu`` and ``segment.cu``) interpret for any circuit.
+``whole_circuit.cu``, ``segment.cu`` and ``sweep.cu``) interpret for any
+circuit.
 
 :class:`WholeCircuitProgram` is the counterpart of ``build_pallas_run`` /
 ``build_pallas_run_gates``: the whole circuit in one launch of
@@ -173,8 +174,10 @@ KIND_DENSE = 1
 # read from the CTA's share of the global index (bits outside the block)
 EXT = 32
 MAX_DIAG_QUBITS = 16     # op words [8, 24)
-MAX_DENSE_QUBITS = 6     # per-thread gather of 2^m amplitudes (op words 24-30)
+GATHER_CORE = 6          # widest core one thread gathers alone (2^m amplitudes)
+MAX_DENSE_QUBITS = 8     # 7-8 qubits: a warp per group of 2^m (op words 24-31)
 MAX_BLOCK_BITS = 14      # 2 planes x 2^14 x 4 B = 128 KB of one CTA's shared memory
+MAX_SWEEP_BITS = 21      # the sweep kernels' block in device memory: 2^(26-5) slots
 
 
 @dataclass(frozen=True)
@@ -266,9 +269,13 @@ def build_op_table(
     out of the block). Any other gate peels its control layers into a mask
     on the block-local index and a mask on the CTA's out-of-block bits, and
     its core becomes one DENSE op whose qubits must lie in the block (the
-    planner's ``moving_qubits`` guarantee). ``max_bits`` is the largest
-    block the caller's kernel holds: one CTA's shared memory, or a cluster's
-    for the whole-circuit kernel.
+    planner's ``moving_qubits`` guarantee). A core of up to ``GATHER_CORE``
+    qubits is stored row-major; a wider one (up to ``MAX_DENSE_QUBITS``)
+    column-major, so that the warp sharing one of its groups reads the
+    coefficients of its rows coalesced. ``max_bits`` is the largest block
+    the caller's kernel holds: one CTA's shared memory, a cluster's for the
+    whole-circuit kernel, or ``MAX_SWEEP_BITS`` of device memory for the
+    sweep kernels.
     """
     if layout.kbits > max_bits:
         raise ValueError(
@@ -306,8 +313,8 @@ def build_op_table(
             m = len(qs)
             if m > MAX_DENSE_QUBITS:
                 raise NotImplementedError(
-                    f"dense gate core on {m} qubits; the kernel takes at "
-                    f"most {MAX_DENSE_QUBITS}"
+                    f"dense gate core on {m} qubits; the kernels take at "
+                    f"most MAX_DENSE_QUBITS = {MAX_DENSE_QUBITS}"
                 )
             codes = [layout.code(q) for q in qs]
             if max(codes) >= EXT:
@@ -326,7 +333,7 @@ def build_op_table(
                     op[6] |= 1 << q
             op[8:8 + m] = codes
             op[24:24 + m] = sorted(codes)
-            c = core.reshape(-1)
+            c = (core if m <= GATHER_CORE else core.T).reshape(-1)
             max_core = max(max_core, m)
             # on the 2^-len(ctrls) share of amplitudes the controls pass
             flops += min_flops(core, diagonal=False) / (1 << len(ctrls))
@@ -501,6 +508,12 @@ class WholeCircuitProgram:
         self.gates = merge_1q_chains(as_pgates(circuit.gates))
         self.layout = BlockLayout(n, n, ())
         self.table = build_op_table(self.gates, self.layout, max_bits=n)
+        if self.table.max_core > n - c:
+            # ops.cuh splits a core's groups over the cluster's CTAs
+            raise ValueError(
+                f"a {self.table.max_core}-qubit core has fewer groups than "
+                f"a cluster of 2^{c} CTAs at {n} qubits"
+            )
         self._device_tables: dict[torch.device, tuple] = {}
 
     def _tables_on(self, device: torch.device) -> tuple:

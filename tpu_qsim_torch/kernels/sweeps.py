@@ -1,22 +1,81 @@
-"""Host half of ``tpu_qsim/kernels/sweeps.py`` that the grid-sweep planner uses.
+"""Sweeps engine on the CUDA card (22-26 qubits, the grid planner's fallback).
 
-The part-map sweep kernels of that module (``_build_low_sweep``,
-``_build_high_sweep``) are not ported yet. Of the names
-``tpu_qsim/kernels/gridsweeps.py:59`` imports from it, ``_EXT_BASE`` and
-``_VMEM_LIMIT`` are TPU layout and have no counterpart: the CUDA kernel reads
-out-of-block bits from the global index, and its block lives in shared
-memory sized by the sweep's geometry.
+The port of ``tpu_qsim/kernels/sweeps.py``. The state is split on its top
+``K = 5`` bits into 32 *parts*. Two sweep shapes cover every bit:
+
+* a **low sweep** applies its gates to state bits ``[0, n - K)`` of each
+  part; the part's top bits are out of the block;
+* a **high sweep** applies its gates to bits ``[0, 16)`` plus up to 4
+  *active* top bits (padded to 4), in steps over the mid bits
+  ``[16, n - K)`` and the inactive top bits.
+
+Only a gate's moving qubits must lie in the block; diagonal and control
+structure on any other bit is read from the part's or step's share of the
+global index. :func:`plan_sweeps` is a copy of the JAX planner (frontier
+scheduling, a SWAP across the two regions as 3 CNOTs) and gives the same
+plans gate by gate at the same :class:`SweepParams`.
+
+Each sweep is one launch of ``csrc/sweep.cu`` (:func:`low_sweep`,
+:func:`high_sweep`) over the flat ``(2, 2^n)`` planes, in place: a part is
+the view of the top K bits, so the TPU engine's ``to_parts``/``from_parts``
+staging copies have no counterpart. The relabelings of the TPU kernels
+(``_relabel_low``, ``_relabel_high``) are the sweeps' :class:`BlockLayout`
+s, whose codes name block bits or, as ``EXT + q``, state bit q outside the
+block. The block is 2^17-2^21 slots of device memory; the kernel keeps the
+parts or steps in flight in L2 (:class:`SweepGeometry`, chosen on the card
+with ``python -m tpu_qsim_torch.kernels.tune_sweeps``).
 """
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass, field
+
 import numpy as np
+import torch
 
-from .fused_circuit import _controlled_split, _is_diagonal
+from .. import apply as ap
+from ..circuit import Circuit, Gate
+from ..gates import op_matrix
+from . import LAUNCHES
+from .fused_circuit import (
+    MAX_DENSE_QUBITS,
+    MAX_SWEEP_BITS,
+    BlockLayout,
+    OpTable,
+    PGate,
+    _controlled_split,
+    _is_diagonal,
+    apply_pgates,
+    as_pgates,
+    build_op_table,
+    check_kernel_inputs,
+    check_planes,
+    merge_1q_chains,
+)
 
-# The JAX planner's default per-sweep gate cap (a Mosaic compile bound there);
-# kept as plan_grid_sweeps' default so plans compare gate by gate.
+K_BITS = 5                 # part-split bits: the top K state bits
+RB_BITS = 9                # the JAX planner's row bits ...
+LANE_BITS = 7              # ... and lane bits: a high block holds bits [0, 16)
+MIN_SWEEP_QUBITS = RB_BITS + LANE_BITS + K_BITS + 1   # 22
+MAX_SWEEP_QUBITS = 26
+# The JAX planner's per-sweep gate cap (a Mosaic compile bound there) and its
+# active-top budget; kept so plans compare gate by gate. MAX_SWEEP_GATES is
+# plan_grid_sweeps' default cap too.
 MAX_SWEEP_GATES = 56
+MAX_ACTIVE_TOPS = 4        # sweep.cu: MAX_ACTIVE
+
+
+@dataclass(frozen=True)
+class SweepParams:
+    """Engine geometry: the module defaults, shrunk by tests."""
+
+    k_bits: int = K_BITS
+    rb_bits: int = RB_BITS
+
+    @property
+    def blk_bits(self) -> int:
+        return self.rb_bits + LANE_BITS
 
 
 def moving_qubits(u: np.ndarray, qubits: tuple[int, ...]) -> frozenset[int]:
@@ -28,3 +87,380 @@ def moving_qubits(u: np.ndarray, qubits: tuple[int, ...]) -> frozenset[int]:
     if v is not None:
         return moving_qubits(v, qubits[1:])
     return frozenset(qubits)
+
+
+@dataclass
+class Sweep:
+    kind: str                      # "low" | "high"
+    gates: list[Gate] = field(default_factory=list)
+    tops: set = field(default_factory=set)   # high: active top bits (moving)
+
+
+def plan_sweeps(
+    circuit: Circuit,
+    n: int | None = None,
+    params: SweepParams = SweepParams(),
+) -> list[Sweep]:
+    """Partition the circuit into low/high sweeps via frontier scheduling.
+
+    low block = bits [0, n-K); high block = bits [0, blk_bits) + active top
+    bits. A gate fits a sweep iff its moving qubits lie in that block.
+    Local/diagonal gates fit everywhere and ride the current sweep. A swap
+    moving across the two exclusive regions decomposes into 3 cnots. Raises
+    ValueError for a gate no sweep can hold.
+    """
+    from ..commute import FrontierScheduler
+
+    n = circuit.num_qubits if n is None else n
+    top = frozenset(range(n - params.k_bits, n))
+    lowmid = frozenset(range(params.blk_bits, n - params.k_bits))
+
+    max_tops = min(MAX_ACTIVE_TOPS, params.k_bits)
+    gates: list[Gate] = []
+    for g in circuit.gates:
+        mv = moving_qubits(op_matrix(g), g.qubits)
+        if mv & top and mv & lowmid:
+            if g.name == "swap":
+                a, b = g.qubits
+                gates += [
+                    Gate("cnot", (a, b)),
+                    Gate("cnot", (b, a)),
+                    Gate("cnot", (a, b)),
+                ]
+                continue
+            raise ValueError(
+                f"gate {g.name}{g.qubits} moves both a mid and a top qubit"
+            )
+        if len(mv & top) > max_tops:
+            # a dense gate moving more top bits than a high block holds can
+            # never fit any sweep; without this check the scheduler below
+            # would flip kinds forever without progress
+            raise ValueError(
+                f"gate {g.name}{g.qubits} moves {len(mv & top)} top qubits; "
+                f"the sweep engine stacks at most {max_tops}"
+            )
+        gates.append(g)
+
+    mv_cache = [moving_qubits(op_matrix(g), g.qubits) for g in gates]
+
+    def fits(i: int, cur: Sweep) -> bool:
+        if len(cur.gates) >= MAX_SWEEP_GATES:
+            return False
+        mv = mv_cache[i]
+        if cur.kind == "low":
+            return not (mv & top)
+        return (
+            not (mv & lowmid)
+            and len(cur.tops | (mv & top)) <= MAX_ACTIVE_TOPS
+        )
+
+    sched = FrontierScheduler(gates)
+    sweeps: list[Sweep] = []
+    cur: Sweep | None = None
+    flips = 0
+    while not sched.done():
+        if cur is not None:
+            progressed = True
+            while progressed:
+                progressed = False
+                for i in sched.ready():
+                    if fits(i, cur):
+                        sched.emit(i)
+                        cur.gates.append(gates[i])
+                        cur.tops |= mv_cache[i] & top
+                        progressed = True
+                        break
+        if sched.done():
+            break
+        ready = sched.ready()
+        need_low = sum(1 for i in ready if mv_cache[i] & lowmid)
+        need_high = sum(1 for i in ready if mv_cache[i] & top)
+        nxt = "high" if need_high >= need_low else "low"
+        if cur is None or cur.gates:
+            if cur is not None:
+                sweeps.append(cur)
+            cur = Sweep(nxt)
+            flips = 0
+        else:  # a fresh sweep absorbed nothing: flip kind
+            cur = Sweep(nxt)
+            flips += 1
+            if flips > 2:  # both kinds tried fresh: nothing can ever fit
+                g = gates[sched.ready()[0]]
+                raise ValueError(
+                    f"sweep planner cannot place gate {g.name}{g.qubits}"
+                )
+    if cur is not None and cur.gates:
+        sweeps.append(cur)
+    return sweeps
+
+
+def low_layout(n: int, params: SweepParams = SweepParams()) -> BlockLayout:
+    """A low sweep's block: state bits [0, n-K); the top bits are out of
+    the block (the JAX package's ``_relabel_low``)."""
+    return BlockLayout(n, n - params.k_bits, ())
+
+
+def high_layout(
+    sweep: Sweep, n: int, params: SweepParams = SweepParams(),
+) -> BlockLayout:
+    """A high sweep's block: bits [0, blk_bits) and the active top bits,
+    padded with the lowest free top bits to ``min(MAX_ACTIVE_TOPS, K)``, at
+    block bits ``blk_bits + rank`` (the JAX package's ``_relabel_high``)."""
+    active = set(sweep.tops)
+    for p in range(n - params.k_bits, n):
+        if len(active) >= min(MAX_ACTIVE_TOPS, params.k_bits):
+            break
+        active.add(p)
+    return BlockLayout(n, params.blk_bits, tuple(sorted(active)))
+
+
+# ---------------------------------------------------------------------------
+# The kernels (csrc/sweep.cu)
+# ---------------------------------------------------------------------------
+
+
+# Bytes of the state a sweep keeps in flight when its geometry does not fix
+# the count: half the H100's 50 MB L2, so the units being worked on stay there
+# (PERF.md)
+L2_BUDGET = 24 << 20
+
+
+@dataclass(frozen=True)
+class SweepGeometry:
+    """How a sweep launch spreads over the card: ``threads`` per CTA and
+    ``in_flight`` parts or steps at once (None: as many as fit in
+    ``L2_BUDGET``). The launch takes the most CTAs the card keeps resident,
+    rounded down to a power of two, each unit owned by an equal share.
+    Chosen on the H100 with ``python -m tpu_qsim_torch.kernels.tune_sweeps``
+    (PERF.md)."""
+
+    threads: int = 1024
+    in_flight: int | None = None
+
+
+# (device, threads) -> CTAs every instance keeps resident at once
+_resident: dict[tuple, int] = {}
+
+
+def resident_ctas(device: torch.device, threads: int) -> int:
+    """How many CTAs of ``threads`` threads the card keeps resident at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs), the most one
+    cooperative sweep launch takes. Asked once per process and size."""
+    from . import _build
+
+    key = (torch.device(device), threads)
+    if key not in _resident:
+        lib = _build.library("sweep")
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = lib.sweep_prepare(threads, ctypes.byref(ctas))
+        _build.check("sweep", lib, err, "sweep_prepare")
+        _resident[key] = ctas.value
+    return _resident[key]
+
+
+def launch_grid(
+    layout: BlockLayout, geometry: SweepGeometry, max_core: int, resident: int,
+) -> tuple[int, int]:
+    """(groups, group_bits) of one sweep launch: ``groups`` parts or steps
+    in flight, each owned by ``2^group_bits`` CTAs. A group takes no more
+    CTAs than the widest core has groups of slots (``sweep.cu`` splits each
+    op's items over the group's CTAs)."""
+    if resident < 1:
+        raise RuntimeError("the card cannot keep one sweep CTA resident")
+    ctas = 1 << (resident.bit_length() - 1)     # a power of two
+    units = 1 << len(layout.inactive)
+    in_flight = geometry.in_flight
+    if in_flight is None:
+        in_flight = L2_BUDGET // (8 << layout.kbits)   # 2 float32 planes
+    groups = max(1, min(in_flight, units, ctas))
+    groups = 1 << (groups.bit_length() - 1)
+    group_bits = (ctas // groups).bit_length() - 1
+    return groups, min(group_bits, layout.kbits - max_core)
+
+
+def _sweep(
+    name: str,
+    state: torch.Tensor,
+    ints: torch.Tensor,
+    coef: torch.Tensor,
+    layout: BlockLayout,
+    geometry: SweepGeometry,
+    max_core: int,
+) -> torch.Tensor:
+    from . import _build
+
+    if check_kernel_inputs(state, ints, coef) != layout.n:
+        raise ValueError(f"state must be (2, 2^{layout.n}) planes")
+    high = name == "high_sweep"
+    if len(layout.active) > (MAX_ACTIVE_TOPS if high else 0):
+        raise ValueError(f"{name} takes no block with active bits {layout.active}")
+    if layout.kbits > MAX_SWEEP_BITS:
+        raise ValueError(f"a block of 2^{layout.kbits} slots exceeds 2^{MAX_SWEEP_BITS}")
+    lib = _build.library("sweep")
+    groups, group_bits = launch_grid(
+        layout, geometry, max_core, resident_ctas(state.device, geometry.threads)
+    )
+    barriers = torch.empty(groups, dtype=torch.int32, device=state.device)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = lib.sweep_launch(
+            int(high), state.data_ptr(), 1 << layout.n, ints.data_ptr(),
+            coef.data_ptr(), layout.kbits, barriers.data_ptr(), groups,
+            group_bits, geometry.threads, max_core, stream,
+        )
+    _build.check("sweep", lib, err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return state
+
+
+def low_sweep(
+    state: torch.Tensor,
+    ints: torch.Tensor,
+    coef: torch.Tensor,
+    layout: BlockLayout,
+    geometry: SweepGeometry = SweepGeometry(),
+    max_core: int = MAX_DENSE_QUBITS,
+) -> torch.Tensor:
+    """Launch the low-sweep kernel on ``state`` (in place).
+
+    ``ints``/``coef`` are the device copies of the sweep's
+    :class:`~tpu_qsim_torch.kernels.fused_circuit.OpTable` over
+    :func:`low_layout`, ``max_core`` its widest dense core (the kernel
+    instance for narrow cores is launched when it is at most 4). Launches
+    on the current stream without synchronizing and raises on a refused
+    launch.
+    """
+    return _sweep("low_sweep", state, ints, coef, layout, geometry, max_core)
+
+
+def high_sweep(
+    state: torch.Tensor,
+    ints: torch.Tensor,
+    coef: torch.Tensor,
+    layout: BlockLayout,
+    geometry: SweepGeometry = SweepGeometry(),
+    max_core: int = MAX_DENSE_QUBITS,
+) -> torch.Tensor:
+    """Launch the high-sweep kernel on ``state`` (in place), as
+    :func:`low_sweep` over a :func:`high_layout`."""
+    return _sweep("high_sweep", state, ints, coef, layout, geometry, max_core)
+
+
+class SweepProgram:
+    """Planned sweep pipeline for one circuit.
+
+    ``run`` maps (2, 2^n) float32 planes to planes: on a CUDA tensor it
+    launches one kernel per sweep, in place; on a CPU tensor it runs the
+    plain version, :meth:`run_plain`. Each sweep's gates are the planner's,
+    with same-qubit 1q runs merged (:func:`merge_1q_chains`).
+    """
+
+    def __init__(
+        self,
+        circuit: Circuit,
+        params: SweepParams = SweepParams(),
+        geometry: SweepGeometry = SweepGeometry(),
+    ):
+        n = circuit.num_qubits
+        if n <= params.blk_bits + params.k_bits:
+            raise ValueError("n must exceed blk_bits + k_bits")
+        self.num_qubits = n
+        self.params = params
+        self.geometry = geometry
+        plan = plan_sweeps(circuit, n, params)
+        self.sweep_kinds = [s.kind for s in plan]
+        self.sweep_gates: list[list[PGate]] = [
+            merge_1q_chains(as_pgates(s.gates)) for s in plan
+        ]
+        self.layouts = [
+            low_layout(n, params) if s.kind == "low" else high_layout(s, n, params)
+            for s in plan
+        ]
+        self.tables: list[OpTable] = [
+            build_op_table(g, lay, max_bits=MAX_SWEEP_BITS)
+            for g, lay in zip(self.sweep_gates, self.layouts)
+        ]
+        self._device_tables: dict[torch.device, list] = {}
+
+    @property
+    def num_sweeps(self) -> int:
+        return len(self.sweep_kinds)
+
+    def _tables_on(self, device: torch.device) -> list:
+        tabs = self._device_tables.get(device)
+        if tabs is None:
+            tabs = [
+                (torch.from_numpy(t.ints).to(device),
+                 torch.from_numpy(t.coef).to(device))
+                for t in self.tables
+            ]
+            self._device_tables[device] = tabs
+        return tabs
+
+    def launch(self, state: torch.Tensor, i: int) -> torch.Tensor:
+        """Sweep ``i``'s kernel on the CUDA ``state``, in place."""
+        ints, coef = self._tables_on(state.device)[i]
+        fn = low_sweep if self.sweep_kinds[i] == "low" else high_sweep
+        return fn(state, ints, coef, self.layouts[i], self.geometry,
+                  self.tables[i].max_core)
+
+    def run(self, state: torch.Tensor) -> torch.Tensor:
+        check_planes(state, self.num_qubits, "sweep")
+        if state.device.type == "cpu":
+            return self.run_plain(state)
+        if state.device.type != "cuda":
+            raise ValueError(f"no sweep kernel for device {state.device}")
+        state = state.contiguous()
+        for i in range(self.num_sweeps):
+            self.launch(state, i)
+        return state
+
+    __call__ = run
+
+    def run_plain(self, state: torch.Tensor) -> torch.Tensor:
+        """The plain version: each sweep through :meth:`step_plain`."""
+        check_planes(state, self.num_qubits, "sweep")
+        for i in range(self.num_sweeps):
+            state = self.step_plain(state, i)
+        return state
+
+    def step_plain(self, state: torch.Tensor, i: int) -> torch.Tensor:
+        """Sweep ``i``'s plain version: its gates through the torch engine,
+        in the order the kernel applies them."""
+        return apply_pgates(state, self.sweep_gates[i])
+
+    def flops(self) -> float:
+        """Real flops one run needs (from the op tables)."""
+        return float(sum(t.flops_per_amp for t in self.tables)) * (1 << self.num_qubits)
+
+    def bytes_moved(self) -> int:
+        """Device-memory bytes one run must move: each sweep reads and writes
+        both float32 planes once."""
+        return self.num_sweeps * 2 * 2 * 4 * (1 << self.num_qubits)
+
+
+def build_sweep_run(
+    circuit: Circuit,
+    rdtype=np.float32,
+    *,
+    params: SweepParams | None = None,
+    device=None,
+) -> SweepProgram:
+    """Plan ``circuit`` into the sweep pipeline, with its op tables on
+    ``device`` (None: the card, which must be present)."""
+    n = circuit.num_qubits
+    if np.dtype(rdtype) != np.float32:
+        raise ValueError("the sweep path is float32-only")
+    if params is None:
+        if not (MIN_SWEEP_QUBITS <= n <= MAX_SWEEP_QUBITS):
+            raise ValueError(
+                f"sweep path expects {MIN_SWEEP_QUBITS} <= n <= "
+                f"{MAX_SWEEP_QUBITS}, got {n}"
+            )
+        params = SweepParams()
+    device = ap.resolve_device(device)
+    prog = SweepProgram(circuit, params)
+    if device.type == "cuda":
+        prog._tables_on(device)
+    return prog
