@@ -24,7 +24,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 6. grid fallback: a 6-qubit dense gate at 22 qubits that the grid planner
    refuses runs on the segmented engine and matches its plain version
    (1e-6); ``random_circuit(24, 100, seed=42)`` through the segmented and
-   the grid-sweep programs agrees within 1e-6;
+   the grid-sweep programs agrees within 1e-6; an 8-qubit dense gate on
+   qubits 14-21 of 22 (grid and sweeps refuse it) runs on the segmented
+   engine, 6 low bits kept in place, against its plain version (1e-6);
 7. sweeps engine: ``random_circuit(22, 100, seed=42)`` through
    ``build_sweep_run`` against the oracle (1e-6); 26 qubits, the sweeps main
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
@@ -34,9 +36,10 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    (1e-7, 1 - fidelity <= 1e-5), and each sweep kernel against its plain
    version on one input (1e-7); ``random_circuit(26, 100, seed=42)`` through
    the sweeps and the grid-sweep programs agrees within 1e-6;
-8. dense cores of 7 and 8 qubits through ``run``: the whole circuit at 12
-   qubits against the oracle, segments at 22 (7 qubits on 15-21) and the grid
-   sweep at 26 (on qubits 0..k-1) against their plain versions (1e-6);
+8. dense cores of 7-10 qubits through ``run`` (the tiled op): the whole
+   circuit at 12 qubits against the oracle, segments at 22 (7 qubits on
+   15-21), the grid sweep at 26 (on qubits 0..k-1) and the low sweep at 26
+   (9 and 10 qubits) against their plain versions (1e-6);
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
@@ -47,8 +50,11 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     segment kernels at 19 and the 26-qubit sweeps runs (each sweep, each
     kernel's share, and the grid sweep on the same random circuit), beside
     the plain versions, the torch engine (the route below 20 qubits before
-    these kernels) and the bound; and the cost of one 6-, 7- and 8-qubit
-    dense op in a low sweep and a grid sweep at 26 qubits. Below 20 qubits a
+    these kernels) and the bound; and the cost of one 6- to 10-qubit dense
+    op in a low sweep and a grid sweep at 26 qubits beside its flops bound
+    and one ``torch.matmul`` of the core on the complex64 state (TF32 off;
+    without and with the planes-to-complex64 copies), the op checked
+    against the matmul (1e-7). Below 20 qubits a
     kernel's time is its device time, from CUDA-graph replays of its
     launches (many per event pair); the eager time through the Python
     wrappers is printed beside it.
@@ -75,7 +81,9 @@ from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
 from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, placeable_clusters
-from tpu_qsim_torch.kernels.gridsweeps import GridSweepProgram, grid_sweep
+from tpu_qsim_torch.kernels.gridsweeps import (
+    A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
+)
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, segment
 from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
 from tpu_qsim_torch.statevector import build_torch_run_fn
@@ -372,6 +380,32 @@ def phase_grid_fallback() -> dict:
     return {"fallback_err": err, "cross_err": cross}
 
 
+def phase_fault1_segmented() -> dict:
+    """The 22-qubit circuit with an 8-qubit dense gate on qubits 14-21 (the
+    grid and sweep planners refuse it; segments keep 6 low bits in place
+    for it) through ``run`` on the segmented engine, counted, against its
+    plain version."""
+    n = 22
+    c = wide_core_circuit(n, 8, 14)
+    t0 = time.perf_counter()
+    reset_launches()
+    sim = tq.StateVectorSimulator(n, seed=1)
+    sim.run(c)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _, prog = sim.compiled_run(c)
+    plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
+    err, fid = compare(sim.state_planes, plain)
+    log(f"phase {n}q_fault1_segmented: wall_s={time.perf_counter() - t0:.3f} engine={sim.engine} "
+        f"launches={launches} local_bits={prog.local_bits} swap_min={prog.swap_min} "
+        f"max_core={max(s.table.max_core for s in prog.steps)} max_abs_err={err:.3e} "
+        f"(tol 1e-6) fidelity={fid:.9f}")
+    check(sim.engine == "segmented", f"{n}q fault-1 circuit ran on {sim.engine}")
+    check(sum(launches.values()) == prog.num_segments, f"launches {launches}")
+    check(err <= 1e-6, f"{n}q fault-1 circuit vs plain {err} > 1e-6")
+    return {"max_abs_err": err}
+
+
 def wide_core_circuit(n: int, k: int, lo: int) -> "tq.Circuit":
     """``random_circuit(n, 40, seed=42)``, a k-qubit dense gate on qubits
     lo..lo+k-1, then ``random_circuit(n, 40, seed=43)``."""
@@ -459,13 +493,17 @@ def phase_sweeps_cross_engine() -> dict:
 
 
 def phase_wide_cores() -> dict:
-    """Dense cores of 7 and 8 qubits through ``run`` on every kernel: the
-    whole circuit at 12q against the oracle, segments (22q, qubits 15-21)
-    and the grid sweep (26q, qubits 0..k-1) against their plain version."""
+    """Dense cores of 7-10 qubits through ``run`` on every kernel: the
+    whole circuit at 12q against the oracle, segments (22q, qubits 15-21),
+    the grid sweep (26q, qubits 0..k-1) and the low sweep (26q, qubits
+    17-k..16) against their plain version."""
     errs = {}
     for n, k, lo, engine in ((12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
+                             (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit"),
                              (22, 7, 15, "segmented"), (26, 7, 0, "grid_sweep"),
-                             (26, 8, 0, "grid_sweep")):
+                             (26, 8, 0, "grid_sweep"), (26, 9, 0, "grid_sweep"),
+                             (26, 10, 0, "grid_sweep"), (26, 9, 8, "sweeps"),
+                             (26, 10, 7, "sweeps")):
         t0 = time.perf_counter()
         c = wide_core_circuit(n, k, lo)
         reset_launches()
@@ -547,14 +585,19 @@ def phase_timing(sim, prog) -> dict:
     del x0
     # per-sweep split of one run
     per = []
-    threads = prog.params.threads
     for (ints, coef), lay, t in zip(prog._tables_on(state.device), prog.layouts, prog.tables):
-        per.append(time_cuda(
-            lambda: grid_sweep(state, ints, coef, lay, threads, t.max_core), 3)[-1])
+        per.append(time_cuda(lambda: grid_sweep(state, ints, coef, lay, t.max_core), 3)[-1])
     b = bound(prog.bytes_moved(), prog.flops())
+    # the same circuit in the largest blocks (2^13: blk WIDE_BLK_BITS, A_MAX
+    # active bits), where the planner needs the fewest sweeps: the bound of
+    # the circuit rather than of the geometry the run took
+    fewest = GridSweepProgram(tq.random_circuit(N_MAIN, 100, seed=42), GridParams(WIDE_BLK_BITS))
+    b_fewest = bound(fewest.bytes_moved(), fewest.flops())
     log(f"phase timing: n={N_MAIN} sweeps={prog.num_sweeps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b['bound_ms']:.4f} bytes_ms={b['bytes_ms']:.4f} flops_ms={b['flops_ms']:.4f} "
-        f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.params}")
+        f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.params}; "
+        f"fewest sweeps: {fewest.num_sweeps} at {fewest.params}, "
+        f"bound_ms={b_fewest['bound_ms']:.4f} ({b_fewest['bound_by']})")
     return {"ms": ms, "plain_ms": plain_ms, **b}
 
 
@@ -666,20 +709,72 @@ def phase_timing_sweeps(main_prog, cross: dict) -> dict:
     log(f"phase timing_sweeps: random_circuit_100 grid_sweep_ms={grid_ms:.4f} "
         f"sweeps_ms={res['random']['ms']:.4f}")
     res["grid_ms"] = grid_ms
-    one_op = {}
-    for k in (1, 6, 7, 8):
-        gate = "h" if k == 1 else _dense_gate(k)
-        # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
-        sprog = SweepProgram(tq.Circuit(n).add(gate, *range(17 - k, 17)))
-        gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)))
-        check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
-        one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
     del x
-    res["wide_op_ms"] = {k: {"low_sweep": one_op[k][0] - one_op[1][0],
-                             "grid_sweep": one_op[k][1] - one_op[1][1]} for k in (6, 7, 8)}
-    log(f"phase timing_wide_op: n={n} one_op_ms(low_sweep, grid_sweep)={one_op} "
-        f"per_op_ms_beyond_a_1q_op={json.dumps(res['wide_op_ms'])}")
+    res["wide_op_ms"] = phase_timing_dense_op()
     return res
+
+
+DENSE_OP_WIDTHS = (6, 7, 8, 9, 10)
+WIDE_GRID = GridParams(WIDE_BLK_BITS, A_MAX)
+
+
+def phase_timing_dense_op() -> dict:
+    """The tiled dense op's cost at 26q: one k-qubit core alone in a low
+    sweep (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, the grid's
+    geometry for wide cores), less the same sweep holding one 1-qubit op,
+    beside its flops bound and one
+    ``torch.matmul`` of the core on the complex64 view of the same state
+    (TF32 off), timed without and with the planes-to-complex64 copies."""
+    n = N_SWEEPS
+    x = random_planes(n, 3)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one_op = {}
+    rows = {}
+    try:
+        for k in (1, *DENSE_OP_WIDTHS):
+            gate = "h" if k == 1 else _dense_gate(k)
+            # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
+            sprog = SweepProgram(tq.Circuit(n).add(gate, *range(17 - k, 17)))
+            gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)), WIDE_GRID)
+            check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
+            one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
+            if k == 1:
+                continue
+            # the same function as one library call: U on the complex state
+            # viewed as (2^(n-17), D, 2^(17-k)); the gate's first qubit
+            # (17-k) is its matrix index's MSB and the view's lowest core
+            # bit, so U's indices are bit-reversed for the view
+            rev = [int(f"{i:0{k}b}"[::-1], 2) for i in range(1 << k)]
+            um = tq.gates.gate_matrix(gate)[np.ix_(rev, rev)]
+            u = torch.from_numpy(um.astype(np.complex64)).cuda()
+            z = torch.complex(x[0], x[1]).view(1 << (n - 17), 1 << k, 1 << (17 - k))
+            want = torch.matmul(u, z).reshape(-1)
+            got = sprog.run(x.clone())
+            err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - want)))
+            del want, got
+            mm_ms = median_ms(lambda: torch.matmul(u, z))
+
+            def with_copy():
+                y = torch.matmul(u, torch.complex(x[0], x[1]).view(z.shape)).view(-1)
+                x[0].copy_(y.real)
+                x[1].copy_(y.imag)
+
+            mm_copy_ms = median_ms(with_copy)
+            del z
+            flops = sprog.tables[0].flops_per_amp * (1 << n)
+            b = bound(0, flops)["flops_ms"]
+            rows[k] = {"low_sweep_ms": one_op[k][0] - one_op[1][0],
+                       "grid_sweep_ms": one_op[k][1] - one_op[1][1],
+                       "bound_ms": b, "matmul_ms": mm_ms, "matmul_with_copy_ms": mm_copy_ms,
+                       "max_abs_err_vs_matmul": err}
+            log(f"phase timing_dense_op: n={n} k={k} {json.dumps(rows[k])}")
+            check(err <= 1e-7, f"{k}-qubit op vs torch.matmul {err} > 1e-7")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    del x
+    log(f"phase timing_dense_op: one_op_ms(low_sweep, grid_sweep)={one_op}")
+    return rows
 
 
 def main() -> int:
@@ -698,6 +793,7 @@ def main() -> int:
     seg = phase_segmented()
     seg_closed = phase_closed_forms(N_SEG, "segmented")
     fallback = phase_grid_fallback()
+    fault1 = phase_fault1_segmented()
     sweeps_oracle = phase_22q_sweeps_oracle()
     sweeps = phase_sweeps_main()
     cross = phase_sweeps_cross_engine()
@@ -763,6 +859,7 @@ def main() -> int:
             "ghz_max_abs_err": seg_closed["ghz_max_abs_err"],
             "qft_max_mag_err": seg_closed["qft_max_mag_err"],
             "fallback_max_abs_err": fallback["fallback_err"],
+            "fault1_22q_max_abs_err": fault1["max_abs_err"],
             "cross_engine_max_abs_err": fallback["cross_err"],
         })
     for name, line in (("low_sweep", 292), ("high_sweep", 370)):

@@ -201,8 +201,9 @@ def test_new_wrappers_reject_bad_inputs(cuda_device):
 
 @pytest.mark.parametrize("kernel", ["grid_sweep", "whole_circuit", "segment", "sweep"])
 def test_narrow_and_wide_instances_agree(cuda_device, kernel):
-    # each kernel is built for cores of up to 4 qubits and of up to 8; on a
-    # table of narrow cores both instances give the same amplitudes
+    # each kernel is built for cores of up to 4 qubits and of up to 11 (the
+    # tiled op); on a table of narrow cores both instances give the same
+    # amplitudes
     n = {"grid_sweep": 20, "whole_circuit": 16, "segment": 19, "sweep": 22}[kernel]
     c = tq.random_circuit(n, 100, seed=7)
     x = _random_planes(n, 3, cuda_device)
@@ -221,7 +222,7 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
             for (ints, coef), lay, t in zip(prog._tables_on(cuda_device), prog.layouts,
                                             prog.tables):
                 assert t.max_core <= 4
-                tgs.grid_sweep(y, ints, coef, lay, prog.params.threads, max_core or t.max_core)
+                tgs.grid_sweep(y, ints, coef, lay, max_core or t.max_core)
         elif kernel == "whole_circuit":
             prog = fc.WholeCircuitProgram(c)
             ints, coef = prog._tables_on(cuda_device)
@@ -241,7 +242,7 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
 
 
 def test_wrappers_refuse_cores_wider_than_six(cuda_device):
-    # since the wide-core op the kernels take cores of up to 8 qubits
+    # since the tiled op the kernels take cores of up to 11 qubits
     # (MAX_DENSE_QUBITS); a launch for a wider one is refused
     prog = fc.WholeCircuitProgram(tq.random_circuit(12, 20, seed=1))
     ints, coef = prog._tables_on(cuda_device)
@@ -290,10 +291,12 @@ def _dense_core_circuit(n: int, k: int, lo: int) -> tq.Circuit:
 
 @pytest.mark.parametrize("n,k,lo,engine", [
     (12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
+    (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit"),
     (22, 7, 0, "grid_sweep"), (22, 8, 0, "grid_sweep"),
-    (22, 7, 15, "segmented"),
+    (22, 9, 0, "grid_sweep"), (22, 10, 0, "grid_sweep"),
+    (22, 7, 15, "segmented"), (22, 8, 14, "segmented"), (22, 9, 13, "segmented"),
     (22, 7, 8, "sweeps"), (24, 7, 12, "sweeps"), (24, 8, 10, "sweeps"),
-    (26, 8, 10, "sweeps"),
+    (26, 8, 10, "sweeps"), (22, 10, 7, "sweeps"),
 ])
 def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
     c = _dense_core_circuit(n, k, lo)
@@ -305,3 +308,52 @@ def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
     _, prog = sim.compiled_run(c)
     want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("k", [5, 6, 7, 8, 9, 10])
+@pytest.mark.parametrize("kernel", ["whole_circuit", "low_sweep", "grid_sweep"])
+def test_tiled_op_matches_plain(cuda_device, kernel, k):
+    # one k-qubit core under a block-local control, alone in its table, on a
+    # random state: the tiled op against the plain version
+    n = {"whole_circuit": 12, "low_sweep": 22, "grid_sweep": 20}[kernel]
+    qubits = {"whole_circuit": (11,) + tuple(range(k)),
+              "low_sweep": (0,) + tuple(range(17 - k, 17)),
+              "grid_sweep": (12,) + tuple(range(1, k + 1))}[kernel]
+    u = np.eye(1 << (k + 1), dtype=np.complex128)
+    rng = np.random.default_rng(k)
+    m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
+    u[1 << k:, 1 << k:] = np.linalg.qr(m)[0]
+    name = f"torch_cuda_ctrl_dense{k}"
+    if name not in GATE_ARITY:
+        register_gate(name, u)
+    c = tq.Circuit(n).add(name, *qubits)
+    prog = {"whole_circuit": fc.WholeCircuitProgram, "low_sweep": ts.SweepProgram,
+            "grid_sweep": tgs.GridSweepProgram}[kernel](c)
+    if kernel == "low_sweep":
+        assert prog.sweep_kinds == ["low"]
+    x = _random_planes(n, k, cuda_device)
+    got = prog.run(x.clone())
+    want = prog.run_plain(x)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("blk,threads", [(8, 512), (6, 128)])
+@pytest.mark.parametrize("n,name", [(20, "random"), (21, "mixed"), (22, "qft"), (22, "dense")])
+def test_register_grid_sweep_matches_plain(cuda_device, n, name, blk, threads):
+    # the register design in blocks of 2^13 and 2^11 slots, 16 a thread:
+    # runs of ops in registers, lane ops through shuffles, remaps, and 3-
+    # and 4-qubit cores in shared memory between them
+    c = {
+        "random": lambda: tq.random_circuit(n, 100, seed=11),
+        "mixed": lambda: _mixed_circuit(n),
+        "qft": lambda: tq.qft_circuit(n),
+        "dense": lambda: _dense_core_circuit(n, 6, 2),
+    }[name]()
+    prog = tgs.GridSweepProgram(c, tgs.GridParams(blk, 5))
+    assert {tgs.block_threads(lay.kbits) for lay in prog.layouts} == {threads}
+    x = _random_planes(n, n + 1, cuda_device)
+    got = prog.run(x.clone())
+    want = prog.run_plain(x)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6

@@ -134,17 +134,41 @@ def test_program_matches_jax_grid_engine(seed):
 
 def core_matrix(w: np.ndarray, off: int, m: int) -> np.ndarray:
     """A dense op's 2^m x 2^m core from the coefficient table: row-major up
-    to ``GATHER_CORE`` qubits, column-major above (ops.cuh's wide op)."""
+    to ``NARROW_CORE`` qubits, column-major above (ops.cuh's tiled op)."""
     u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
-    return u if m <= fc.GATHER_CORE else u.T
+    return u if m <= fc.NARROW_CORE else u.T
+
+
+def apply_core(s, size, targets, u, lmask, lval) -> None:
+    """``s`` (one block) under the core ``u`` whose index bit k is block bit
+    ``targets[k]``, on the groups whose control bits match."""
+    local = np.arange(size, dtype=np.int64)
+    free = np.all([((local >> t) & 1) == 0 for t in targets], axis=0)
+    base = local[free]
+    base = base[(base & lmask) == lval]
+    offs = [sum(1 << t for k, t in enumerate(targets) if (j >> k) & 1)
+            for j in range(1 << len(targets))]
+    x = np.stack([s[base | d] for d in offs])
+    y = u @ x
+    for j, d in enumerate(offs):
+        s[base | d] = y[j]
 
 
 def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
-    """Apply one sweep's op table in place, CTA by CTA, as the kernel does."""
+    """Apply one sweep's op table in place, CTA by CTA, as grid_sweep.cu
+    does, each op as its descriptor (after the ops) says: a remap takes new
+    register bits; a register op's descriptor must repeat its words (target
+    as a lane bit or a position among the current register bits, X cores
+    flagged as swaps, a diagonal's qubits packed); any other op reads its
+    codes and core as ops.cuh does on shared memory."""
     ints, coef = table.ints, table.coef
     n_ops, blk, a, n_inact = (int(v) for v in ints[:4])
+    kbits = blk + a
     active, inact = ints[16:16 + a], ints[32:32 + n_inact]
-    size = 1 << (blk + a)
+    r = int(ints[tgs.HEADER_REG_BITS])
+    assert r == tgs.REG_BITS and tgs.LANE_BITS + r <= kbits
+    descs = ints[fc.SWEEP_HEADER + n_ops * fc.OP_HEADER:].reshape(n_ops, tgs.DESC_WORDS)
+    size = 1 << kbits
     w = coef[:, 0].astype(np.float64) + 1j * coef[:, 1]
     local = np.arange(size, dtype=np.int64)
     for cta in range(1 << n_inact):
@@ -153,9 +177,18 @@ def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
         for j in range(a):
             g = g | (((local >> (blk + j)) & 1) << int(active[j]))
         s = re[g].astype(np.complex128) + 1j * im[g]
+        regs = [int(x) for x in ints[tgs.HEADER_REGS:tgs.HEADER_REGS + r]]
         for o in range(n_ops):
             op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
-            if (cta_g & int(op[5])) != int(op[6]):
+            d = descs[o]
+            assert regs == sorted(set(regs)) and len(regs) == r
+            assert all(tgs.LANE_BITS <= b < kbits for b in regs)
+            if op[0] == tgs.KIND_REMAP:
+                assert op[1] == r and list(d) == [tgs.D_REMAP] + [0] * 7
+                regs = [int(x) for x in op[8:8 + r]]
+                continue
+            assert list(d[1:6]) == [int(x) for x in op[2:7]]
+            if (cta_g & int(d[4])) != int(d[5]):
                 continue
             m, off = int(op[1]), int(op[2])
             codes = [int(x) for x in op[8:8 + m]]
@@ -166,23 +199,30 @@ def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
                 return np.full_like(li, (cta_g >> (code - fc.EXT)) & 1)
 
             if op[0] == fc.KIND_DIAG:
+                assert d[0] == tgs.D_REG | tgs.D_DIAG | (tgs.D_WIDE_DIAG if m > 2 else 0)
+                if m <= 2:
+                    assert d[7] == m | codes[0] << 8 | codes[-1] << 16
                 idx = np.zeros(size, np.int64)
                 for code in codes:
                     idx = (idx << 1) | bit(code, local)
                 s = s * w[off + idx]
                 continue
-            assert sorted(codes) == [int(x) for x in op[24:24 + m]]
-            free = np.all([((local >> t) & 1) == 0 for t in codes], axis=0)
-            base = local[free]
-            base = base[(base & int(op[3])) == int(op[4])]
-            offs = [
-                sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
-                for j in range(1 << m)
-            ]
-            x = np.stack([s[base | d] for d in offs])
-            y = core_matrix(w, off, m) @ x
-            for j, d in enumerate(offs):
-                s[base | d] = y[j]
+            if d[0] & tgs.D_REG:
+                assert m <= tgs.REG_CORE
+                u = w[off:off + 4].reshape(2, 2)
+                swap = np.array_equal(u, [[0, 1], [1, 0]])
+                lane = bool(d[0] & tgs.D_LANE)
+                assert d[0] == tgs.D_REG | (tgs.D_SWAP if swap else 0) | (tgs.D_LANE if lane else 0)
+                target = int(d[6]) if lane else regs[int(d[6])]
+                assert (target < tgs.LANE_BITS) == lane and [target] == codes
+                targets = [target]
+            else:
+                assert d[0] == 0
+                if m <= fc.SORTED_WORDS:
+                    assert sorted(codes) == [int(x) for x in op[24:24 + m]]
+                targets = codes[::-1]
+                u = core_matrix(w, off, m)
+            apply_core(s, size, targets, u, int(op[3]), int(op[4]))
         re[g], im[g] = s.real, s.imag
 
 

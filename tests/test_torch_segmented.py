@@ -279,13 +279,27 @@ def test_program_widens_block_for_wide_gates():
     m = rng.standard_normal((64, 64)) + 1j * rng.standard_normal((64, 64))
     if "torch_seg_dense6" not in GATE_ARITY:
         register_gate("torch_seg_dense6", np.linalg.qr(m)[0])
-    # 13 qubits: a 6-qubit gate needs a block of 7 + 6 = 13 bits, the whole state
+    # 13 qubits: a 6-qubit gate would need a block of 7 + 6 = 13 bits, the
+    # whole state; the block stops at 12 and keeps 6 low bits in place
+    # instead of 7
     c = tq.random_circuit(N, 30, seed=1).add("torch_seg_dense6", 12, 11, 10, 9, 8, 7)
+    prog = seg.SegmentedProgram(c, local_bits=10)
+    assert (prog.local_bits, prog.swap_min) == (12, 6)
+    psi = random_state(N, np.random.default_rng(3))
+    ref = tq.CPUReferenceSimulator(N)
+    ref.set_state(psi)
+    ref.run(c)
+    np.testing.assert_allclose(emulate_segments(psi, prog), ref.state, atol=1e-6, rtol=0)
+    # an 8-qubit gate needs 5 + 8 = 13 bits: more than a 13-qubit state's block
+    m8 = rng.standard_normal((256, 256)) + 1j * rng.standard_normal((256, 256))
+    if "torch_seg_dense8" not in GATE_ARITY:
+        register_gate("torch_seg_dense8", np.linalg.qr(m8)[0])
+    c8 = tq.random_circuit(N, 30, seed=1).add("torch_seg_dense8", *range(5, 13))
     with pytest.raises(ValueError, match="needs local_bits"):
-        seg.SegmentedProgram(c, local_bits=10)
+        seg.SegmentedProgram(c8, local_bits=10)
     c14 = tq.random_circuit(14, 30, seed=1).add("torch_seg_dense6", 13, 12, 11, 10, 9, 8)
     prog = seg.SegmentedProgram(c14, local_bits=10)
-    assert prog.local_bits == 13
+    assert (prog.local_bits, prog.swap_min) == (13, 7)
     psi = random_state(14, np.random.default_rng(2))
     ref = tq.CPUReferenceSimulator(14)
     ref.set_state(psi)

@@ -34,6 +34,7 @@ from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
 from test_torch_gridsweeps import core_matrix
+from test_torch_whole_circuit import tiled_bases
 
 P_JAX = js.SweepParams(k_bits=2, rb_bits=2)     # blk_bits 9, 4 parts
 P = ts.SweepParams(k_bits=2, rb_bits=2)
@@ -180,12 +181,14 @@ def test_layouts_are_the_jax_relabelings():
 
 def emulate_sweep(
     re: np.ndarray, im: np.ndarray, table: fc.OpTable, group_bits: int = 0,
+    threads: int = 1024,
 ) -> None:
     """Apply one sweep's op table to the flat planes in place, as sweep.cu
     does: unit by unit (the inactive bits' assignments: a low sweep's parts,
     a high sweep's steps), each op in turn, CTA r of a group of
-    ``2^group_bits`` taking the r-th contiguous part of the op's items, and
-    slot l at state index ``cta_g | (l & (2^blk - 1)) | hi_off[l >> blk]``."""
+    ``2^group_bits`` taking the r-th contiguous part of a narrow op's items
+    and a tiled core's tiles in turn, and slot l at state index
+    ``cta_g | (l & (2^blk - 1)) | hi_off[l >> blk]``."""
     ints = table.ints
     n_ops, blk, a, n_inact = (int(v) for v in ints[:4])
     active = [int(p) for p in ints[16:16 + a]]
@@ -222,18 +225,26 @@ def emulate_sweep(
                     amp = (re[g] + 1j * im[g]) * w[off + idx]
                     re[g], im[g] = amp.real, amp.imag
                 continue
-            pos = [int(x) for x in op[24:24 + m]]
-            assert pos == sorted(codes) and max(codes) < kbits
+            assert max(codes) < kbits
             offs = [sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
                     for j in range(1 << m)]
             core = core_matrix(w, off, m)
-            per = (1 << (kbits - m)) >> group_bits
-            assert per >= 1
-            for r in range(1 << group_bits):
-                base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-                for p in pos:                  # insert a 0 at each target
-                    base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-                base = base[(base & int(op[3])) == int(op[4])]
+            if m >= fc.TILE_CORE:
+                # the wide instance runs at most WIDE_THREADS a CTA
+                bases = tiled_bases(op, kbits, 1 << group_bits,
+                                    min(threads, ts.WIDE_THREADS))
+            else:
+                pos = [int(x) for x in op[24:24 + m]]
+                assert pos == sorted(codes)
+                per = (1 << (kbits - m)) >> group_bits
+                assert per >= 1
+                bases = []
+                for r in range(1 << group_bits):
+                    base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
+                    for p in pos:                  # insert a 0 at each target
+                        base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+                    bases.append(base[(base & int(op[3])) == int(op[4])])
+            for base in bases:
                 gs = [index(base | d) for d in offs]
                 y = core @ np.stack([re[g] + 1j * im[g] for g in gs])
                 for j, g in enumerate(gs):
@@ -416,9 +427,11 @@ def test_launch_grid(n, in_flight, max_core, want):
     high = ts.high_layout(ts.Sweep("high", [], {n - 1}), n)      # 8 MB steps
     assert ts.launch_grid(high, ts.SweepGeometry(512, None), 1, 528)[0] == min(
         2, 1 << (n - 20))
-    # a group never has more CTAs than the widest core has groups of slots
+    # a group never has more CTAs than a core of min(widest, 4) qubits has
+    # groups of slots (a tiled core deals its tiles to the CTAs in turn)
     small = ts.low_layout(12, P)          # 10 block bits
-    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 8, 528) == (1, 2)
+    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 8, 528) == (1, 6)
+    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 3, 528) == (1, 7)
     # the resident count rounds down to a power of two
     assert ts.launch_grid(lay, ts.SweepGeometry(512, 1), 1, 300) == (1, 8)
     with pytest.raises(RuntimeError, match="resident"):

@@ -130,10 +130,32 @@ def test_wide_inline_unitary(n, k, qubits):
 # ---------------------------------------------------------------------------
 
 
-def emulate_ops(slices: np.ndarray, table: fc.OpTable) -> None:
+def tiled_bases(op: np.ndarray, kbits: int, parts: int, threads: int) -> list:
+    """Per CTA of a Part of ``parts``, the group bases a tiled core's op
+    (ops.cuh's ``apply_dense_tiled``) takes: its groups enumerated with zeros
+    at the target and control bits and the controls' values ORed in, cut
+    into tiles of min(4 GT threads / 2^m, groups) groups (GT = 4 groups a
+    thread for a core of 7 qubits or more at up to 512 threads, else 2), CTA
+    r taking tiles r, r + parts, ... in turn."""
+    m = int(op[1])
+    assert 1 << m <= 4 * threads, "a tile holds one group block or more"
+    gt = 4 if threads <= 512 and m >= 7 else 2
+    fixed = sum(1 << int(c) for c in op[8:8 + m]) | int(op[3])
+    base = np.arange(1 << (kbits - bin(fixed).count("1")), dtype=np.int64)
+    tg = min(4 * gt * threads >> m, base.size)
+    for p in range(kbits):                  # insert a 0 at each fixed bit
+        if (fixed >> p) & 1:
+            base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+    base |= int(op[4])
+    tiles = [base[t:t + tg] for t in range(0, base.size, tg)]
+    return [np.concatenate(tiles[r::parts] or [base[:0]]) for r in range(parts)]
+
+
+def emulate_ops(slices: np.ndarray, table: fc.OpTable, threads: int = 512) -> None:
     """Apply an op table to a block held as 2^c CTA slices, in place, as
-    ``ops.cuh`` does: CTA r takes the r-th contiguous part of an op's work
-    items; an op with a dense target at or above the slice bits reads and
+    ``ops.cuh`` does: CTA r takes the r-th contiguous part of a narrow op's
+    work items and the tiles of a tiled core (:func:`tiled_bases`) in turn;
+    a tiled core, or a dense target at or above the slice bits, reads and
     writes slot l at ``slices[l >> lb, l & mask]``, any other op only CTA
     r's own slice at ``slices[r, l & mask]``."""
     ints, coef = table.ints, table.coef
@@ -150,7 +172,8 @@ def emulate_ops(slices: np.ndarray, table: fc.OpTable) -> None:
         m, off = int(op[1]), int(op[2])
         codes = [int(x) for x in op[8:8 + m]]
         assert max(codes) < kbits
-        remote = op[0] != fc.KIND_DIAG and int(op[24 + m - 1]) >= lb
+        tiled = op[0] != fc.KIND_DIAG and m >= fc.TILE_CORE
+        remote = tiled or (op[0] != fc.KIND_DIAG and max(codes) >= lb)
 
         def at(r, ls):
             return (ls >> lb, ls & mask) if remote else (r, ls & mask)
@@ -164,21 +187,26 @@ def emulate_ops(slices: np.ndarray, table: fc.OpTable) -> None:
                     idx = (idx << 1) | ((ls >> code) & 1)
                 slices[at(r, ls)] *= w[off + idx]
             continue
-        pos = [int(x) for x in op[24:24 + m]]
-        assert pos == sorted(codes)
         offs = [
             sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
             for j in range(1 << m)
         ]
         u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
-        if m > fc.GATHER_CORE:          # the wide op's column-major core
+        if tiled:                          # column-major, 16-byte aligned
+            assert off % 2 == 0
             u = u.T
-        per = (1 << (kbits - m)) >> c
-        for r in range(parts):
-            base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-            for p in pos:                  # insert a 0 at each target
-                base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-            base = base[(base & int(op[3])) == int(op[4])]
+            bases = tiled_bases(op, kbits, parts, threads)
+        else:
+            pos = [int(x) for x in op[24:24 + m]]
+            assert pos == sorted(codes)
+            per = (1 << (kbits - m)) >> c
+            bases = []
+            for r in range(parts):
+                base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
+                for p in pos:                  # insert a 0 at each target
+                    base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+                bases.append(base[(base & int(op[3])) == int(op[4])])
+        for r, base in enumerate(bases):
             x = np.stack([slices[at(r, base | d)] for d in offs])
             y = u @ x
             for j, d in enumerate(offs):
@@ -296,21 +324,33 @@ def test_op_table_records_its_widest_core():
 
 
 def test_op_table_takes_six_qubit_cores_and_refuses_seven():
+    # since the tiled op, cores of 5 qubits and more are stored column-major
+    # at an even offset, up to MAX_DENSE_QUBITS = 11; seven and more are
+    # taken, and a launch geometry whose tile is too small is refused
     lay = fc.BlockLayout(12, 12, ())
-    t = fc.build_op_table(fc.as_pgates([(_unitary(6, 1), (0, 11, 3, 9, 5, 7))]), lay, max_bits=12)
-    op = t.ints[fc.SWEEP_HEADER:fc.SWEEP_HEADER + fc.OP_HEADER]
-    assert op[0] == fc.KIND_DENSE and op[1] == 6
-    assert list(op[8:14]) == [0, 11, 3, 9, 5, 7] and list(op[24:30]) == [0, 3, 5, 7, 9, 11]
-    assert t.coef.shape == (64 * 64, 2)
+    u2 = _unitary(1, 2)
     u6 = _unitary(6, 1)
-    np.testing.assert_allclose(t.coef[:, 0] + 1j * t.coef[:, 1], u6.reshape(-1), atol=1e-7)
-    # since the wide-core op, 7 qubits are taken too, their core column-major;
-    # the limit is MAX_DENSE_QUBITS = 8
+    t = fc.build_op_table(fc.as_pgates([(u2, (4,)), (u6, (0, 11, 3, 9, 5, 7))]), lay,
+                          max_bits=12)
+    op = t.ints[fc.SWEEP_HEADER + fc.OP_HEADER:][:fc.OP_HEADER]
+    assert op[0] == fc.KIND_DENSE and op[1] == 6 and op[2] == 4   # 4 of the 1q core
+    assert list(op[8:14]) == [0, 11, 3, 9, 5, 7] and list(op[24:30]) == [0, 3, 5, 7, 9, 11]
+    assert t.coef.shape == (4 + 64 * 64, 2)
+    np.testing.assert_allclose(t.coef[4:, 0] + 1j * t.coef[4:, 1], u6.T.reshape(-1), atol=1e-7)
+    # an odd offset is padded to an even one (16 bytes for cp.async)
+    odd = fc.build_op_table(fc.as_pgates([tq.Circuit(12).rz(0, 0.3).gates[0],
+                                          (u6, (0, 11, 3, 9, 5, 7))]), lay, max_bits=12)
+    assert odd.ints[fc.SWEEP_HEADER + fc.OP_HEADER + 2] == 2
     u7 = _unitary(7, 1)
     t7 = fc.build_op_table(fc.as_pgates([(u7, tuple(range(7)))]), lay, max_bits=12)
     assert t7.max_core == 7 and t7.coef.shape == (128 * 128, 2)
     np.testing.assert_allclose(t7.coef[:, 0] + 1j * t7.coef[:, 1], u7.T.reshape(-1), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
-        fc.build_op_table(fc.as_pgates([(_unitary(9, 1), tuple(range(9)))]), lay, max_bits=12)
+    # a tile holds two groups or more: 2^m <= 4 x threads, a power of two
+    assert fc.MAX_DENSE_QUBITS == 11
+    fc.check_tile(9, 128)
+    with pytest.raises(ValueError, match="threads"):
+        fc.check_tile(10, 128)
+    with pytest.raises(ValueError, match="threads"):
+        fc.check_tile(5, 96)
     with pytest.raises(ValueError, match="shared memory"):
         fc.build_op_table([], fc.BlockLayout(15, 15, ()))

@@ -1,14 +1,15 @@
 """Dense cores wider than six qubits in every kernel of the port, and the
 grid-fallback routes they open.
 
-* ``build_op_table`` takes cores of 7 and 8 qubits (``MAX_DENSE_QUBITS``),
-  their coefficients column-major for ops.cuh's wide op, and refuses wider
-  ones, naming the limit. The tables, executed by the numpy mirrors of the
+* ``build_op_table`` takes cores of up to ``MAX_DENSE_QUBITS`` = 11 qubits,
+  those of 5 and more column-major for ops.cuh's tiled op; a wider core, or
+  one that a kernel's block cannot hold, is refused, naming the limit. The tables, executed by the numpy mirrors of the
   whole-circuit, grid-sweep, segment and sweep kernels, agree with the JAX
   package's complex128 oracle within 1e-5, a controlled wide core included.
 * Dispatch plans every circuit that the JAX package plans with such a gate
   (sweeps, grid sweep or segmented), and raises a ValueError naming each
-  refusal for a circuit that no engine in reach takes.
+  refusal for a circuit that no engine in reach takes (one the JAX package
+  cannot run either).
 """
 
 import numpy as np
@@ -73,24 +74,58 @@ def test_op_table_takes_wide_cores_column_major(k):
 
 
 def test_core_past_the_limit_raises_naming_it():
-    assert fc.MAX_DENSE_QUBITS == 8
+    # since the tiled op, cores of 9 and 10 qubits plan on the whole-circuit
+    # kernel at 12 qubits and match the JAX package's oracle; what is
+    # refused, naming the limit, is a core wider than a kernel's block (a
+    # segment keeps 5 of its at most 14 bits in place)
+    assert fc.MAX_DENSE_QUBITS == 11
     n = 12
-    c = tq.Circuit(n).add(_dense(9), *range(9))
-    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
-        fc.build_op_table(fc.as_pgates(c.gates), fc.BlockLayout(n, n, ()), max_bits=n)
-    with pytest.raises(NotImplementedError, match="MAX_DENSE_QUBITS = 8"):
-        dispatch.plan_run(c, np.float32, CUDA)
+    for k, qubits in ((9, (11, 0, 7, 3, 9, 1, 5, 2, 10)), (10, tuple(range(2, 12)))):
+        c = _between_random(n, (_dense(k), qubits))
+        engine, prog = dispatch.plan_run(c, np.float32, CUDA)
+        assert engine == "whole_circuit" and prog.table.max_core == k
+        psi = random_state(n, np.random.default_rng(k))
+        slices = psi.copy().reshape(1 << prog.cluster_bits, -1)
+        emulate_ops(slices, prog.table, prog.threads)
+        np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
+    wide = tq.Circuit(15).add(_dense(10), *range(5, 15))
+    with pytest.raises(ValueError, match="a 10-qubit gate needs local_bits >= 15"):
+        seg.SegmentedProgram(wide)
     # controls peel off: a 9-qubit gate with an 8-qubit core is taken
     ok = tq.Circuit(n).add(_dense(8, controls=1), *range(9))
     engine, prog = dispatch.plan_run(ok, np.float32, CUDA)
     assert engine == "whole_circuit" and prog.table.max_core == 8
+    # still open: a 12-qubit core on qubits 0-11 of 16 lies in the
+    # whole-circuit kernel's block, and the JAX package runs it
+    # (_emit_gate_generic), but the tiled op streams whole columns of the
+    # core through a 16 KB panel, so the op table refuses cores wider than
+    # MAX_DENSE_QUBITS = 11 and no engine takes the circuit (a product of
+    # random 1-qubit unitaries: dense, and cheaper to make than a QR)
+    rng = np.random.default_rng(12)
+    u12 = np.ones((1, 1), np.complex128)
+    for _ in range(12):
+        m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+        u12 = np.kron(u12, np.linalg.qr(m)[0])
+    tq.gates.register_gate("torch_wide_kron12", u12)
+    wide12 = tq.Circuit(16).add("torch_wide_kron12", *range(12))
+    with pytest.raises(ValueError, match="at most MAX_DENSE_QUBITS = 11"):
+        dispatch.plan_run(wide12, np.float32, CUDA)
 
 
 def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():
-    c = tq.Circuit(10).add(_dense(8), *range(8))
-    assert fc.WholeCircuitProgram(c).table.max_core == 8      # GEOMETRY: 2 CTAs
-    with pytest.raises(ValueError, match="fewer groups"):
-        fc.WholeCircuitProgram(c, cluster_bits=3, threads=256)
+    # an 8-qubit core at 10 qubits has 4 groups; since the tiled op deals its
+    # tiles to the cluster's CTAs in turn, a cluster of 8 CTAs takes it (the
+    # CTAs without a tile wait at the barrier). What is still refused is a
+    # CTA too small for the core's tile: 2^m <= 4 x threads
+    c = _between_random(10, (_dense(8), tuple(range(8))))
+    prog = fc.WholeCircuitProgram(c, cluster_bits=3, threads=256)
+    assert prog.table.max_core == 8
+    psi = random_state(10, np.random.default_rng(8))
+    slices = psi.copy().reshape(8, -1)
+    emulate_ops(slices, prog.table, prog.threads)
+    np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
+    with pytest.raises(ValueError, match="threads"):
+        fc.WholeCircuitProgram(c, cluster_bits=3, threads=32)
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +177,18 @@ def test_segment_emulation(qubits):
 
 
 def test_segments_hold_no_core_wider_than_seven():
-    c = tq.Circuit(20).add(_dense(8), *range(12, 20))
-    with pytest.raises(ValueError, match="local_bits"):
-        seg.SegmentedProgram(c)
+    # by default a plan keeps 7 low bits in place; a gate wider than the rest
+    # of the block lowers that to as few as 5, so since the fault-1 repair a
+    # segment holds cores of up to 9 qubits: an 8-qubit core on 7-14 of 15
+    # keeps 6 bits in place and matches the oracle
+    n = 15
+    assert seg.SegmentedProgram(tq.random_circuit(n, 30, seed=1)).swap_min == 7
+    c = _between_random(n, (_dense(8), tuple(range(7, 15))))
+    prog = seg.SegmentedProgram(c)
+    assert (prog.local_bits, prog.swap_min) == (14, 6)
+    assert max(s.table.max_core for s in prog.steps) == 8
+    psi = random_state(n, np.random.default_rng(8))
+    np.testing.assert_allclose(emulate_segments(psi, prog), jax_oracle(c, psi), atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("group_bits", [0, 1])
@@ -189,11 +233,29 @@ def test_dispatch_plans_wide_core_circuits(n, k, lo, engine):
 
 
 def test_dispatch_raises_when_every_engine_refuses():
-    # an 8-qubit core on qubits 14-21 of 22: 8 high qubits for the grid, a mid
-    # and a top qubit for the sweeps, more than 7 for a segment
-    c = tq.Circuit(22).add(_dense(8), *range(14, 22))
+    """Fault 1 repaired: an 8-qubit core on qubits 14-21 of 22 (8 high qubits
+    for the grid, a mid and a top qubit for the sweeps) now takes the
+    segmented engine, whose plan keeps 6 low bits in place instead of 7, and
+    matches the complex128 oracle. (The JAX package's own segmented planner
+    spins on this circuit: at 16 block bits its stage_min of 12 admits at
+    most 4 incoming qubits per segment, and the gate brings 6.)
+
+    Still refused, naming each engine's refusal: a 10-qubit core on qubits
+    12-21 of 22, wider than any segment's 14 - 5 = 9 bits. The JAX package
+    cannot run it either: its grid and sweep planners refuse it, and its
+    segmented planner spins (10 qubits > 16 - 7)."""
+    n = 22
+    c = tq.Circuit(n).h(0).add(_dense(8), *range(14, 22)).cnot(0, n - 1)
+    engine, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert engine == "segmented" and isinstance(prog, seg.SegmentedProgram)
+    assert (prog.local_bits, prog.swap_min) == (fc.MAX_BLOCK_BITS, 6)
+    assert max(s.table.max_core for s in prog.steps) == 8
+    psi = random_state(n, np.random.default_rng(22))
+    np.testing.assert_allclose(emulate_segments(psi, prog), jax_oracle(c, psi), atol=TOL, rtol=0)
+
+    c10 = tq.Circuit(n).add(_dense(10), *range(12, 22))
     with pytest.raises(ValueError) as err:
-        dispatch.plan_run(c, np.float32, CUDA)
+        dispatch.plan_run(c10, np.float32, CUDA)
     msg = str(err.value)
     for name in ("grid_sweep:", "sweeps:", "segmented:"):
         assert name in msg

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC", "-shared",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--split-compile=4",
 )
 BUILD_TIMEOUT_S = 300
 
@@ -51,8 +51,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # and every library has <name>_error_string(int) -> const char*
 SIGNATURES: dict[str, dict[str, list]] = {
     "grid_sweep": {
-        # state, dim, table, coef, kbits, steps, threads, max_core, stream
-        "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _I, _P],
+        # state, dim, table, coef, kbits, steps, max_core, stream
+        "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P],
     },
     "whole_circuit": {
         # n, cluster_bits, threads, int* clusters

@@ -34,7 +34,9 @@ constexpr int SWEEP_HEADER = 64;    // int32 words before the first op
 constexpr int HEADER_MAX_CORE = 4;  // header word: the table's widest dense core
 constexpr int OP_HEADER = 32;       // int32 words per op
 constexpr int EXT = 32;             // codes >= EXT name bits outside the block
-constexpr int KIND_DIAG = 0;        // any other kind is a dense core of 1-8 qubits
+constexpr int KIND_DIAG = 0;        // KIND_DENSE (1): a dense core
+constexpr int TILE_CORE = 5;        // dense cores of this many qubits and more: apply_dense_tiled
+constexpr int NARROW_CORE = 4;      // the widest core of a kernel's narrow instance
 
 // Masking every access of a single-CTA block (LocalSlots with mask size - 1)
 // cost the 28q grid sweep 3% against this type on the H100 (PERF.md).
@@ -99,9 +101,16 @@ __device__ __forceinline__ unsigned bit_of(int code, unsigned l, unsigned cta_g)
   return code < EXT ? (l >> code) & 1u : (cta_g >> (code - EXT)) & 1u;
 }
 
-// True when the op moves amplitudes along a block bit >= bits (a dense core
-// with a target there); diagonal ops move nothing.
+// True when the op may touch slots along a block bit >= bits: a dense core
+// with a target there, or any tiled core (its tiles go to the CTAs in turn,
+// whatever their slots); diagonal ops move nothing.
+// The narrow instance (MAXM = NARROW_CORE) has no tiled core to test for:
+// the extra test cost the 18q whole-circuit kernel 6% on the H100.
+template <int MAXM>
 __device__ __forceinline__ bool op_moves_from(const int* op, int bits) {
+  if constexpr (MAXM > NARROW_CORE) {
+    if (op[0] != KIND_DIAG && op[1] >= TILE_CORE) return true;
+  }
   return op[0] != KIND_DIAG && op[24 + op[1] - 1] >= bits;
 }
 
@@ -141,18 +150,16 @@ __device__ void apply_diag(const S& s, const int* op, const float2* coef,
   }
 }
 
-// Dense op on M <= GATHER_CORE block qubits, under block-local controls: one
+// Dense op on M <= NARROW_CORE block qubits, under block-local controls: one
 // thread per group of 2^M slots, gathered to registers and multiplied by the
-// row-major 2^M x 2^M core. Cores of up to 4 qubits unroll fully; 5 and 6
-// qubits keep their 32 or 64 amplitudes in (spilled) per-thread arrays.
+// row-major 2^M x 2^M core, fully unrolled.
 template <int M, class S>
 __device__ void apply_dense(const S& s, const int* op, const float2* coef,
                             int kbits, Part part) {
   constexpr int D = 1 << M;
-  constexpr int UNROLL = M <= 4 ? D : 1;
   const unsigned lmask = op[3], lval = op[4];
   unsigned offs[D];
-#pragma unroll (UNROLL)
+#pragma unroll
   for (int j = 0; j < D; ++j) {
     unsigned o = 0;
     for (int i = 0; i < M; ++i)
@@ -180,15 +187,15 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
     }
     if ((base & lmask) != lval) continue;
     float xr[D], xi[D];
-#pragma unroll (UNROLL)
+#pragma unroll
     for (int j = 0; j < D; ++j) {
       xr[j] = *s.re(base | offs[j]);
       xi[j] = *s.im(base | offs[j]);
     }
-#pragma unroll (UNROLL)
+#pragma unroll
     for (int r = 0; r < D; ++r) {
       float ar = 0.f, ai = 0.f;
-#pragma unroll (UNROLL)
+#pragma unroll
       for (int c = 0; c < D; ++c) {
         float2 c2;
         if constexpr (M <= 2) c2 = w[r * D + c];
@@ -202,77 +209,261 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
   }
 }
 
-// Dense op on M > GATHER_CORE block qubits: 2^M amplitudes are too many for
-// one thread's registers (at 5-6 qubits apply_dense's arrays already spill),
-// so the 32 lanes of a warp share a group. Lane t loads and keeps the
-// amplitudes j = t + 32 i of the group, i < 2^M / 32; each column is then
-// broadcast from the lane holding it (__shfl_sync), and lane t sums its rows
-// t + 32 i against the core, which build_op_table stores column-major for
-// these widths, so a warp's coefficient loads are coalesced (read through
-// L1/L2: 128 KB at 7 qubits, 512 KB at 8, too large for shared memory
-// beside a block). Lane t writes back only the slots it loaded, after every
-// lane has loaded, so the group's reads all come before its writes. Needs a
-// block of whole warps (the launchers check); warps take the groups of the
-// CTA's part in turn.
-constexpr int GATHER_CORE = 6;
+// ---------------------------------------------------------------------------
+// Dense op on M >= TILE_CORE block qubits: one tiled complex matrix product.
+//
+// The op is Y = U X, U the 2^M x 2^M core (D = 2^M) and X the D x G matrix
+// whose column g holds the amplitudes of group g (the 2^M slots that differ
+// only in the targets, under the block-local controls). Each thread owns 4
+// rows of GT groups (GT = 4 for cores of 7 qubits and more at up to 512
+// threads, else 2), so a CTA of T threads takes tiles of TG = 4 GT T / D
+// groups (fewer if the op has fewer groups):
+//   1. the tile's X is staged from the slots into shared memory, xs[c][g]
+//      (its slots may be this CTA's shared memory, a cluster's or device
+//      memory: the op reads each once). A tile is the slots whose bits
+//      outside the targets and the tile's lowest free bits are fixed; its
+//      elements are taken in the order of their slot indices, so a warp's
+//      32 loads are consecutive slots wherever the targets lie (no bank
+//      conflicts in shared memory, whole sectors in device memory). Row and
+//      group of a slot are linear in its bits, so each thread derives them
+//      for its 4 GT elements from a few masks;
+//   2. U streams through shared memory in panels of KC = min(D, PANEL / D)
+//      whole columns (build_op_table stores U column-major, so a panel is one
+//      contiguous run of coefficients), double-buffered with cp.async: the
+//      next panel's copy is in flight while the threads multiply the current
+//      one (starting each CTA at another panel, tried, was 10% slower);
+//   3. thread t accumulates rows 2 rb, 2 rb + 1, 2 rb + D/2, 2 rb + 1 + D/2
+//      of groups GT gb .. GT gb + GT - 1 in float32 registers: per column
+//      GT/2 float4 of X and two of U from shared memory for 4 GT complex
+//      multiply-adds of four chained FMAs. A warp's lanes take 8 or more row
+//      pairs and up to 4 group blocks, so their U loads are 128 consecutive
+//      bytes and their X loads broadcast;
+//   4. after the last panel (and the barrier that ends it, so every read of
+//      the tile's slots is done) the outputs go to xs, and from there to the
+//      slots in the order of step 1.
+// xs[c][g] sits at c TGS + (g ^ (GT c mod TGS)), TGS = max(TG, GT): the
+// swizzle keeps a group block in whole float4s and spreads a column's rows
+// over the banks.
+// U is read once per tile of TG groups, not once per group. Block-local
+// controls fix their bits in the group enumeration (no group is skipped).
+// Tiles are split over the CTAs of a Part in turn. Needs T a power of two
+// with D <= 4 T and D <= PANEL, and tile_scratch_bytes(T) of shared memory
+// at `scratch` (16-byte aligned); the coefficients must start 16-byte
+// aligned (build_op_table pads). Every thread of the CTA must call it. It is
+// one non-inlined function, so its registers are allocated apart from the
+// surrounding kernel's.
+// ---------------------------------------------------------------------------
+constexpr int PANEL = 2048;  // float2 per U panel buffer: 16 KB
+// cores of this many qubits and more take 4 groups a thread at <= 512
+// threads (at 6 qubits 2 groups were faster in the grid sweep on the H100)
+constexpr int TILE_GT4_CORE = 7;
+constexpr int TILE_MAX_CORE = 11;  // D <= PANEL
 
-template <int M, class S>
-__device__ void apply_dense_wide(const S& s, const int* op, const float2* coef,
-                                 int kbits, Part part) {
-  constexpr int D = 1 << M;
-  constexpr int R = D / 32;
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const unsigned lmask = op[3], lval = op[4];
-  unsigned offs[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const unsigned j = lane + 32u * i;
-    unsigned o = 0;
-    for (int b = 0; b < M; ++b)
-      if ((j >> (M - 1 - b)) & 1u) o |= 1u << op[8 + b];
-    offs[i] = o;
+// Groups each thread of a CTA of `threads` takes in the tiled op, for a
+// core of 2^m rows (0: the most any core takes, for the scratch size).
+__host__ __device__ constexpr int tile_thread_groups(int threads, int m = 0) {
+  return threads <= 512 && (m == 0 || m >= TILE_GT4_CORE) ? 4 : 2;
+}
+
+__host__ __device__ constexpr size_t tile_scratch_bytes(int threads) {
+  return (size_t)threads * 4 * tile_thread_groups(threads) * sizeof(float2) +
+         2 * PANEL * sizeof(float2);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copy of `count` float2 (a multiple of 2) from src to dst, each
+// thread 16 bytes at a time, as one cp.async group.
+__device__ __forceinline__ void copy_panel(float2* dst, const float2* src,
+                                           unsigned count) {
+  for (unsigned ch = threadIdx.x; ch < count / 2; ch += blockDim.x)
+    cp_async16(dst + 2 * ch, src + 2 * ch);
+  cp_async_commit();
+}
+
+// The bits of x placed, ascending, at the set bits of mask.
+__device__ __forceinline__ unsigned deposit_bits(unsigned x, unsigned mask) {
+  unsigned out = 0;
+  while (mask) {
+    const unsigned low = mask & (0u - mask);
+    if (x & 1u) out |= low;
+    x >>= 1;
+    mask &= mask - 1u;
   }
-  int pos[M];
-  for (int i = 0; i < M; ++i) pos[i] = op[24 + i];
-  const float2* u = coef + op[2];  // column-major: u[c * D + r]
-  const unsigned groups = 1u << (kbits - M);
-  const unsigned lo = part.begin(groups), hi = part.end(groups);
-  for (unsigned gi = lo + warp; gi < hi; gi += n_warps) {
-    unsigned base = gi;
-    for (int i = 0; i < M; ++i) {  // insert a 0 at each target, ascending
-      const unsigned low = base & ((1u << pos[i]) - 1u);
-      base = ((base >> pos[i]) << (pos[i] + 1)) | low;
-    }
-    if ((base & lmask) != lval) continue;  // the same for the whole warp
-    float xr[R], xi[R], ar[R], ai[R];
+  return out;
+}
+
+// The bits of x at the set bits of mask, packed ascending.
+__device__ __forceinline__ unsigned extract_bits(unsigned x, unsigned mask) {
+  unsigned out = 0;
+  for (int k = 0; mask; ++k) {
+    const int p = __ffs(mask) - 1;
+    mask &= mask - 1u;
+    out |= ((x >> p) & 1u) << k;
+  }
+  return out;
+}
+
+// Row index of slot bits x under an m-qubit core (op[8] is the row's MSB).
+__device__ __forceinline__ unsigned row_of(const int* op, int m, unsigned x) {
+  unsigned c = 0;
+  for (int i = 0; i < m; ++i) c = (c << 1) | ((x >> op[8 + i]) & 1u);
+  return c;
+}
+
+template <int GT, class S>
+__device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
+                                               const float2* coef, int kbits,
+                                               Part part, float2* scratch) {
+  constexpr int E = 4 * GT;             // elements of a tile per thread
+  constexpr int LOG2E = GT == 4 ? 4 : 3;
+  const int m = op[1];
+  const unsigned D = 1u << m;
+  const unsigned T = blockDim.x, t = threadIdx.x;
+  const int log2t = __ffs(T) - 1;
+  unsigned tmask = 0;
+  for (int i = 0; i < m; ++i) tmask |= 1u << op[8 + i];
+  const unsigned lmask = op[3], lval = op[4];
+  const unsigned free = ((1u << kbits) - 1u) & ~(tmask | lmask);
+  const int free_bits = __popc(free);
+  const int log2tg = min(log2t + LOG2E - m, free_bits);
+  // a tile's groups, and its row stride in xs: at least one group block (an
+  // op with fewer groups computes unused ones, never loaded or stored)
+  const unsigned TG = 1u << log2tg, TGS = TG > GT ? TG : GT;
+  // a tile: the lowest log2tg free bits (its groups) and the targets (its
+  // rows) vary; the other free bits number the tiles
+  unsigned gmask = 0, rest = free;
+  for (int k = 0; k < log2tg; ++k) {
+    gmask |= rest & (0u - rest);
+    rest &= rest - 1u;
+  }
+  const unsigned pmask = tmask | gmask;
+  const unsigned n_tiles = 1u << (free_bits - log2tg);
+  const unsigned count = D * TG;       // elements of a tile, at most E T
+  const unsigned KC = D < PANEL / D ? D : PANEL / D;
+  const unsigned panel = KC * D, n_panels = D / KC;
+  float2* xs = scratch;                 // [D][TGS], swizzled
+  float2* us = scratch + E * T;         // [2][PANEL]
+  const float2* u = coef + op[2];       // column-major: u[c * D + r]
+  const unsigned swz = TGS - GT;        // GT c mod TGS keeps group blocks whole
+
+  // element t + i T of a tile: slot bits dep_t | dl[bits of i], row
+  // c_t ^ dc[..], group g_t ^ dg[..] (linear in the element's bits)
+  const unsigned dep_t = deposit_bits(t, pmask);
+  const unsigned c_t = row_of(op, m, dep_t), g_t = extract_bits(dep_t, gmask);
+  unsigned dl[LOG2E], dc[LOG2E], dg[LOG2E];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      xr[i] = *s.re(base | offs[i]);
-      xi[i] = *s.im(base | offs[i]);
-      ar[i] = 0.f;
-      ai[i] = 0.f;
-    }
+  for (int b = 0; b < LOG2E; ++b) {
+    dl[b] = deposit_bits(1u << (log2t + b), pmask);
+    dc[b] = row_of(op, m, dl[b]);
+    dg[b] = extract_bits(dl[b], gmask);
+  }
+
+  // compute: row pair rb (rows 2 rb, 2 rb + 1 and the same + D/2), group
+  // block gb (groups GT gb .. GT gb + GT - 1)
+  const unsigned GB = TGS / GT, GBL = GB < 4 ? GB : 4;
+  const unsigned q = D / 4;
+  const bool computes = t < q * GB;
+  const unsigned rb = (t / GBL) % q;
+  const unsigned gb = (t / GBL / q) * GBL + t % GBL;
+
+  for (unsigned tile = part.index; tile < n_tiles; tile += 1u << part.log2) {
+    const unsigned hi = deposit_bits(tile, rest) | lval;
+    copy_panel(us, u, panel);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
+    for (int i = 0; i < E; ++i) {
+      if (t + i * T >= count) break;
+      unsigned l = hi | dep_t, c = c_t, g = g_t;
+#pragma unroll
+      for (int b = 0; b < LOG2E; ++b)
+        if ((i >> b) & 1) {
+          l |= dl[b];
+          c ^= dc[b];
+          g ^= dg[b];
+        }
+      xs[c * TGS + (g ^ ((GT * c) & swz))] = make_float2(*s.re(l), *s.im(l));
+    }
+    float ar[4][GT], ai[4][GT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < GT; ++j) ar[i][j] = ai[i][j] = 0.f;
+    for (unsigned p = 0; p < n_panels; ++p) {
+      if (p + 1 < n_panels) {
+        copy_panel(us + ((p + 1) & 1u) * PANEL, u + (size_t)(p + 1) * panel, panel);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (computes) {
+        const float4* up = reinterpret_cast<const float4*>(us + (p & 1u) * PANEL) + rb;
 #pragma unroll 4
-      for (int src = 0; src < 32; ++src) {
-        const float br = __shfl_sync(0xffffffffu, xr[i], src);
-        const float bi = __shfl_sync(0xffffffffu, xi[i], src);
-        const float2* col = u + (size_t)(32 * i + src) * D + lane;
+        for (unsigned cc = 0; cc < KC; ++cc) {
+          const unsigned c = p * KC + cc;
+          const float4* xr = reinterpret_cast<const float4*>(
+              xs + c * TGS + ((GT * gb) ^ ((GT * c) & swz)));
+          float2 x[GT];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float2 w = col[32 * r];
-          ar[r] += w.x * br - w.y * bi;
-          ai[r] += w.x * bi + w.y * br;
+          for (int j = 0; j < GT / 2; ++j) {
+            const float4 v = xr[j];
+            x[2 * j] = make_float2(v.x, v.y);
+            x[2 * j + 1] = make_float2(v.z, v.w);
+          }
+          const float4 w01 = up[cc * (D / 2)];          // rows 2 rb, 2 rb + 1
+          const float4 w23 = up[cc * (D / 2) + q];      // the same + D/2
+          const float2 w[4] = {make_float2(w01.x, w01.y), make_float2(w01.z, w01.w),
+                               make_float2(w23.x, w23.y), make_float2(w23.z, w23.w)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < GT; ++j) {  // four chained FMAs per product
+              ar[i][j] = fmaf(w[i].x, x[j].x, fmaf(-w[i].y, x[j].y, ar[i][j]));
+              ai[i][j] = fmaf(w[i].x, x[j].y, fmaf(w[i].y, x[j].x, ai[i][j]));
+            }
         }
       }
+      __syncthreads();
     }
+    if (computes) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      *s.re(base | offs[r]) = ar[r];
-      *s.im(base | offs[r]) = ai[r];
+      for (int i = 0; i < 4; ++i) {
+        const unsigned r = 2 * rb + (i & 1) + (i & 2 ? D / 2 : 0u);
+        float4* xw = reinterpret_cast<float4*>(
+            xs + r * TGS + ((GT * gb) ^ ((GT * r) & swz)));
+#pragma unroll
+        for (int j = 0; j < GT / 2; ++j)
+          xw[j] = make_float4(ar[i][2 * j], ai[i][2 * j], ar[i][2 * j + 1],
+                              ai[i][2 * j + 1]);
+      }
     }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (t + i * T >= count) break;
+      unsigned l = hi | dep_t, c = c_t, g = g_t;
+#pragma unroll
+      for (int b = 0; b < LOG2E; ++b)
+        if ((i >> b) & 1) {
+          l |= dl[b];
+          c ^= dc[b];
+          g ^= dg[b];
+        }
+      const float2 y = xs[c * TGS + (g ^ ((GT * c) & swz))];
+      *s.re(l) = y.x;
+      *s.im(l) = y.y;
+    }
+    __syncthreads();  // the next tile's staging overwrites xs
   }
 }
 
@@ -282,13 +473,15 @@ __device__ void apply_dense_wide(const S& s, const int* op, const float2* coef,
 // instance when the table's widest core allows it. A kernel calls
 // check_core_width once before its ops, so a table too wide for the
 // instance traps instead of skipping ops; the ops themselves do not check.
-constexpr int NARROW_CORE = 4;
-constexpr int MAX_CORE = 8;
+constexpr int MAX_CORE = TILE_MAX_CORE;
 
 // Whether a launch of `threads` threads per CTA can run a table whose widest
-// core is `max_core`: cores wider than GATHER_CORE take whole warps.
+// core is `max_core`: the tiled op needs a power of two with 2^max_core <=
+// 4 threads (a tile of two or more groups).
 inline bool threads_fit_core(int threads, int max_core) {
-  return max_core <= GATHER_CORE || threads % 32 == 0;
+  if (max_core < TILE_CORE) return true;
+  return max_core <= MAX_CORE && threads >= 32 && (threads & (threads - 1)) == 0 &&
+         (1 << max_core) <= 4 * threads;
 }
 
 template <int MAXM>
@@ -297,10 +490,12 @@ __device__ __forceinline__ void check_core_width(const int* table) {
 }
 
 // One op of the table. Out-of-block controls (words 5, 6) are uniform over
-// the CTA and skip it whole.
+// the CTA and skip it whole. `scratch` is the tiled op's shared memory (only
+// the wide instance reads it).
 template <int MAXM, class S>
 __device__ void apply_op(const S& s, const int* op, const float2* coef,
-                         int kbits, unsigned cta_g, Part part) {
+                         int kbits, unsigned cta_g, Part part,
+                         float2* scratch) {
   if ((cta_g & (unsigned)op[5]) != (unsigned)op[6]) return;
   if (op[0] == KIND_DIAG) {
     apply_diag(s, op, coef, kbits, cta_g, part);
@@ -311,16 +506,12 @@ __device__ void apply_op(const S& s, const int* op, const float2* coef,
     case 2: apply_dense<2>(s, op, coef, kbits, part); break;
     case 3: apply_dense<3>(s, op, coef, kbits, part); break;
     case 4: apply_dense<4>(s, op, coef, kbits, part); break;
-    case 5:
-      if constexpr (MAXM >= 5) apply_dense<5>(s, op, coef, kbits, part);
-      break;
-    case 6:
-      if constexpr (MAXM >= 6) apply_dense<6>(s, op, coef, kbits, part);
-      break;
     default:  // only the wide instance has code for these widths
-      if constexpr (MAXM > GATHER_CORE) {
-        if (op[1] == 7) apply_dense_wide<7>(s, op, coef, kbits, part);
-        else if (op[1] == 8) apply_dense_wide<8>(s, op, coef, kbits, part);
+      if constexpr (MAXM > NARROW_CORE) {
+        if (tile_thread_groups(blockDim.x, op[1]) == 4)
+          apply_dense_tiled<4>(s, op, coef, kbits, part, scratch);
+        else
+          apply_dense_tiled<2>(s, op, coef, kbits, part, scratch);
       }
       break;
   }

@@ -12,18 +12,22 @@
 //      (or from the new index itself when the segment has no relabeling);
 //   2. the segment's ops run on shared memory (ops.cuh, one CTA barrier
 //      between ops; as in grid_sweep.cu, an instance for cores of up to
-//      NARROW_CORE qubits and one for MAX_CORE; the planner keeps SWAP_MIN = 7
-//      of a block's at most 14 bits for relocations, so cores of up to 7
-//      qubits reach this kernel);
+//      NARROW_CORE qubits and one for MAX_CORE, whose tiled op has its
+//      scratch after the lookup tables; the planner keeps bits [0, swap_min)
+//      of a block's at most 14 bits in place, swap_min 7 unless a wider gate
+//      needs the room and never below 5, so cores of up to 9 qubits reach
+//      this kernel);
 //   3. store: to the new index, or, in the scatter segment, to the index the
 //      restore-to-canonical relabeling gives it, sum_j bit_j(x) << dst[j]
 //      with dst the inverse of the plan's restore.
 // An index map is linear in the bits, so each CTA builds two lookup tables
 // per map in shared memory (bits 0-7 and 8-13 of l) and adds its own block's
-// share once. A relabeled segment writes another buffer: one block's sources
-// are other blocks' destinations (the JAX kernel drops its in/out alias for
-// the same reason). The planner keeps bits 0..6 in place, so a warp's 32
-// loads and stores stay in one 128 B line.
+// share once; the tables take any map of the bits, with no bit fixed. A
+// relabeled segment writes another buffer: one block's sources are other
+// blocks' destinations (the JAX kernel drops its in/out alias for the same
+// reason). The planner keeps at least bits 0..4 in place, so a warp's 32
+// consecutive slots are 32 consecutive float32 values of a plane, one 128 B
+// line, in every gather and scatter.
 //
 // The TPU kernels gathered in chunks of >= 8 rows (GATHER_SWAP_MIN, the
 // staged relocations of stage_min) and ran any other relabeling as a
@@ -48,7 +52,14 @@ constexpr int MAP_WORDS = 32;  // maps: src[0..n) then dst at [MAP_WORDS, MAP_WO
 constexpr int LUT_LO = 256;    // bits 0-7 of l
 constexpr int LUT_HI = 1 << (MAX_LOCAL_BITS - 8);
 constexpr size_t LUT_BYTES = 2 * (LUT_LO + LUT_HI) * sizeof(unsigned);
-constexpr int MAX_SMEM = (2 * sizeof(float) << MAX_LOCAL_BITS) + LUT_BYTES;
+
+// Dynamic shared memory of one CTA: the block's planes, the lookup tables,
+// and in the wide instance the tiled op's scratch.
+template <int MAXM>
+size_t smem_bytes(int local_bits, int threads) {
+  const size_t base = (2 * sizeof(float) << local_bits) + LUT_BYTES;
+  return MAXM > NARROW_CORE ? base + tile_scratch_bytes(threads) : base;
+}
 
 // The map's share of bits [from, from + count) of x, where `bits` holds the
 // destination bit of each source bit.
@@ -89,6 +100,7 @@ segment_kernel(const float* in_re, const float* in_im, float* out_re,
   unsigned* g_hi = g_lo + LUT_LO;
   unsigned* s_lo = g_hi + LUT_HI;
   unsigned* s_hi = s_lo + LUT_LO;
+  float2* scratch = reinterpret_cast<float2*>(s_hi + LUT_HI);
   const unsigned b = blockIdx.x;
   const unsigned block_base = b << lb;
 
@@ -108,7 +120,7 @@ segment_kernel(const float* in_re, const float* in_im, float* out_re,
   const BlockSlots slots{sr, si};
   for (int o = 0; o < n_ops; ++o) {
     apply_op<MAXM>(slots, table + SWEEP_HEADER + o * OP_HEADER, coef, lb, 0u,
-                   Part{0, 0u});
+                   Part{0, 0u}, scratch);
     __syncthreads();
   }
 
@@ -124,7 +136,7 @@ template <bool SCATTER, int MAXM>
 int launch(const float* in, float* out, long long dim, int n,
            const int* table, const float* coef, const int* maps, int gather,
            int local_bits, int threads, void* stream) {
-  const size_t smem = (2 * sizeof(float) << local_bits) + LUT_BYTES;
+  const size_t smem = smem_bytes<MAXM>(local_bits, threads);
   segment_kernel<SCATTER, MAXM><<<(unsigned)(dim >> local_bits), threads,
                                   smem, (cudaStream_t)stream>>>(
       in, in + dim, out, out + dim, table,
@@ -152,7 +164,7 @@ template <bool SCATTER, int MAXM>
 cudaError_t allow_smem() {
   return cudaFuncSetAttribute(segment_kernel<SCATTER, MAXM>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              MAX_SMEM);
+                              (int)smem_bytes<MAXM>(MAX_LOCAL_BITS, 1024));
 }
 
 }  // namespace

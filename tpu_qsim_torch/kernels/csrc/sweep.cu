@@ -37,7 +37,9 @@
 // template serves both sweeps (GlobalSlots<false> for the low sweep, whose
 // slot l is cta_g + l; GlobalSlots<true> for the high one), each built for
 // cores of up to NARROW_CORE and of up to MAX_CORE qubits, as the other
-// kernels are.
+// kernels are. Only the wide instance has dynamic shared memory: the scratch
+// in which ops.cuh's tiled op stages a tile of the unit's groups and streams
+// the core, for cores of TILE_CORE qubits and more.
 //
 // Bound on this card: device-memory bytes, 16 B per amplitude per sweep
 // (both planes read and written once; 0.32 ms at 26 qubits and 3.35 TB/s).
@@ -81,12 +83,18 @@ __device__ __forceinline__ void group_sync(unsigned* counter, unsigned members,
   __syncthreads();
 }
 
+// The wide instance takes at most WIDE_THREADS threads, so that ptxas may
+// give the tiled op 128 registers a thread (4 groups a thread).
+constexpr int WIDE_THREADS = 512;
+
 template <bool HIGH, int MAXM>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(MAXM > NARROW_CORE ? WIDE_THREADS : 1024)
 sweep_kernel(float* __restrict__ re, float* __restrict__ im,
              const int* __restrict__ table, const float2* __restrict__ coef,
              unsigned* __restrict__ barriers, int group_bits) {
   __shared__ unsigned hi_off[1 << MAX_ACTIVE];
+  extern __shared__ float4 dyn_smem[];
+  float2* scratch = reinterpret_cast<float2*>(dyn_smem);
   check_core_width<MAXM>(table);
   const int n_ops = table[0], blk = table[1], a = table[2];
   const int n_inact = table[3];
@@ -118,9 +126,14 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
     for (int o = 0; o < n_ops; ++o) {
       if (o > 0) group_sync(counter, members, target);
       apply_op<MAXM>(slots, table + SWEEP_HEADER + o * OP_HEADER, coef, kbits,
-                     cta_g, part);
+                     cta_g, part, scratch);
     }
   }
+}
+
+template <int MAXM>
+size_t smem_bytes(int threads) {
+  return MAXM > NARROW_CORE ? tile_scratch_bytes(threads) : 0;
 }
 
 template <bool HIGH, int MAXM>
@@ -133,7 +146,7 @@ int launch(float* state, long long dim, const int* table, const float* coef,
   void* args[] = {&re, &im, &table, &c, &barriers, &group_bits};
   return (int)cudaLaunchCooperativeKernel(
       (const void*)sweep_kernel<HIGH, MAXM>, dim3((unsigned)groups << group_bits),
-      dim3(threads), args, 0, stream);
+      dim3(threads), args, smem_bytes<MAXM>(threads), stream);
 }
 
 template <bool HIGH>
@@ -151,28 +164,37 @@ int launch_core(float* state, long long dim, const int* table,
 template <bool HIGH, int MAXM>
 cudaError_t resident(int threads, int sms, int* ctas) {
   int per_sm = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sweep_kernel<HIGH, MAXM>, threads, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel<HIGH, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<MAXM>(1024));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sweep_kernel<HIGH, MAXM>, threads, smem_bytes<MAXM>(threads));
   *ctas = per_sm * sms;
   return err;
 }
 
 }  // namespace
 
-// Report in *ctas how many CTAs of `threads` threads every instance of the
-// kernel can keep resident at once on the current device (the most a
-// cooperative launch takes). Returns a cudaError_t (0 on success).
+// Allow the wide instance its tile scratch, and report in *ctas how many
+// CTAs every instance of the kernel can keep resident at once on the
+// current device (the most a cooperative launch takes), the narrow ones at
+// `threads` threads and the wide ones at up to WIDE_THREADS (so a narrow
+// launch takes as many CTAs as before the wide instance had its own bound).
+// Returns a cudaError_t (0 on success).
 extern "C" int sweep_prepare(int threads, int* ctas) {
   *ctas = 0;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the wide instances at the most threads they take
+  const int wide = threads < WIDE_THREADS ? threads : WIDE_THREADS;
   int c[4] = {0, 0, 0, 0};
   if (err == cudaSuccess) err = resident<false, NARROW_CORE>(threads, sms, &c[0]);
-  if (err == cudaSuccess) err = resident<false, MAX_CORE>(threads, sms, &c[1]);
+  if (err == cudaSuccess) err = resident<false, MAX_CORE>(wide, sms, &c[1]);
   if (err == cudaSuccess) err = resident<true, NARROW_CORE>(threads, sms, &c[2]);
-  if (err == cudaSuccess) err = resident<true, MAX_CORE>(threads, sms, &c[3]);
+  if (err == cudaSuccess) err = resident<true, MAX_CORE>(wide, sms, &c[3]);
   if (err == cudaSuccess) {
     *ctas = c[0];
     for (int i = 1; i < 4; ++i)
@@ -192,11 +214,14 @@ extern "C" int sweep_launch(int high, float* state, long long dim,
                             const int* table, const float* coef, int kbits,
                             unsigned* barriers, int groups, int group_bits,
                             int threads, int max_core, void* stream) {
-  // every CTA of a group takes a share of each op's items: a core of
-  // max_core qubits has 2^(kbits - max_core) groups of slots
+  // every CTA of a group takes an equal share of each narrow op's items: a
+  // core of m <= NARROW_CORE qubits has 2^(kbits - m) groups of slots (the
+  // tiled op gives its tiles to the group's CTAs in turn, any count)
+  const int narrow = max_core < NARROW_CORE ? max_core : NARROW_CORE;
   if (max_core > MAX_CORE || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || groups < 1 || group_bits < 0 ||
-      group_bits > kbits - (max_core > 0 ? max_core : 0) ||
+      (max_core > NARROW_CORE && threads > WIDE_THREADS) ||
+      threads % 32 != 0 || !threads_fit_core(threads, max_core) || groups < 1 ||
+      group_bits < 0 || group_bits > kbits - (narrow > 0 ? narrow : 0) ||
       ((long long)groups << group_bits) > (1LL << 20))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -26,7 +26,10 @@
 // The op table is build_op_table over BlockLayout(n, n, ()): every state bit
 // is a block bit, so no op carries an out-of-block code. As in grid_sweep.cu,
 // the kernel is built for cores of up to NARROW_CORE and of up to MAX_CORE
-// qubits, and a circuit with no wide core launches the first.
+// qubits, and a circuit with no wide core launches the first. A core of
+// TILE_CORE qubits or more (ops.cuh's tiled product) always runs through the
+// cluster's slots, its tiles taken by the CTAs in turn, with the tile
+// scratch after the CTA's planes in the wide instance's shared memory.
 //
 // Bound on this card: a run must move 16 B per amplitude (both planes read
 // and written once: 1.25 us at 18 qubits and 3.35 TB/s) and do the
@@ -50,9 +53,14 @@ using namespace qsim;
 
 constexpr int MAX_LOCAL_BITS = 14;
 constexpr int MAX_CLUSTER_BITS = 4;  // 16 CTAs, the non-portable maximum
-// the kernel's dynamic shared memory attribute is set once, to the most any
-// geometry asks for
-constexpr int MAX_SMEM = 2 * sizeof(float) << MAX_LOCAL_BITS;
+
+// Dynamic shared memory of one CTA: its slice of both planes, and in the wide
+// instance the tiled op's scratch.
+template <int MAXM>
+size_t smem_bytes(int n, int cluster_bits, int threads) {
+  const size_t planes = (size_t)2 * sizeof(float) << (n - cluster_bits);
+  return MAXM > NARROW_CORE ? planes + tile_scratch_bytes(threads) : planes;
+}
 
 template <int MAXM>
 __global__ void __launch_bounds__(1024)
@@ -76,17 +84,18 @@ whole_circuit_kernel(float* __restrict__ re, float* __restrict__ im,
     si[l] = __ldcs(im + off + l);
   }
 
+  float2* scratch = reinterpret_cast<float2*>(si + size);
   const LocalSlots local{sr, si, size - 1u};
   const ClusterSlots remote{sr, si, lb};
   const Part part{cluster_bits, rank};
   bool prev_remote = false;
   for (int o = 0; o < n_ops; ++o) {
     const int* op = table + SWEEP_HEADER + o * OP_HEADER;
-    const bool moves_remote = op_moves_from(op, lb);
+    const bool moves_remote = op_moves_from<MAXM>(op, lb);
     if (moves_remote || prev_remote) cluster.sync();
     else __syncthreads();
-    if (moves_remote) apply_op<MAXM>(remote, op, coef, n, 0u, part);
-    else apply_op<MAXM>(local, op, coef, n, 0u, part);
+    if (moves_remote) apply_op<MAXM>(remote, op, coef, n, 0u, part, scratch);
+    else apply_op<MAXM>(local, op, coef, n, 0u, part, scratch);
     prev_remote = moves_remote;
   }
   // no CTA leaves while another may still read its shared memory
@@ -100,13 +109,14 @@ whole_circuit_kernel(float* __restrict__ re, float* __restrict__ im,
   }
 }
 
+template <int MAXM>
 cudaLaunchConfig_t launch_config(int n, int cluster_bits, int threads,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1u << cluster_bits, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)2 * sizeof(float) << (n - cluster_bits);
+  cfg.dynamicSmemBytes = smem_bytes<MAXM>(n, cluster_bits, threads);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 1u << cluster_bits;
@@ -121,15 +131,18 @@ cudaLaunchConfig_t launch_config(int n, int cluster_bits, int threads,
 // of the geometry the card holds at once.
 template <int MAXM>
 cudaError_t prepare(int n, int cluster_bits, int threads, int* clusters) {
+  // the most any geometry asks for, so that preparing one geometry does not
+  // lower another's
   cudaError_t err = cudaFuncSetAttribute(
       whole_circuit_kernel<MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
+      (int)smem_bytes<MAXM>(MAX_LOCAL_BITS, 0, 1024));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(whole_circuit_kernel<MAXM>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(n, cluster_bits, threads, 0, &attr);
+  cudaLaunchConfig_t cfg =
+      launch_config<MAXM>(n, cluster_bits, threads, 0, &attr);
   return cudaOccupancyMaxActiveClusters(
       clusters, (const void*)whole_circuit_kernel<MAXM>, &cfg);
 }
@@ -166,21 +179,24 @@ extern "C" int whole_circuit_prepare(int n, int cluster_bits, int threads,
 extern "C" int whole_circuit_launch(float* state, int n, const int* table,
                                     const float* coef, int cluster_bits,
                                     int threads, int max_core, void* stream) {
-  // a core's groups are split over the cluster's CTAs: at least one each
-  if (max_core > MAX_CORE || max_core > n - cluster_bits ||
-      !threads_fit_core(threads, max_core))
+  if (max_core > MAX_CORE || max_core > n || !threads_fit_core(threads, max_core))
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(n, cluster_bits, threads, (cudaStream_t)stream, &attr);
   float* im = state + ((size_t)1 << n);
   const float2* c = reinterpret_cast<const float2*>(coef);
-  const cudaError_t err =
-      max_core <= NARROW_CORE
-          ? cudaLaunchKernelEx(&cfg, whole_circuit_kernel<NARROW_CORE>, state,
-                               im, table, c, cluster_bits)
-          : cudaLaunchKernelEx(&cfg, whole_circuit_kernel<MAX_CORE>, state,
-                               im, table, c, cluster_bits);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (max_core <= NARROW_CORE) {
+    cudaLaunchConfig_t cfg =
+        launch_config<NARROW_CORE>(n, cluster_bits, threads, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, whole_circuit_kernel<NARROW_CORE>, state, im,
+                             table, c, cluster_bits);
+  } else {
+    cudaLaunchConfig_t cfg =
+        launch_config<MAX_CORE>(n, cluster_bits, threads, s, &attr);
+    err = cudaLaunchKernelEx(&cfg, whole_circuit_kernel<MAX_CORE>, state, im,
+                             table, c, cluster_bits);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -16,10 +16,14 @@ It follows ``tpu_qsim/kernels/dispatch.py`` row by row. The grid planner
 refuses a circuit with a dense gate that moves more high qubits than a
 sweep's active budget; the JAX package then tries its ``sweeps`` engine at
 22-26q, then its segmented engine up to 26q, and above 26q its XLA engine,
-as the port does with its sweep, segmented and torch engines. Where every
-engine in reach refuses (at most 26 qubits), :func:`plan_run` raises a
-ValueError that names each refusal. The route is decided when a circuit is
-planned and never changes because a build or a launch failed.
+as the port does with its sweep, segmented and torch engines. The
+segmented engine takes gates of up to 9 qubits (its 14-bit block keeps as
+few as 5 low bits in place for a wide gate), so it runs circuits that the
+JAX package's own segmented planner spins on (e.g. an 8-qubit gate on
+qubits 14-21 of 22). Where every engine in reach refuses (at most 26
+qubits), :func:`plan_run` raises a ValueError that names each refusal. The
+route is decided when a circuit is planned and never changes because a
+build or a launch failed.
 """
 
 from __future__ import annotations

@@ -174,8 +174,14 @@ KIND_DENSE = 1
 # read from the CTA's share of the global index (bits outside the block)
 EXT = 32
 MAX_DIAG_QUBITS = 16     # op words [8, 24)
-GATHER_CORE = 6          # widest core one thread gathers alone (2^m amplitudes)
-MAX_DENSE_QUBITS = 8     # 7-8 qubits: a warp per group of 2^m (op words 24-31)
+NARROW_CORE = 4          # widest core one thread gathers alone (2^m amplitudes)
+# cores of TILE_CORE qubits and more take ops.cuh's tiled product: stored
+# column-major at a 16-byte aligned offset, 2^m <= 4 x threads (a tile holds
+# two groups or more), and at most TILE_MAX_CORE qubits (a 16 KB panel holds
+# one column); the kernel's block is the other limit
+TILE_CORE = 5
+MAX_DENSE_QUBITS = 11
+SORTED_WORDS = 8         # op words 24-31: the sorted codes of a core of <= 8 qubits
 MAX_BLOCK_BITS = 14      # 2 planes x 2^14 x 4 B = 128 KB of one CTA's shared memory
 MAX_SWEEP_BITS = 21      # the sweep kernels' block in device memory: 2^(26-5) slots
 
@@ -269,10 +275,10 @@ def build_op_table(
     out of the block). Any other gate peels its control layers into a mask
     on the block-local index and a mask on the CTA's out-of-block bits, and
     its core becomes one DENSE op whose qubits must lie in the block (the
-    planner's ``moving_qubits`` guarantee). A core of up to ``GATHER_CORE``
+    planner's ``moving_qubits`` guarantee). A core of up to ``NARROW_CORE``
     qubits is stored row-major; a wider one (up to ``MAX_DENSE_QUBITS``)
-    column-major, so that the warp sharing one of its groups reads the
-    coefficients of its rows coalesced. ``max_bits`` is the largest block
+    column-major at an even coefficient offset, so that the tiled op streams
+    whole columns with 16-byte copies. ``max_bits`` is the largest block
     the caller's kernel holds: one CTA's shared memory, a cluster's for the
     whole-circuit kernel, or ``MAX_SWEEP_BITS`` of device memory for the
     sweep kernels.
@@ -312,8 +318,8 @@ def build_op_table(
             ctrls, core, qs = _peel_controls(u, tuple(g.qubits))
             m = len(qs)
             if m > MAX_DENSE_QUBITS:
-                raise NotImplementedError(
-                    f"dense gate core on {m} qubits; the kernels take at "
+                raise ValueError(
+                    f"dense gate core on {m} qubits; the tiled op takes at "
                     f"most MAX_DENSE_QUBITS = {MAX_DENSE_QUBITS}"
                 )
             codes = [layout.code(q) for q in qs]
@@ -332,8 +338,15 @@ def build_op_table(
                     op[5] |= 1 << q
                     op[6] |= 1 << q
             op[8:8 + m] = codes
-            op[24:24 + m] = sorted(codes)
-            c = (core if m <= GATHER_CORE else core.T).reshape(-1)
+            if m <= SORTED_WORDS:
+                op[24:24 + m] = sorted(codes)
+            if m < TILE_CORE:
+                c = core.reshape(-1)
+            else:
+                c = core.T.reshape(-1)
+                if n_coef % 2:       # 16-byte aligned for cp.async
+                    coefs.append(np.zeros(1, np.complex128))
+                    n_coef += 1
             max_core = max(max_core, m)
             # on the 2^-len(ctrls) share of amplitudes the controls pass
             flops += min_flops(core, diagonal=False) / (1 << len(ctrls))
@@ -348,6 +361,20 @@ def build_op_table(
         np.concatenate([head, ops.reshape(-1)]), np.ascontiguousarray(coef),
         flops, max_core,
     )
+
+
+def check_tile(max_core: int, threads: int) -> None:
+    """Raise ValueError unless a launch of ``threads`` threads per CTA can run
+    a table whose widest dense core is ``max_core`` (ops.cuh's
+    ``threads_fit_core``: the tiled op needs a power of two with 2^max_core
+    <= 4 x threads)."""
+    if max_core < TILE_CORE:
+        return
+    if threads & (threads - 1) or (1 << max_core) > 4 * threads:
+        raise ValueError(
+            f"a {max_core}-qubit core needs a power of two of at least "
+            f"{(1 << max_core) // 4} threads per CTA, got {threads}"
+        )
 
 
 def apply_pgates(state: torch.Tensor, pgates: list[PGate]) -> torch.Tensor:
@@ -508,12 +535,7 @@ class WholeCircuitProgram:
         self.gates = merge_1q_chains(as_pgates(circuit.gates))
         self.layout = BlockLayout(n, n, ())
         self.table = build_op_table(self.gates, self.layout, max_bits=n)
-        if self.table.max_core > n - c:
-            # ops.cuh splits a core's groups over the cluster's CTAs
-            raise ValueError(
-                f"a {self.table.max_core}-qubit core has fewer groups than "
-                f"a cluster of 2^{c} CTAs at {n} qubits"
-            )
+        check_tile(self.table.max_core, threads)
         self._device_tables: dict[torch.device, tuple] = {}
 
     def _tables_on(self, device: torch.device) -> tuple:

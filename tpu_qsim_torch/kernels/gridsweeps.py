@@ -3,10 +3,12 @@
 The port of ``tpu_qsim/kernels/gridsweeps.py``. A sweep is a set of at most
 ``a_max`` *active* high bits (any bits >= ``blk_bits``) plus gates whose
 moving qubits lie in ``[0, blk_bits) | active``. One launch of the
-hand-written kernel ``csrc/grid_sweep.cu`` runs one sweep: each CTA holds the
-block bits and the active bits of one assignment of the inactive bits in
-shared memory, applies the sweep's gates there and writes back in place, so
-the whole state crosses device memory once per sweep, not once per gate.
+hand-written kernel ``csrc/grid_sweep.cu`` runs one sweep: a CTA takes the
+block bits and the active bits of one assignment of the inactive bits, in
+its threads' registers (:func:`register_table` plans which block bits are
+register bits for each run of ops, and where shared memory takes over),
+applies the sweep's gates and writes back in place, so the whole state
+crosses device memory once per sweep, not once per gate.
 
 The planner (``plan_grid_sweeps``, ``_two_sweep_partition``,
 ``_improve_plan``) is a copy of the JAX package's pure-Python planner and
@@ -28,7 +30,11 @@ from ..circuit import Circuit
 from ..gates import gate_matrix
 from . import LAUNCHES
 from .fused_circuit import (
+    KIND_DIAG,
     MAX_DENSE_QUBITS,
+    OP_HEADER,
+    SWEEP_HEADER,
+    TILE_CORE,
     BlockLayout,
     OpTable,
     PGate,
@@ -37,28 +43,54 @@ from .fused_circuit import (
     as_pgates,
     build_op_table,
     check_kernel_inputs,
+    check_tile,
     check_planes,
     merge_1q_chains,
 )
 from .sweeps import MAX_SWEEP_GATES, moving_qubits
 
-# H100 geometry, chosen on the card with kernels/tune_grid.py (PERF.md):
-# 2^8-amplitude contiguous runs plus 5 active bits, a block of 2^13
-# amplitudes = 64 KB of shared memory, 512 threads per CTA.
-BLK_BITS = 8
+# H100 geometry, chosen on the card with kernels/tune_grid.py at 22, 24, 28
+# and 30 qubits (PERF.md): 2^7-amplitude contiguous runs plus 5 active bits,
+# a block of 2^12 amplitudes (32 KB, and 32 KB for the next block's
+# prefetch), so 256 threads per CTA with 16 amplitudes each in registers.
+BLK_BITS = 7
 A_MAX = 5
-THREADS = 512
+# ... and for a circuit with a dense core of TILE_CORE qubits or more: the
+# tiled op reuses the core over more groups in a 2^13 block of 512 threads
+# (a 26q grid sweep with one 8-qubit op: 5.7 ms at blk8/a5, 9.0 at blk7/a5)
+WIDE_BLK_BITS = 8
 NO_GATE_CAP = 1 << 30
+
+# The register design of csrc/grid_sweep.cu (keep in step): block bits 0-4
+# index a warp's lanes; a thread holds 2^REG_BITS amplitudes, so a block of
+# 2^k slots takes 2^(k - REG_BITS) threads; the header holds REG_BITS and the
+# first run's register bits; REMAP ops name the register bits of the next run.
+LANE_BITS = 5
+REG_BITS = 4
+MIN_GRID_BLOCK_BITS = LANE_BITS + REG_BITS    # one warp
+MAX_GRID_BLOCK_BITS = 13                      # 512 threads
+HEADER_REG_BITS = 5
+HEADER_REGS = 8
+KIND_REMAP = 2
+REG_CORE = 1          # widest dense core that runs in registers
+# after the ops, 8 int32 per op, which is what the kernel reads of it in two
+# 16-byte loads: flags, coefficient offset, block-local control mask and
+# value, out-of-block control mask and value, target (register position or
+# lane bit), and a diagonal's qubits (m | q0 << 8 | q1 << 16). Flags: the op
+# runs in registers (D_REG) or is a remap; a register op is a diagonal (of
+# more than 2 qubits: D_WIDE_DIAG, read from the op's words) or a 1-qubit
+# core on a lane bit (D_LANE) or a register bit, an X core (D_SWAP) a swap.
+DESC_WORDS = 8
+D_REG, D_REMAP, D_DIAG, D_SWAP, D_LANE, D_WIDE_DIAG = 1, 2, 4, 8, 16, 32
 
 
 @dataclass(frozen=True)
 class GridParams:
-    """Engine geometry: block-local low bits, the active-bit budget, and
-    threads per CTA (the kernel caps a CTA at 1024)."""
+    """Engine geometry: block-local low bits and the active-bit budget.
+    A sweep's block of ``2^k`` slots runs on ``block_threads(k)`` threads."""
 
     blk_bits: int = BLK_BITS
     a_max: int = A_MAX
-    threads: int = THREADS
 
 
 @dataclass
@@ -286,21 +318,130 @@ def _pad_active(sweep: GridSweep, n: int, blk: int, a_max: int) -> tuple:
     return tuple(sorted(active))
 
 
+def block_threads(kbits: int) -> int:
+    """Threads per CTA of a block of ``2^kbits`` slots, ``2^REG_BITS`` each.
+    Raises ValueError for a block the register design cannot hold."""
+    if not MIN_GRID_BLOCK_BITS <= kbits <= MAX_GRID_BLOCK_BITS:
+        raise ValueError(
+            f"the grid-sweep kernel holds blocks of 2^{MIN_GRID_BLOCK_BITS}.."
+            f"2^{MAX_GRID_BLOCK_BITS} amplitudes, got 2^{kbits}"
+        )
+    return 1 << (kbits - REG_BITS)
+
+
+def register_table(table: OpTable) -> OpTable:
+    """The grid-sweep kernel's table: ``table`` with the register remaps
+    written in, and after the ops a descriptor per op (:func:`_descriptor`)
+    that says where and how it runs.
+
+    A diagonal op, and a dense core of ``REG_CORE`` qubit, runs in
+    registers; a core needs its target, if above the lane bits, to be a
+    register bit. Where the current register bits lack one, a REMAP op before it takes new
+    ones: the targets of the next register ops in order (up to the next
+    shared-memory op) while they fit in ``REG_BITS``, then the current bits, then
+    the lowest others. After a shared-memory op the amplitudes are reloaded
+    anyway, so the bits are chosen anew there at no cost.
+    """
+    ints = table.ints
+    head = ints[:SWEEP_HEADER].copy()
+    kbits = int(head[1]) + int(head[2])
+    block_threads(kbits)    # refuses a block outside the register design
+    r = REG_BITS
+    ops = ints[SWEEP_HEADER:].reshape(-1, OP_HEADER)
+    needs: list[frozenset | None] = []
+    for op in ops:
+        m = int(op[1])
+        if op[0] == KIND_DIAG:
+            needs.append(frozenset())
+        elif m <= REG_CORE:
+            needs.append(frozenset(int(c) for c in op[8:8 + m] if c >= LANE_BITS))
+        else:
+            needs.append(None)
+
+    def choose(i: int, cur: list[int]) -> list[int]:
+        out: list[int] = []
+        for nd in needs[i:]:
+            if nd is None or len(out) == r:
+                break
+            new = sorted(nd - set(out))
+            if len(out) + len(new) <= r:
+                out += new
+        for b in [*cur, *range(LANE_BITS, kbits)]:
+            if len(out) == r:
+                break
+            if b not in out:
+                out.append(b)
+        return sorted(out)
+
+    regs = choose(0, [])
+    head[HEADER_REG_BITS] = r
+    head[HEADER_REGS:HEADER_REGS + r] = regs
+    out, desc = [], []
+    in_smem = False
+    for i, (op, nd) in enumerate(zip(ops, needs)):
+        if nd is not None and (in_smem or not nd <= set(regs)):
+            new = choose(i, regs)
+            if new != regs:
+                remap = np.zeros(OP_HEADER, dtype=np.int32)
+                remap[0] = KIND_REMAP
+                remap[1] = r
+                remap[8:8 + r] = new
+                out.append(remap)
+                desc.append(_descriptor(remap, None, table.coef))
+                regs = new
+        in_smem = nd is None
+        out.append(op)
+        desc.append(_descriptor(op, None if in_smem else regs, table.coef))
+    head[0] = len(out)
+    body = np.stack(out).reshape(-1) if out else np.zeros(0, np.int32)
+    flat = np.stack(desc).reshape(-1) if desc else body
+    return OpTable(np.concatenate([head, body, flat]).astype(np.int32), table.coef,
+                   table.flops_per_amp, table.max_core)
+
+
+def _descriptor(op: np.ndarray, regs: list[int] | None, coef: np.ndarray) -> np.ndarray:
+    """An op's descriptor (``DESC_WORDS``); ``regs``: the register bits of
+    the run it belongs to, None for an op in shared memory."""
+    d = np.zeros(DESC_WORDS, dtype=np.int32)
+    if op[0] == KIND_REMAP:
+        d[0] = D_REMAP
+        return d
+    d[1:6] = op[2:7]
+    if regs is None:
+        return d
+    d[0] = D_REG
+    m = int(op[1])
+    if op[0] == KIND_DIAG:
+        d[0] |= D_DIAG | (D_WIDE_DIAG if m > 2 else 0)
+        if m <= 2:
+            d[7] = m | int(op[8]) << 8 | int(op[8 + m - 1]) << 16
+        return d
+    code = int(op[8])
+    core = coef[int(op[2]):int(op[2]) + 4]
+    if np.array_equal(core, [[0, 0], [1, 0], [1, 0], [0, 0]]):
+        d[0] |= D_SWAP
+    if code < LANE_BITS:
+        d[0] |= D_LANE
+        d[6] = code
+    else:
+        d[6] = regs.index(code)
+    return d
+
+
 def grid_sweep(
     state: torch.Tensor,
     ints: torch.Tensor,
     coef: torch.Tensor,
     layout: BlockLayout,
-    threads: int = THREADS,
     max_core: int = MAX_DENSE_QUBITS,
 ) -> torch.Tensor:
     """Launch the CUDA kernel for one sweep on ``state`` (in place).
 
     ``ints``/``coef`` are the device copies of the sweep's
-    :class:`~tpu_qsim_torch.kernels.fused_circuit.OpTable`, ``max_core`` its
-    widest dense core (the kernel instance for narrow cores is launched when
-    it is at most 4). Launches on the current stream without synchronizing
-    and raises on a refused launch.
+    :func:`register_table`, ``max_core`` its widest dense core (the kernel
+    instance for narrow cores is launched when it is at most 4); a CTA has
+    ``block_threads(layout.kbits)`` threads. Launches on the current stream
+    without synchronizing and raises on a refused launch.
     """
     from . import _build
 
@@ -314,7 +455,7 @@ def grid_sweep(
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.grid_sweep_launch(
             state.data_ptr(), dim, ints.data_ptr(), coef.data_ptr(), kbits,
-            steps, min(threads, 1 << kbits), max_core, stream,
+            steps, max_core, stream,
         )
     _build.check("grid_sweep", lib, err, "grid_sweep launch")
     LAUNCHES["grid_sweep"] += 1
@@ -326,20 +467,24 @@ class GridSweepProgram:
 
     ``run`` maps (2, 2^n) float32 planes to planes: on a CUDA tensor it
     launches the kernel once per sweep, in place; on a CPU tensor it runs
-    the plain version, :meth:`run_plain`.
+    the plain version, :meth:`run_plain`. ``params`` None takes the card's
+    geometry: :data:`BLK_BITS` and :data:`A_MAX`, or :data:`WIDE_BLK_BITS`
+    for a circuit with a dense core of ``TILE_CORE`` qubits or more.
     """
 
     def __init__(
         self,
         circuit: Circuit,
-        params: GridParams = GridParams(),
+        params: GridParams | None = None,
         max_gates: int = NO_GATE_CAP,
     ):
         n = circuit.num_qubits
+        if params is None:
+            widest = max((len(moving_qubits(g.u, g.qubits)) for g in as_pgates(circuit.gates)),
+                         default=0)
+            params = GridParams(WIDE_BLK_BITS if widest >= TILE_CORE else BLK_BITS)
         if n <= params.blk_bits:
             raise ValueError(f"n must exceed blk_bits={params.blk_bits}")
-        if not 1 <= params.threads <= 1024:
-            raise ValueError(f"threads must be in [1, 1024], got {params.threads}")
         self.num_qubits = n
         self.params = params
         plan = plan_grid_sweeps(circuit, n, params, max_gates)
@@ -351,9 +496,11 @@ class GridSweepProgram:
             BlockLayout(n, params.blk_bits, _pad_active(s, n, params.blk_bits, a_max))
             for s in plan
         ]
-        self.tables: list[OpTable] = [
-            build_op_table(s.gates, lay) for s, lay in zip(plan, self.layouts)
-        ]
+        self.tables: list[OpTable] = []
+        for s, lay in zip(plan, self.layouts):
+            table = build_op_table(s.gates, lay)
+            check_tile(table.max_core, block_threads(lay.kbits))
+            self.tables.append(register_table(table))
         self._device_tables: dict[torch.device, list] = {}
 
     def _tables_on(self, device: torch.device) -> list:
@@ -377,7 +524,7 @@ class GridSweepProgram:
         for (ints, coef), lay, table in zip(
             self._tables_on(state.device), self.layouts, self.tables
         ):
-            grid_sweep(state, ints, coef, lay, self.params.threads, table.max_core)
+            grid_sweep(state, ints, coef, lay, table.max_core)
         return state
 
     __call__ = run

@@ -14,7 +14,10 @@ What does not carry over from the TPU plan: ``GATHER_SWAP_MIN``,
 more (8, 128) tiles, and forced a ``permute_qubits`` pre-pass for any other
 relabeling; here every relabeling folds into the gather. ``local_bits`` 16 was
 a VMEM size; here a block is at most 2^14 amplitudes (128 KB of one CTA's
-shared memory), and the default is chosen on the card (PERF.md).
+shared memory), and the default is chosen on the card (PERF.md). The plan
+keeps ``SWAP_MIN`` = 7 low bits in place unless a gate wider than
+``local_bits - 7`` needs the room, and never fewer than 5 (a 128 B line), so
+a segment holds gates of up to 14 - 5 = 9 qubits.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .fused_circuit import (
     as_pgates,
     build_op_table,
     check_kernel_inputs,
+    check_tile,
     check_planes,
     merge_1q_chains,
 )
@@ -48,6 +52,9 @@ DEFAULT_LOCAL_BITS = 12
 SEGMENT_THREADS = 512
 MAX_SEGMENTED_QUBITS = 26       # as the JAX package's segmented engine
 MAP_WORDS = 32                  # segment.cu: src at [0, n), dst at [32, 32 + n)
+# the fewest low bits a plan keeps in place: 2^5 float32 values are one 128 B
+# line of a plane, so a warp's 32 loads and stores stay coalesced
+MIN_SWAP_MIN = 5
 
 # devices on which segment_prepare has set the kernel's attributes
 _prepared: set[torch.device] = set()
@@ -165,25 +172,31 @@ class SegmentedProgram:
     ):
         n = circuit.num_qubits
         # the planner makes a k-qubit gate local only in a block with at
-        # least k bits above SWAP_MIN: take a larger block where one is needed
+        # least k bits above swap_min: take a larger block where one is
+        # needed, and where the largest is not enough, keep fewer low bits in
+        # place (never fewer than MIN_SWAP_MIN)
         widest = max((len(g.qubits) for g in circuit.gates), default=0)
-        local_bits = min(max(local_bits, SWAP_MIN + widest), n - 1)
-        if not (SWAP_MIN + 3 <= local_bits <= MAX_BLOCK_BITS and n <= MAX_SEGMENTED_QUBITS):
+        local_bits = min(max(local_bits, min(SWAP_MIN + widest, MAX_BLOCK_BITS)), n - 1)
+        swap_min = max(MIN_SWAP_MIN, min(SWAP_MIN, local_bits - widest))
+        if not (swap_min + 3 <= local_bits <= MAX_BLOCK_BITS and n <= MAX_SEGMENTED_QUBITS):
             raise ValueError(
-                f"segmented path expects {SWAP_MIN + 3} <= local_bits <= "
+                f"segmented path expects {swap_min + 3} <= local_bits <= "
                 f"{MAX_BLOCK_BITS} and n <= {MAX_SEGMENTED_QUBITS}, got "
                 f"local_bits={local_bits}, n={n}"
             )
         if not 32 <= threads <= 1024:
             raise ValueError(f"threads must be in [32, 1024], got {threads}")
-        if widest > local_bits - SWAP_MIN:
+        if widest > local_bits - swap_min:
             raise ValueError(
-                f"a {widest}-qubit gate needs local_bits >= {SWAP_MIN + widest}"
+                f"a {widest}-qubit gate needs local_bits >= {swap_min + widest} "
+                f"(a block holds at most {MAX_BLOCK_BITS} bits, "
+                f"{MIN_SWAP_MIN} of them kept in place)"
             )
         self.num_qubits = n
         self.local_bits = local_bits
+        self.swap_min = swap_min
         self.threads = threads
-        segments, restore = plan_segments(circuit, local_bits)
+        segments, restore = plan_segments(circuit, local_bits, swap_min)
         self.restore = restore
         identity = tuple(range(n))
         layout = BlockLayout(local_bits, local_bits, ())
@@ -195,6 +208,7 @@ class SegmentedProgram:
             self.steps.append(SegmentStep(
                 gates, seg.perm_src, dst, build_op_table(gates, layout)
             ))
+        check_tile(max((s.table.max_core for s in self.steps), default=0), threads)
         self._device_tables: dict[torch.device, list] = {}
 
     @property

@@ -41,6 +41,8 @@ from . import LAUNCHES
 from .fused_circuit import (
     MAX_DENSE_QUBITS,
     MAX_SWEEP_BITS,
+    NARROW_CORE,
+    TILE_CORE,
     BlockLayout,
     OpTable,
     PGate,
@@ -50,6 +52,7 @@ from .fused_circuit import (
     as_pgates,
     build_op_table,
     check_kernel_inputs,
+    check_tile,
     check_planes,
     merge_1q_chains,
 )
@@ -264,8 +267,9 @@ def launch_grid(
 ) -> tuple[int, int]:
     """(groups, group_bits) of one sweep launch: ``groups`` parts or steps
     in flight, each owned by ``2^group_bits`` CTAs. A group takes no more
-    CTAs than the widest core has groups of slots (``sweep.cu`` splits each
-    op's items over the group's CTAs)."""
+    CTAs than a core of ``min(max_core, NARROW_CORE)`` qubits has groups of
+    slots (``sweep.cu`` splits each narrow op's items over the group's CTAs;
+    the tiled op deals its tiles to them in turn)."""
     if resident < 1:
         raise RuntimeError("the card cannot keep one sweep CTA resident")
     ctas = 1 << (resident.bit_length() - 1)     # a power of two
@@ -276,7 +280,18 @@ def launch_grid(
     groups = max(1, min(in_flight, units, ctas))
     groups = 1 << (groups.bit_length() - 1)
     group_bits = (ctas // groups).bit_length() - 1
-    return groups, min(group_bits, layout.kbits - max_core)
+    return groups, min(group_bits, layout.kbits - min(max_core, NARROW_CORE))
+
+
+# sweep.cu's wide instance (cores of TILE_CORE qubits and more) takes at most
+# this many threads a CTA: its tiled op then has 128 registers a thread
+WIDE_THREADS = 512
+
+
+def sweep_threads(geometry: SweepGeometry, max_core: int) -> int:
+    """Threads per CTA of a sweep launch: the geometry's, at most
+    ``WIDE_THREADS`` for a table with a tiled core."""
+    return geometry.threads if max_core < TILE_CORE else min(geometry.threads, WIDE_THREADS)
 
 
 def _sweep(
@@ -298,8 +313,9 @@ def _sweep(
     if layout.kbits > MAX_SWEEP_BITS:
         raise ValueError(f"a block of 2^{layout.kbits} slots exceeds 2^{MAX_SWEEP_BITS}")
     lib = _build.library("sweep")
+    threads = sweep_threads(geometry, max_core)
     groups, group_bits = launch_grid(
-        layout, geometry, max_core, resident_ctas(state.device, geometry.threads)
+        layout, geometry, max_core, resident_ctas(state.device, threads)
     )
     barriers = torch.empty(groups, dtype=torch.int32, device=state.device)
     with torch.cuda.device(state.device):
@@ -307,7 +323,7 @@ def _sweep(
         err = lib.sweep_launch(
             int(high), state.data_ptr(), 1 << layout.n, ints.data_ptr(),
             coef.data_ptr(), layout.kbits, barriers.data_ptr(), groups,
-            group_bits, geometry.threads, max_core, stream,
+            group_bits, threads, max_core, stream,
         )
     _build.check("sweep", lib, err, f"{name} launch")
     LAUNCHES[name] += 1
@@ -381,6 +397,8 @@ class SweepProgram:
             build_op_table(g, lay, max_bits=MAX_SWEEP_BITS)
             for g, lay in zip(self.sweep_gates, self.layouts)
         ]
+        widest = max((t.max_core for t in self.tables), default=0)
+        check_tile(widest, sweep_threads(geometry, widest))
         self._device_tables: dict[torch.device, list] = {}
 
     @property

@@ -1,19 +1,35 @@
-"""Time ``StateVectorSimulator.run`` on circuits with one wide dense gate.
+"""Time ``StateVectorSimulator.run`` and single sweeps on the card.
 
-    python -m tpu_qsim_torch.kernels.time_run
+    python -m tpu_qsim_torch.kernels.time_run [--only NAME ...]
 
-Each circuit is ``random_circuit(n, 40, seed=42)``, then a random k-qubit
-unitary (seeded) on qubits lo..lo+k-1, then ``random_circuit(n, 40,
-seed=43)``. For each: plan it as ``run`` does, run it once from |0..0> and
-print the engine, the kernels it launched and a fingerprint of the state
+Rows (``ROWS``):
+
+* the main paths: ``random_circuit(n, 100, seed=42)`` at 28 qubits (grid
+  sweep), 18 (whole circuit) and 19 (segments), and the 26-qubit sweeps main
+  path (``random_circuit(26, 40, seed=42)``, a random 8-qubit unitary on
+  qubits 10-17, ``random_circuit(26, 40, seed=43)``);
+* circuits with one wide dense gate, built the same way (a 6-qubit core at
+  22 and 26 qubits);
+* ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid-sweep
+  programs, each forced;
+* one k-qubit dense op at 26 qubits (k = 6, 7, 8) alone in a low sweep
+  (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, blk 8, 5 active
+  bits: 512 threads), less the same sweep holding one 1-qubit op instead.
+
+For each row: plan it, run it once from |0..0> (or a seeded random state)
+and print the engine, the kernels it launched and a fingerprint of the state
 (each plane summed against the weights cos(0.7 i), so two checkouts can be
-compared), then the median of 7 CUDA-event timings of the planned function
-after a warm-up. The module uses only the package's public entry points, so
-the same file times an older checkout of the package too. Needs a CUDA card.
+compared), then the median of 7 CUDA-event timings after a warm-up. Below 20
+qubits the time is device time from CUDA-graph replays (20 runs per replay),
+since eager launches there measure the host. The module uses only entry
+points an older checkout of the package has too, so the same file times the
+parent: run it there and here in turns (parent, change, change, parent).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -21,25 +37,37 @@ import subprocess
 import numpy as np
 import torch
 
-from tpu_qsim_torch import StateVectorSimulator, random_circuit
+from tpu_qsim_torch import Circuit, StateVectorSimulator, random_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 
-# name -> (qubits, core width, lowest core qubit)
-CIRCUITS = {
-    "22q_dense6_on_8": (22, 6, 8),      # the grid refuses it: sweeps or segments
+# name -> (qubits, core width, lowest core qubit); width 0: random_circuit(n, 100)
+ROWS = {
+    "28q_random_grid": (28, 0, 0),
+    "26q_sweeps_main": (26, 8, 10),
+    "18q_random_whole": (18, 0, 0),
+    "19q_random_segments": (19, 0, 0),
+    "22q_dense6_on_8": (22, 6, 8),      # the grid refuses it: sweeps
     "26q_dense6_on_0": (26, 6, 0),      # grid sweep, the wide instance
+    "26q_random_on_sweeps": (26, 0, 0),
+    "26q_random_on_grid": (26, 0, 0),
 }
+ONE_OP_QUBITS = 26
+ONE_OP_WIDTHS = (6, 7, 8)
 
 
-def wide_circuit(n: int, k: int, lo: int):
+def dense_gate(k: int) -> str:
     name = f"time_run_dense{k}"
     if name not in GATE_ARITY:
         rng = np.random.default_rng(k)
         m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
         register_gate(name, np.linalg.qr(m)[0])
+    return name
+
+
+def wide_circuit(n: int, k: int, lo: int) -> Circuit:
     c = random_circuit(n, 40, seed=42)
-    c.add(name, *range(lo, lo + k))
+    c.add(dense_gate(k), *range(lo, lo + k))
     for g in random_circuit(n, 40, seed=43).gates:
         c.append(g)
     return c
@@ -59,7 +87,95 @@ def _times_ms(fn, reps: int) -> list[float]:
     return out
 
 
+def _graph_times_ms(fn, reps: int, inner: int = 20) -> list[float]:
+    """Device time of ``fn``'s launches: captured once into a CUDA graph,
+    then ``inner`` replays per event pair."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+
+    def replays():
+        for _ in range(inner):
+            graph.replay()
+
+    return [t / inner for t in _times_ms(replays, reps)]
+
+
+def _probe(planes: torch.Tensor) -> list[float]:
+    w = torch.cos(0.7 * torch.arange(planes.shape[1], device=planes.device,
+                                     dtype=torch.float64))
+    return (planes.double() @ w).tolist()
+
+
+def time_row(name: str, card: str) -> dict:
+    n, k, lo = ROWS[name]
+    c = wide_circuit(n, k, lo) if k else random_circuit(n, 100, seed=42)
+    if name.endswith(("_on_sweeps", "_on_grid")):
+        from tpu_qsim_torch.kernels.gridsweeps import GridSweepProgram
+        from tpu_qsim_torch.kernels.sweeps import SweepProgram
+
+        engine = "sweeps" if name.endswith("_on_sweeps") else "grid_sweep"
+        prog = (SweepProgram if engine == "sweeps" else GridSweepProgram)(c)
+        state = torch.zeros((2, 1 << n), dtype=torch.float32, device="cuda")
+        state[0, 0] = 1.0
+        reset_launches()
+        state = prog.run(state)
+        fn = prog.run
+    else:
+        sim = StateVectorSimulator(n)
+        reset_launches()
+        sim.run(c)
+        engine = sim.engine
+        _, fn = sim.compiled_run(c)
+        state = sim.state_planes
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    probe = _probe(state)
+
+    def step():
+        nonlocal state
+        state = fn(state)
+
+    times = _graph_times_ms(step, 7) if n < 20 else _times_ms(step, 7)
+    return {"row": name, "card": card, "engine": engine, "launches": launches,
+            "ms": statistics.median(times), "all_ms": times, "probe": probe}
+
+
+def time_one_op(card: str) -> list[dict]:
+    from tpu_qsim_torch.kernels.gridsweeps import GridParams, GridSweepProgram
+    from tpu_qsim_torch.kernels.sweeps import SweepProgram
+
+    n = ONE_OP_QUBITS
+    rng = np.random.default_rng(3)
+    psi = rng.standard_normal((2, 1 << n)).astype(np.float32)
+    x = torch.from_numpy(psi / np.linalg.norm(psi)).cuda()
+    base = {}
+    rows = []
+    for k in (1, *ONE_OP_WIDTHS):
+        gate = "h" if k == 1 else dense_gate(k)
+        # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
+        sprog = SweepProgram(Circuit(n).add(gate, *range(17 - k, 17)))
+        gprog = GridSweepProgram(Circuit(n).add(gate, *range(k)), GridParams(8, 5))
+        ms = {"low_sweep": statistics.median(_times_ms(lambda: sprog.run(x), 7)),
+              "grid_sweep": statistics.median(_times_ms(lambda: gprog.run(x), 7))}
+        if k == 1:
+            base = ms
+            continue
+        rows.append({"row": f"{n}q_one_dense{k}_op", "card": card, "sweep_ms": ms,
+                     "op_ms": {key: ms[key] - base[key] for key in ms}})
+    return rows
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", action="append", default=None, metavar="NAME",
+                        help=f"time only these rows (of {', '.join(ROWS)}, one_op)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_run needs a CUDA card")
     card = subprocess.run(
@@ -67,30 +183,14 @@ def main() -> None:
         capture_output=True, text=True, timeout=10, check=True,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    for name in CIRCUITS:
-        n, k, lo = CIRCUITS[name]
-        c = wide_circuit(n, k, lo)
-        sim = StateVectorSimulator(n)
-        reset_launches()
-        sim.run(c)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        planes = sim.state_planes
-        w = torch.cos(0.7 * torch.arange(planes.shape[1], device=planes.device,
-                                         dtype=torch.float64))
-        probe = (planes.double() @ w).tolist()
-        _, fn = sim.compiled_run(c)
-        state = sim.state_planes
-
-        def step():
-            nonlocal state
-            state = fn(state)
-
-        times = _times_ms(step, 7)
-        print(json.dumps({"circuit": name, "card": card, "engine": sim.engine,
-                          "launches": launches, "ms": statistics.median(times),
-                          "all_ms": times, "probe": probe}), flush=True)
-        del sim, state, planes, w
+    names = [*ROWS, "one_op"] if args.only is None else args.only
+    for name in names:
+        if name == "one_op":
+            for row in time_one_op(card):
+                print(json.dumps(row), flush=True)
+        else:
+            print(json.dumps(time_row(name, card)), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """Time the grid-sweep kernel across block geometries on the card.
 
     python -m tpu_qsim_torch.kernels.tune_grid [--qubits 28] [--gates 100]
-        [--candidate BLK,A,THREADS ...]
+        [--candidate BLK,A ...]
 
-For each (blk_bits, a_max, threads) candidate: plan ``random_circuit(n, g,
+For each (blk_bits, a_max) candidate: plan ``random_circuit(n, g,
 seed=42)``, check one run against the plain torch version, then print the
-median of 5 CUDA-event timings after a warm-up. The candidate list runs
+median of 5 CUDA-event timings after a warm-up, with the threads per CTA
+(16 amplitudes each, gridsweeps.block_threads). The candidate list runs
 forward and then backward, so a drift of the card's clocks shows as a
 difference between the two passes. Needs a CUDA card.
 """
@@ -22,11 +23,11 @@ import torch
 
 from .. import apply as ap
 from ..circuit import random_circuit
-from .gridsweeps import GridParams, GridSweepProgram
+from .gridsweeps import GridParams, GridSweepProgram, block_threads
 
+# (blk_bits, a_max): blocks of 2^11-2^13 slots, 128-512 threads
 CANDIDATES = [
-    (10, 4, 1024), (10, 4, 512), (9, 4, 512), (9, 4, 1024), (8, 4, 256),
-    (8, 4, 512), (10, 3, 512), (9, 5, 1024), (8, 5, 512), (8, 6, 1024),
+    (8, 5), (9, 4), (10, 3), (7, 5), (8, 4), (9, 3), (7, 4), (6, 5),
 ]
 
 
@@ -49,7 +50,7 @@ def main() -> None:
     ap_.add_argument("--qubits", type=int, default=28)
     ap_.add_argument("--gates", type=int, default=100)
     ap_.add_argument("--candidate", action="append", default=None,
-                     metavar="BLK,A,THREADS",
+                     metavar="BLK,A",
                      help="time only these geometries (repeatable)")
     args = ap_.parse_args()
     candidates = CANDIDATES if args.candidate is None else [
@@ -69,12 +70,13 @@ def main() -> None:
     plain = progs[candidates[0]].run_plain(x0.clone())
     rows = []
     for pass_ in (candidates, candidates[::-1]):
-        for blk, a, threads in pass_:
-            prog = progs[(blk, a, threads)]
+        for blk, a in pass_:
+            prog = progs[(blk, a)]
             state = prog.run(x0.clone())
             err = float((state - plain).abs().max())
             ms = _median_ms(lambda: prog.run(state))
-            row = {"blk_bits": blk, "a_max": a, "threads": threads,
+            row = {"blk_bits": blk, "a_max": a,
+                   "threads": block_threads(prog.layouts[0].kbits),
                    "sweeps": prog.num_sweeps, "ms": ms, "max_abs_err": err}
             rows.append(row)
             print(json.dumps(row), flush=True)

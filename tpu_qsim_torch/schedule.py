@@ -13,7 +13,8 @@ relabeling into a segment kernel's gather and the restore into the last
 segment's scatter. ``swap_min`` keeps bits ``[0, swap_min)`` in place: the
 JAX package needs that for its 128-lane axis; on the card the default of 7
 keeps 2^7 contiguous amplitudes (512 B of a plane) together in every gather
-and scatter. ``stage_min`` is TPU DMA policy and the port's programs do not
+and scatter, and the segmented program lowers it to as few as 5 (one 128 B
+line) for a gate too wide for the block otherwise. ``stage_min`` is TPU DMA policy and the port's programs do not
 pass it; it is kept so the plans compare with the JAX planner's.
 
 ``plan_blockswap_segments`` plans the full block swaps of a sharded
