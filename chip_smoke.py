@@ -5,9 +5,9 @@
 
 Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
-1. build ``grid_sweep.cu``, ``whole_circuit.cu``, ``segment.cu`` and
-   ``sweep.cu``, one nvcc each, all at once (under 60 s in all), with
-   ptxas's registers and spills;
+1. build ``grid_sweep.cu``, ``whole_circuit.cu``, ``segment.cu``,
+   ``sweep.cu`` and ``dense_pass.cu``, one nvcc each, all at once (under
+   60 s in all), with ptxas's registers and spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
 3. whole-circuit kernel: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
@@ -32,14 +32,25 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
    qubits 10-17 (the grid planner refuses it), ``random_circuit(26, 40,
    seed=43)`` through ``StateVectorSimulator(26).run`` then readout,
-   counted (only ``low_sweep``/``high_sweep``), against its plain version
-   (1e-7, 1 - fidelity <= 1e-5), and each sweep kernel against its plain
-   version on one input (1e-7); ``random_circuit(26, 100, seed=42)`` through
-   the sweeps and the grid-sweep programs agrees within 1e-6;
+   counted (only ``low_sweep``/``high_sweep``), its stages as planned (one
+   tile stage per sweep but the low sweep with the 8-qubit core: tile,
+   unit, tile), against its plain version (1e-7, 1 - fidelity <= 1e-5), and
+   each sweep kernel against its plain version on one input (1e-7);
+   ``random_circuit(26, 100, seed=42)`` through the sweeps (at most 6 tile
+   stages) and the grid-sweep programs agrees within 1e-6;
 8. dense cores of 7-10 qubits through ``run`` (the tiled op): the whole
    circuit at 12 qubits against the oracle, segments at 22 (7 qubits on
    15-21), the grid sweep at 26 (on qubits 0..k-1) and the low sweep at 26
    (9 and 10 qubits) against their plain versions (1e-6);
+8b. dense cores of 12 qubits, the split route: ``random_circuit(n, 40,
+    seed=42)``, a 12-qubit dense gate on qubits 0-11, ``random_circuit(n,
+    40, seed=43)`` through ``StateVectorSimulator(n).run``, counted: at 16
+    qubits whole-circuit launches around one dense pass, against the
+    complex128 oracle (1e-6) and its plain version (1e-7); at 22 grid-sweep
+    launches around it, against its plain version (1e-7); the pass alone on
+    a random state against its plain version and against ``torch.matmul``
+    of the core on the complex64 view (TF32 off), 1e-7 each, and timed
+    beside both and its bound at 16 and 22 qubits;
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
@@ -80,12 +91,14 @@ from tpu_qsim_torch import apply as ap
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
+from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass
 from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, placeable_clusters
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, segment
 from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
+from tpu_qsim_torch.kernels.time_run import kron_gate
 from tpu_qsim_torch.statevector import build_torch_run_fn
 
 N_MAIN = 28
@@ -447,6 +460,11 @@ def phase_sweeps_main() -> dict:
     kinds = prog.sweep_kinds
     want = {f"{k}_sweep": kinds.count(k) for k in ("low", "high")}
     check(res["launches"] == want, f"launches {res['launches']} for sweeps {kinds}")
+    stages = [[st.kind for st in sweep] for sweep in prog.stages]
+    log(f"phase {n}q_sweeps_stages: tile_bits={prog.tile_bits} stages={stages} "
+        f"ops={[[len(st.gates) for st in sweep] for sweep in prog.stages]}")
+    check(stages == [["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]],
+          f"sweeps main path stages {stages}")
     step_err = {"low_sweep": 0.0, "high_sweep": 0.0}
     t0 = time.perf_counter()
     x = random_planes(n, 5)
@@ -485,10 +503,12 @@ def phase_sweeps_cross_engine() -> dict:
     b = gprog.run(ap.initial_state(n, np.float32, device="cuda"))
     cross, fid = compare(a, b)
     del a, b
+    stages = [[len(st.gates) for st in sweep] for sweep in sprog.stages]
     log(f"phase {n}q_sweeps_cross_engine: wall_s={time.perf_counter() - t0:.3f} "
-        f"sweeps={sprog.sweep_kinds} grid_sweeps={gprog.num_sweeps} max_abs_err={cross:.3e} "
-        f"(tol 1e-6) fidelity={fid:.9f}")
+        f"sweeps={sprog.sweep_kinds} stages={stages} grid_sweeps={gprog.num_sweeps} "
+        f"max_abs_err={cross:.3e} (tol 1e-6) fidelity={fid:.9f}")
     check(cross <= 1e-6, f"{n}q sweeps vs grid sweep {cross} > 1e-6")
+    check(sum(map(len, stages)) <= 6, f"random_circuit({n}, 100) in {stages} stages")
     return {"cross_err": cross, "sprog": sprog, "gprog": gprog}
 
 
@@ -527,6 +547,79 @@ def phase_wide_cores() -> dict:
               f"launches {launches}, error {err}")
         errs[f"{n}q_{k}"] = err
     return errs
+
+
+DENSE_PASS_QUBITS = (16, 22)
+DENSE_PASS_CORE = 12
+
+
+def phase_dense_pass() -> dict:
+    """Cores of 12 qubits: at 16 and 22 qubits a circuit with a 12-qubit
+    dense gate on qubits 0-11 through ``run`` (the route's launches around
+    one dense pass), counted, against the oracle (16q) and its plain
+    version; then the pass alone on a random state against its plain
+    version and ``torch.matmul``, timed beside both and its bound."""
+    out = {}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for n, engine in zip(DENSE_PASS_QUBITS, ("whole_circuit", "grid_sweep")):
+            t0 = time.perf_counter()
+            gate = kron_gate(tuple(range(DENSE_PASS_CORE)), seed=n)
+            c = tq.random_circuit(n, 40, seed=42).append(gate)
+            c.extend(tq.random_circuit(n, 40, seed=43).gates)
+            reset_launches()
+            sim = tq.StateVectorSimulator(n, seed=1)
+            sim.run(c)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            _, prog = sim.compiled_run(c)
+            want_engine = f"{engine}+dense_pass"
+            check(sim.engine == want_engine, f"{n}q 12-qubit core ran on {sim.engine}")
+            check(launches.get("dense_pass") == 1 and launches.get(engine, 0) >= 2
+                  and set(launches) == {engine, "dense_pass"}, f"{n}q launches {launches}")
+            plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
+            err_plain, fid = compare(sim.state_planes, plain)
+            del plain
+            err_oracle = None
+            if n <= 16:
+                err_oracle, _ = compare(sim.state_planes, oracle_planes(c, sim.device))
+                check(err_oracle <= 1e-6, f"{n}q 12-qubit core vs oracle {err_oracle} > 1e-6")
+            log(f"phase {n}q_dense_pass_run: wall_s={time.perf_counter() - t0:.3f} "
+                f"engine={sim.engine} launches={launches} max_abs_err_vs_plain={err_plain:.3e} "
+                f"(tol 1e-7) max_abs_err_vs_oracle={err_oracle} (tol 1e-6) fidelity={fid:.9f}")
+            check(err_plain <= 1e-7, f"{n}q 12-qubit core vs plain {err_plain} > 1e-7")
+            del sim
+
+            # the pass alone: kernel, plain version and torch.matmul on one input
+            step = next(s for s in prog.steps if isinstance(s, DensePass))
+            x = random_planes(n, 11)
+            u = step.u_on(x.device)
+            got = dense_pass(x, u, step.tmask, step.cmask)
+            err, _ = compare(got, step.run_plain(x))
+            # targets 0-11: the complex view (2^(n-12), 4096) times the
+            # operand transposed (its index bit j is qubit j)
+            um = torch.complex(u[:, 0], u[:, 1]).view(1 << DENSE_PASS_CORE, 1 << DENSE_PASS_CORE).T
+            z = torch.complex(x[0], x[1]).view(-1, 1 << DENSE_PASS_CORE)
+            y = torch.matmul(z, um.T).reshape(-1)
+            err_mm = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - y)))
+            del got, y
+            ms = median_ms(lambda: dense_pass(x, u, step.tmask, step.cmask), inner=10)
+            plain_ms = median_ms(lambda: step.run_plain(x), reps=3)
+            mm_ms = median_ms(lambda: torch.matmul(z, um.T), inner=10)
+            b = bound(step.bytes_moved(), step.flops())
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": mm_ms, **b,
+                   "max_abs_err": err, "max_abs_err_vs_matmul": err_mm,
+                   "launches": launches["dense_pass"], "run_max_abs_err": err_plain,
+                   "run_oracle_max_abs_err": err_oracle}
+            log(f"phase {n}q_dense_pass: k={step.k} {json.dumps(row)}")
+            check(err <= 1e-7, f"{n}q dense pass vs plain {err} > 1e-7")
+            check(err_mm <= 1e-7, f"{n}q dense pass vs torch.matmul {err_mm} > 1e-7")
+            out[n] = row
+            del x, z, um
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return out
 
 
 def time_cuda(fn, reps: int, inner: int = 1) -> list[float]:
@@ -798,6 +891,7 @@ def main() -> int:
     sweeps = phase_sweeps_main()
     cross = phase_sweeps_cross_engine()
     wide = phase_wide_cores()
+    passes = phase_dense_pass()
     main_res = phase_28q_main()
     closed = phase_closed_forms(N_MAIN, "grid_sweep")
     timing = phase_timing(main_res["sim"], main_res["prog"])
@@ -886,6 +980,23 @@ def main() -> int:
             "wide_op_ms": t_sweeps["wide_op_ms"],
             "wide_core_max_abs_err": wide,
         })
+    main_pass = passes[DENSE_PASS_QUBITS[0]]
+    kernels.append({
+        "name": "dense_pass",
+        "route": "cuda",
+        "source": "tpu_qsim_torch/kernels/csrc/dense_pass.cu",
+        "replaces": "tpu_qsim/kernels/fused_circuit.py:569",
+        "launches": main_pass["launches"],
+        "max_abs_err": main_pass["max_abs_err"],
+        "ms": main_pass["ms"],
+        "plain_ms": main_pass["plain_ms"],
+        "bound_ms": main_pass["bound_ms"],
+        "bound_by": main_pass["bound_by"],
+        "library_ms": main_pass["library_ms"],
+        "max_abs_err_vs_matmul": main_pass["max_abs_err_vs_matmul"],
+        "run_oracle_max_abs_err": main_pass["run_oracle_max_abs_err"],
+        "by_qubits": passes,
+    })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

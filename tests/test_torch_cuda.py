@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain torch versions, on the card.
 
-grid_sweep, whole_circuit, segment, scatter_segment, low_sweep and
-high_sweep each run against the plain version of their program, dense cores
-of 7 and 8 qubits on each kernel too; the simulator's routing and each
-wrapper's refusals are checked as well.
+grid_sweep, whole_circuit, segment, scatter_segment, low_sweep,
+high_sweep and dense_pass each run against the plain version of their
+program, dense cores of 7 and 8 qubits on each kernel too, the sweeps at
+tiles of 2^12 to 2^14 slots; the simulator's routing (the split at a
+12-qubit core included) and each wrapper's refusals are checked as well.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -357,3 +358,88 @@ def test_register_grid_sweep_matches_plain(cuda_device, n, name, blk, threads):
     want = prog.run_plain(x)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("threads", [256, 1024])
+def test_staged_sweeps_match_plain(cuda_device, threads):
+    # tiles of 2^12 and 2^14 slots: each sweep's stages (tile passes, and a
+    # unit pass for the 7-qubit core) against the plain version
+    c = _dense_core_circuit(24, 7, 12)
+    prog = ts.SweepProgram(c, geometry=ts.SweepGeometry(threads, None))
+    wide = [t.max_core >= fc.TILE_CORE for t in prog.tables]
+    assert prog.tile_bits == [13 if w and threads > 512 else threads.bit_length() + 3
+                              for w in wide]
+    assert any(st.kind == "unit" for sweep in prog.stages for st in sweep)
+    x = _random_planes(24, 4, cuda_device)
+    for i in range(prog.num_sweeps):
+        got = prog.launch(x.clone(), i)
+        want = prog.step_plain(x, i)
+        assert float((got - want).abs().max()) <= 1e-6, (i, prog.sweep_kinds[i])
+        x = want
+
+
+def _kron_core(k: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    u = np.ones((1, 1), np.complex128)
+    for _ in range(k):
+        m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+        u = np.kron(u, np.linalg.qr(m)[0])
+    return u
+
+
+@pytest.mark.parametrize("n,targets,controls", [
+    (16, tuple(range(12)), ()),                    # 16 groups: the 1 x 2 instance
+    (14, (3, 0, 5, 1, *range(6, 14)), (2,)),       # a control on a low bit
+    (22, tuple(range(10, 22)), ()),                # 1024 groups: the 4 x 4 instance
+    (14, (13, 2, 9, 0, 7, 5, 11), (4, 12)),        # a 7-qubit core, two controls
+])
+def test_dense_pass_matches_plain(cuda_device, n, targets, controls):
+    from tpu_qsim_torch.kernels import dense_pass as dp
+
+    core = _kron_core(len(targets), n)
+    u = torch.from_numpy(dp.core_operand(core, targets)).to(cuda_device)
+    x = _random_planes(n, n, cuda_device)
+    reset_launches()
+    got = dp.dense_pass(x, u, sum(1 << q for q in targets), sum(1 << q for q in controls))
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_pass"] == 1
+    want = dp.apply_controlled(x, core, targets, controls)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_simulator_splits_at_a_wide_core(cuda_device):
+    from tpu_qsim_torch.circuit import Gate
+
+    n = 16
+    core = _kron_core(12, 3)
+    c = tq.random_circuit(n, 30, seed=1)
+    c.append(Gate("kron12", tuple(range(4, 16)), matrix_bytes=core.tobytes()))
+    c.extend(tq.random_circuit(n, 30, seed=2).gates)
+    reset_launches()
+    sim = tq.StateVectorSimulator(n).run(c)
+    torch.cuda.synchronize()
+    assert sim.engine == "whole_circuit+dense_pass"
+    assert dict(LAUNCHES) == {"whole_circuit": 2, "dense_pass": 1}
+    _, prog = sim.compiled_run(c)
+    want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
+    assert float((sim.state_planes - want).abs().max()) <= 1e-6
+
+
+def test_dense_pass_refuses_bad_inputs(cuda_device):
+    from tpu_qsim_torch.kernels import dense_pass as dp
+
+    targets = tuple(range(12))
+    u = torch.from_numpy(dp.core_operand(_kron_core(12, 0), targets)).to(cuda_device)
+    tmask = (1 << 12) - 1
+    x = _random_planes(14, 0, cuda_device)
+    for bad in (x.double(), x.cpu(), x[:, : 1 << 13], x.t().contiguous()):
+        with pytest.raises(ValueError):
+            dp.dense_pass(bad, u, tmask)
+    with pytest.raises(ValueError):
+        dp.dense_pass(x, u[: 1 << 20], tmask)                 # not 4^12 entries
+    with pytest.raises(ValueError):
+        dp.dense_pass(x, u.cpu(), tmask)
+    with pytest.raises(ValueError):
+        dp.dense_pass(x, u, tmask, cmask=1)                   # a control on a target
+    with pytest.raises(ValueError):
+        dp.dense_pass(x, u, tmask << 3)                       # targets past the state

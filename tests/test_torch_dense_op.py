@@ -127,15 +127,18 @@ def test_tiled_core_through_each_mirror(kernel, k):
         psi = random_state(n, np.random.default_rng(k))
         got = emulate_segments(psi, prog)
     else:
-        # SweepParams(2, 2): low block bits 0..9; the control on a top bit
-        n = 12
-        c = _between_random(n, name, (11,) + tuple(range(10 - k, 10)))
-        prog = ts.SweepProgram(c, ts.SweepParams(k_bits=2, rb_bits=2))
+        # SweepParams(2, 2): low block bits 0..9; the control on a top bit.
+        # A sweep's CTA holds one tile of 16 amplitudes a thread, and the
+        # tiled op needs 2^k <= 4 x threads: cores of 9 and 10 qubits take
+        # a unit of 12 bits or more, SweepParams(2, 4) at 14 qubits
+        n, rb = (12, 2) if k <= 8 else (14, 4)
+        c = _between_random(n, name, (n - 1,) + tuple(range(n - 2 - k, n - 2)))
+        prog = ts.SweepProgram(c, ts.SweepParams(k_bits=2, rb_bits=rb))
         assert max(t.max_core for t in prog.tables) == k
         psi = random_state(n, np.random.default_rng(k))
         re, im = psi.real.copy(), psi.imag.copy()
         for table in prog.tables:
-            emulate_sweep(re, im, table, group_bits=1, threads=prog.geometry.threads)
+            emulate_sweep(re, im, table, group_bits=1)
         got = re + 1j * im
     np.testing.assert_allclose(got, jax_oracle(c, psi), atol=TOL, rtol=0)
 

@@ -1,0 +1,292 @@
+"""Dense cores of 12 qubits and more: the split route and the dense pass.
+
+* ``dispatch.plan_run`` splits a circuit at each gate whose peeled core is
+  wider than ``MAX_DENSE_QUBITS`` (11): the pieces between them plan on the
+  table's engine, each such gate becomes a ``DensePass``, in circuit order;
+  a circuit without such a gate plans exactly as before.
+* :func:`emulate_dense_pass`, a numpy mirror of ``csrc/dense_pass.cu`` (its
+  CTA tiles, the gather of X in slot order chunk by chunk, the output tile
+  in slot order, the copy of the groups whose controls fail), and the pass's
+  plain version (the torch engine's ``apply_unitary`` under the controls)
+  agree with the JAX package's complex128 oracle within 1e-6 at 14-16 qubits
+  with a 12-qubit core, uncontrolled and with a control peeled, and with
+  7-qubit cores that take the kernel's other instance. (float32 planes and
+  coefficients, amplitudes <= 1: a 4096-term sum rounds at ~1e-8 here.)
+The kernel itself runs only on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_qsim_torch as tq
+from tpu_qsim_torch.circuit import Gate
+from tpu_qsim_torch.kernels import LAUNCHES, dispatch, reset_launches
+from tpu_qsim_torch.kernels import dense_pass as dp
+from tpu_qsim_torch.kernels import fused_circuit as fc
+from tpu_qsim_torch.kernels import gridsweeps as tgs
+from tpu_qsim_torch.kernels import segmented as seg
+from tpu_qsim_torch.kernels import sweeps as ts
+
+from conftest import random_state
+from test_torch_sweeps import jax_oracle
+
+TOL = 1e-6
+CUDA = torch.device("cuda")
+
+
+def _kron_unitary(k: int, seed: int) -> np.ndarray:
+    """A dense k-qubit unitary: a Kronecker product of random 1-qubit ones
+    (cheaper to make than a QR of 2^k x 2^k)."""
+    rng = np.random.default_rng(seed)
+    u = np.ones((1, 1), np.complex128)
+    for _ in range(k):
+        m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+        u = np.kron(u, np.linalg.qr(m)[0])
+    return u
+
+
+def _gate(qubits: tuple[int, ...], controls: int = 0, seed: int = 0) -> Gate:
+    """A gate on ``qubits``: a dense core under its first ``controls``
+    qubits as MSB controls, carried inline (a registered gate's unitarity
+    check of a 2^13 x 2^13 matrix alone takes tens of seconds here)."""
+    k = len(qubits) - controls
+    core = _kron_unitary(k, seed)
+    if controls:
+        u = np.eye(1 << (k + controls), dtype=np.complex128)
+        u[-(1 << k):, -(1 << k):] = core
+    else:
+        u = core
+    return Gate(f"kron{k}", tuple(qubits), matrix_bytes=u.tobytes())
+
+
+def _circuit(n: int, *gates: Gate, seed: int = 5) -> tq.Circuit:
+    """``gates`` between two random layers."""
+    c = tq.random_circuit(n, 20, seed=seed)
+    for g in gates:
+        c.append(g)
+    return c.extend(tq.random_circuit(n, 20, seed=seed + 1).gates)
+
+
+# ---------------------------------------------------------------------------
+# the split route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,engine", [(14, "whole_circuit"), (22, "grid_sweep")])
+def test_split_orders_pieces_and_passes(n, engine):
+    c = tq.Circuit(n).append(_gate(tuple(range(12)), seed=1))    # a pass first
+    c.extend(tq.random_circuit(n, 30, seed=2).gates)
+    c.append(_gate(tuple(range(n - 12, n)), seed=1))   # then a piece, a pass, a piece
+    c.extend(tq.random_circuit(n, 10, seed=3).gates)
+    parts = dispatch.split_at_wide_cores(c)
+    assert [type(p).__name__ for p in parts] == ["PGate", "Circuit", "PGate", "Circuit"]
+    assert [len(p.gates) for p in parts[1::2]] == [30, 10]
+    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert got == f"dense_pass+{engine}"
+    assert prog.engines == ["dense_pass", engine, "dense_pass", engine]
+    passes = prog.steps[0::2]
+    assert all(isinstance(s, dp.DensePass) for s in passes)
+    assert [s.tmask for s in passes] == [(1 << 12) - 1, ((1 << 12) - 1) << (n - 12)]
+    assert all(s.k == 12 and s.controls == () for s in passes)
+
+
+@pytest.mark.parametrize("n,engine,kind", [
+    (12, "whole_circuit", fc.WholeCircuitProgram),
+    (19, "segmented", seg.SegmentedProgram),
+    (22, "grid_sweep", tgs.GridSweepProgram),
+])
+def test_circuit_without_wide_core_plans_as_before(n, engine, kind):
+    c = tq.random_circuit(n, 60, seed=n)
+    if n == 12:   # an 11-qubit core still rides the op table
+        c.append(_gate(tuple(range(11)), seed=11))
+    assert dispatch.split_at_wide_cores(c) is None
+    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert got == engine and type(prog) is kind
+    assert dispatch.plan_run(c, np.float64, CUDA) == ("torch", None)
+    assert dispatch.plan_run(c, np.float32, torch.device("cpu")) == ("torch", None)
+
+
+def test_sweeps_route_splits_too():
+    # at 22 qubits an 8-qubit core on 8-15 sends the pieces to the sweeps
+    # engine (the grid planner refuses them); the 12-qubit gate is a pass
+    n = 22
+    d8 = _gate(tuple(range(8, 16)), seed=8)
+    c = _circuit(n, d8, _gate(tuple(range(12)), seed=2), d8)
+    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert got == "sweeps+dense_pass"
+    assert prog.engines == ["sweeps", "dense_pass", "sweeps"]
+    assert isinstance(prog.steps[0], ts.SweepProgram)
+
+
+def test_pieces_above_the_segmented_range_take_the_torch_engine():
+    # at 28 qubits a piece the grid planner refuses (an 8-qubit core on
+    # 20-27) takes the torch engine, as the whole circuit did before
+    n = 28
+    c = tq.Circuit(n).append(_gate(tuple(range(20, 28)), seed=8)).h(0)
+    c.append(_gate(tuple(range(12)), seed=2)).h(1)
+    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert got == "torch+dense_pass+grid_sweep"
+    assert prog.engines == ["torch", "dense_pass", "grid_sweep"]
+    assert [len(s.gates) for s in prog.steps[:1]] == [2]
+    # the torch piece applies its gates through apply.py, as the plain version
+    small = tq.random_circuit(6, 20, seed=1)
+    piece = dispatch._TorchPiece(small)
+    x = tq.apply.from_complex(random_state(6, np.random.default_rng(6)), np.float32, "cpu")
+    want = tq.apply.to_complex(fc.apply_pgates(x, fc.as_pgates(small.gates)))
+    np.testing.assert_allclose(tq.apply.to_complex(piece.run(x)), want, atol=0, rtol=0)
+
+
+def test_control_is_peeled_into_the_pass():
+    # a 13-qubit gate whose MSB is a control: the pass's core has 12 qubits
+    n = 14
+    c = tq.Circuit(n).append(_gate((13, *range(12)), controls=1, seed=3))
+    (g,) = dispatch.split_at_wide_cores(c)
+    step = dp.DensePass(g, n)
+    assert (step.controls, step.targets, step.k) == ((13,), tuple(range(12)), 12)
+    assert (step.tmask, step.cmask) == ((1 << 12) - 1, 1 << 13)
+    assert step.flops() == 8.0 * (1 << 12) * (1 << (n - 1))
+    assert step.bytes_moved() == 8 * (1 << 24) + 16 * (1 << n)
+    with pytest.raises(ValueError, match="no core wider"):
+        dp.DensePass(fc.as_pgates([(np.eye(1 << 12), tuple(range(12)))])[0], n)
+
+
+# ---------------------------------------------------------------------------
+# a numpy mirror of csrc/dense_pass.cu
+# ---------------------------------------------------------------------------
+
+
+def _deposit(x: np.ndarray, mask: int) -> np.ndarray:
+    out = np.zeros_like(x)
+    b = 0
+    for p in range(32):
+        if (mask >> p) & 1:
+            out |= ((x >> b) & 1) << p
+            b += 1
+    return out
+
+
+def _extract(x: np.ndarray, mask: int) -> np.ndarray:
+    out = np.zeros_like(x)
+    b = 0
+    for p in range(32):
+        if (mask >> p) & 1:
+            out |= ((x >> p) & 1) << b
+            b += 1
+    return out
+
+
+def _low_bits(mask: int, count: int) -> int:
+    out = 0
+    for _ in range(count):
+        out |= mask & -mask
+        mask &= mask - 1
+    return out
+
+
+def emulate_dense_pass(
+    x: np.ndarray, u: np.ndarray, tmask: int, cmask: int = 0,
+) -> np.ndarray:
+    """The pass as dense_pass.cu computes it, on complex amplitudes ``x``
+    and the operand ``u`` (``core_operand``'s (4^k, 2) float32): CTA by CTA
+    (tiles of BM rows x BN groups of the instance the launcher picks), X
+    gathered chunk by chunk of BK columns in slot order, the tile's output
+    written in slot order, then the copy of the groups whose controls fail.
+    Slots written twice or never fail the test."""
+    dim = x.size
+    k = bin(tmask).count("1")
+    free = (dim - 1) & ~(tmask | cmask)
+    log2g = bin(free).count("1")
+    tx, rn, rm, bk = (16, 4, 4, 16) if log2g >= 6 else (8, 2, 1, 64)
+    bn, bm = tx * rn, (256 // tx) * rm
+    d = 1 << k
+    um = (u[:, 0] + 1j * u[:, 1].astype(np.complex128)).reshape(d, d).T   # column-major
+    row_tiles = d // bm
+    group_tiles = max(1, (1 << log2g) // bn)
+    log2tg = min(log2g, bn.bit_length() - 1)
+    tlow = _low_bits(tmask, bk.bit_length() - 1)
+    flow = _low_bits(free, log2tg)
+    thigh = tmask & ~tlow
+    rlow = _low_bits(tmask, bm.bit_length() - 1)
+    xe = _deposit(np.arange(bk << log2tg), tlow | flow)
+    xc, xg = _extract(xe, tlow), _extract(xe, flow)
+    ye = _deposit(np.arange(bm << log2tg), rlow | flow)
+    yr, yg = _extract(ye, rlow), _extract(ye, flow)
+    out = np.zeros(dim, np.complex128)
+    written = np.zeros(dim, np.int64)
+    for cta in range(row_tiles * group_tiles):
+        r0, g0 = (cta % row_tiles) * bm, (cta // row_tiles) * bn
+        gbase = int(_deposit(np.array([g0]), free)[0]) | cmask
+        his = gbase | _deposit(np.arange(d // bk), thigh)
+        xt = np.zeros((d, 1 << log2tg), np.complex128)
+        for chunk, hi in enumerate(his):
+            xt[chunk * bk + xc, xg] = x[hi | xe]
+        acc = um[r0:r0 + bm] @ xt
+        slots = gbase | int(_deposit(np.array([r0]), tmask)[0]) | ye
+        out[slots] = acc[yr, yg]
+        written[slots] += 1
+    if cmask:
+        idx = np.arange(dim)
+        fail = (idx & cmask) != cmask
+        out[fail] = x[fail]
+        written[fail] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("n,k,controls", [
+    (14, 12, 0), (15, 12, 0), (16, 12, 0), (14, 12, 1),   # the 1 x 2 instance
+    (14, 7, 0), (14, 7, 1),                               # the 4 x 4 one (64+ groups)
+])
+def test_mirror_and_plain_match_oracle(n, k, controls):
+    # targets in no order, some on the lane bits; a control on bit 2
+    qubits = (2,) * controls + (3, 0, 5, 1, *range(6, 2 + k))
+    c = tq.Circuit(n).append(_gate(qubits, controls, seed=n + k))
+    (g,) = fc.as_pgates(c.gates)
+    ctrls, core, targets = fc._peel_controls(g.u, g.qubits)
+    assert len(targets) == k and len(ctrls) == controls
+    if k > fc.MAX_DENSE_QUBITS:
+        assert dp.pass_core(g)[2] == tuple(targets)
+    tmask, cmask = sum(1 << q for q in targets), sum(1 << q for q in ctrls)
+    psi = random_state(n, np.random.default_rng(n))
+    want = jax_oracle(c, psi)
+    x = psi.astype(np.complex64).astype(np.complex128)
+    got = emulate_dense_pass(x, dp.core_operand(core, tuple(targets)), tmask, cmask)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    plain = dp.apply_controlled(tq.apply.from_complex(psi, np.float32, "cpu"), core,
+                                tuple(targets), tuple(ctrls))
+    np.testing.assert_allclose(tq.apply.to_complex(plain), want, atol=TOL, rtol=0)
+
+
+def test_core_operand_orders_bits_and_stores_columns():
+    # a 3-qubit core on qubits (5, 1, 3): index MSB qubit 5; the operand's
+    # index bit j is the j-th lowest target (1, 3, 5), columns contiguous
+    rng = np.random.default_rng(0)
+    core = rng.standard_normal((8, 8)) + 1j * rng.standard_normal((8, 8))
+    u = dp.core_operand(core, (5, 1, 3))
+    assert u.shape == (64, 2) and u.dtype == np.float32
+    up = (u[:, 0] + 1j * u[:, 1]).reshape(8, 8).T    # up[row, col]
+    for j1 in range(8):
+        for j2 in range(8):
+            # operand bit 0 -> qubit 1 (matrix bit 1), bit 1 -> qubit 3
+            # (matrix bit 0), bit 2 -> qubit 5 (matrix bit 2)
+            def src(j):
+                return ((j >> 0) & 1) << 1 | ((j >> 1) & 1) << 0 | ((j >> 2) & 1) << 2
+            assert up[j1, j2] == np.complex64(core[src(j1), src(j2)])
+
+
+def test_cpu_pass_runs_plain_version_and_wrapper_refuses_cpu():
+    n = 14
+    c = tq.Circuit(n).append(_gate(tuple(range(2, 14)), seed=4))
+    step = dp.DensePass(fc.as_pgates(c.gates)[0], n)
+    reset_launches()
+    x = tq.apply.from_complex(random_state(n, np.random.default_rng(1)), np.float32, "cpu")
+    np.testing.assert_array_equal(step.run(x).numpy(), step.run_plain(x).numpy())
+    assert LAUNCHES["dense_pass"] == 0
+    u = torch.from_numpy(dp.core_operand(step.core, step.targets))
+    with pytest.raises(ValueError, match="CUDA"):
+        dp.dense_pass(x, u, step.tmask)
+    with pytest.raises(ValueError, match="float32"):
+        step.run(x.double())
+    sim = tq.StateVectorSimulator(n, device="cpu").run(c)
+    assert sim.engine == "torch"     # the CPU route has no kernel to split for

@@ -156,74 +156,86 @@ def apply_core(s, size, targets, u, lmask, lval) -> None:
 
 def emulate_sweep(re: np.ndarray, im: np.ndarray, table: fc.OpTable) -> None:
     """Apply one sweep's op table in place, CTA by CTA, as grid_sweep.cu
-    does, each op as its descriptor (after the ops) says: a remap takes new
-    register bits; a register op's descriptor must repeat its words (target
-    as a lane bit or a position among the current register bits, X cores
-    flagged as swaps, a diagonal's qubits packed); any other op reads its
-    codes and core as ops.cuh does on shared memory."""
+    does (:func:`emulate_block` for each assignment of the inactive bits)."""
+    ints = table.ints
+    n_inact = int(ints[3])
+    inact = ints[32:32 + n_inact]
+    for cta in range(1 << n_inact):
+        cta_g = sum(1 << int(p) for b, p in enumerate(inact) if (cta >> b) & 1)
+        emulate_block(re, im, table, cta_g)
+
+
+def emulate_block(re: np.ndarray, im: np.ndarray, table: fc.OpTable, cta_g: int) -> None:
+    """Apply a register table in place to the block whose share of the global
+    index is ``cta_g``, as block_program.cuh's ``run_block`` does, each op as
+    its descriptor (after the ops) says: a remap takes new register bits; a
+    register op's descriptor must repeat its words (target as a lane bit or
+    a position among the current register bits, X cores flagged as swaps, a
+    diagonal's qubits packed); any other op reads its codes and core as
+    ops.cuh does on shared memory."""
     ints, coef = table.ints, table.coef
-    n_ops, blk, a, n_inact = (int(v) for v in ints[:4])
+    n_ops, blk, a = (int(v) for v in ints[:3])
     kbits = blk + a
-    active, inact = ints[16:16 + a], ints[32:32 + n_inact]
+    active = ints[16:16 + a]
     r = int(ints[tgs.HEADER_REG_BITS])
     assert r == tgs.REG_BITS and tgs.LANE_BITS + r <= kbits
-    descs = ints[fc.SWEEP_HEADER + n_ops * fc.OP_HEADER:].reshape(n_ops, tgs.DESC_WORDS)
+    descs = ints[fc.SWEEP_HEADER + n_ops * fc.OP_HEADER:][:n_ops * tgs.DESC_WORDS]
+    descs = descs.reshape(n_ops, tgs.DESC_WORDS)
     size = 1 << kbits
     w = coef[:, 0].astype(np.float64) + 1j * coef[:, 1]
     local = np.arange(size, dtype=np.int64)
-    for cta in range(1 << n_inact):
-        cta_g = sum(1 << int(p) for b, p in enumerate(inact) if (cta >> b) & 1)
-        g = cta_g | (local & ((1 << blk) - 1))
-        for j in range(a):
-            g = g | (((local >> (blk + j)) & 1) << int(active[j]))
-        s = re[g].astype(np.complex128) + 1j * im[g]
-        regs = [int(x) for x in ints[tgs.HEADER_REGS:tgs.HEADER_REGS + r]]
-        for o in range(n_ops):
-            op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
-            d = descs[o]
-            assert regs == sorted(set(regs)) and len(regs) == r
-            assert all(tgs.LANE_BITS <= b < kbits for b in regs)
-            if op[0] == tgs.KIND_REMAP:
-                assert op[1] == r and list(d) == [tgs.D_REMAP] + [0] * 7
-                regs = [int(x) for x in op[8:8 + r]]
-                continue
-            assert list(d[1:6]) == [int(x) for x in op[2:7]]
-            if (cta_g & int(d[4])) != int(d[5]):
-                continue
-            m, off = int(op[1]), int(op[2])
-            codes = [int(x) for x in op[8:8 + m]]
+    g = cta_g | (local & ((1 << blk) - 1))
+    for j in range(a):
+        g = g | (((local >> (blk + j)) & 1) << int(active[j]))
+    assert not cta_g & int(np.bitwise_or.reduce(g ^ cta_g)), "the block's bits overlap cta_g"
+    s = re[g].astype(np.complex128) + 1j * im[g]
+    regs = [int(x) for x in ints[tgs.HEADER_REGS:tgs.HEADER_REGS + r]]
+    for o in range(n_ops):
+        op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
+        d = descs[o]
+        assert regs == sorted(set(regs)) and len(regs) == r
+        assert all(tgs.LANE_BITS <= b < kbits for b in regs)
+        if op[0] == tgs.KIND_REMAP:
+            assert op[1] == r and list(d) == [tgs.D_REMAP] + [0] * 7
+            regs = [int(x) for x in op[8:8 + r]]
+            continue
+        assert list(d[1:6]) == [int(x) for x in op[2:7]]
+        if (cta_g & int(d[4])) != int(d[5]):
+            continue
+        m, off = int(op[1]), int(op[2])
+        codes = [int(x) for x in op[8:8 + m]]
 
-            def bit(code, li):
-                if code < fc.EXT:
-                    return (li >> code) & 1
-                return np.full_like(li, (cta_g >> (code - fc.EXT)) & 1)
+        def bit(code, li):
+            if code < fc.EXT:
+                return (li >> code) & 1
+            return np.full_like(li, (cta_g >> (code - fc.EXT)) & 1)
 
-            if op[0] == fc.KIND_DIAG:
-                assert d[0] == tgs.D_REG | tgs.D_DIAG | (tgs.D_WIDE_DIAG if m > 2 else 0)
-                if m <= 2:
-                    assert d[7] == m | codes[0] << 8 | codes[-1] << 16
-                idx = np.zeros(size, np.int64)
-                for code in codes:
-                    idx = (idx << 1) | bit(code, local)
-                s = s * w[off + idx]
-                continue
-            if d[0] & tgs.D_REG:
-                assert m <= tgs.REG_CORE
-                u = w[off:off + 4].reshape(2, 2)
-                swap = np.array_equal(u, [[0, 1], [1, 0]])
-                lane = bool(d[0] & tgs.D_LANE)
-                assert d[0] == tgs.D_REG | (tgs.D_SWAP if swap else 0) | (tgs.D_LANE if lane else 0)
-                target = int(d[6]) if lane else regs[int(d[6])]
-                assert (target < tgs.LANE_BITS) == lane and [target] == codes
-                targets = [target]
-            else:
-                assert d[0] == 0
-                if m <= fc.SORTED_WORDS:
-                    assert sorted(codes) == [int(x) for x in op[24:24 + m]]
-                targets = codes[::-1]
-                u = core_matrix(w, off, m)
-            apply_core(s, size, targets, u, int(op[3]), int(op[4]))
-        re[g], im[g] = s.real, s.imag
+        if op[0] == fc.KIND_DIAG:
+            assert d[0] == tgs.D_REG | tgs.D_DIAG | (tgs.D_WIDE_DIAG if m > 2 else 0)
+            if m <= 2:
+                assert d[7] == m | codes[0] << 8 | codes[-1] << 16
+            idx = np.zeros(size, np.int64)
+            for code in codes:
+                idx = (idx << 1) | bit(code, local)
+            s = s * w[off + idx]
+            continue
+        if d[0] & tgs.D_REG:
+            assert m <= tgs.REG_CORE
+            u = w[off:off + 4].reshape(2, 2)
+            swap = np.array_equal(u, [[0, 1], [1, 0]])
+            lane = bool(d[0] & tgs.D_LANE)
+            assert d[0] == tgs.D_REG | (tgs.D_SWAP if swap else 0) | (tgs.D_LANE if lane else 0)
+            target = int(d[6]) if lane else regs[int(d[6])]
+            assert (target < tgs.LANE_BITS) == lane and [target] == codes
+            targets = [target]
+        else:
+            assert d[0] == 0
+            if m <= fc.SORTED_WORDS:
+                assert sorted(codes) == [int(x) for x in op[24:24 + m]]
+            targets = codes[::-1]
+            u = core_matrix(w, off, m)
+        apply_core(s, size, targets, u, int(op[3]), int(op[4]))
+    re[g], im[g] = s.real, s.imag
 
 
 def _dense_circuit(n: int) -> "tq.Circuit":

@@ -34,7 +34,7 @@ def test_port_has_the_slice_modules():
         "gates", "circuit", "config", "commute", "cpu_reference", "fusion",
         "apply", "base", "statevector", "convert", "schedule",
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
-        "kernels.segmented", "kernels.dispatch", "kernels._build",
+        "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
     ):
         assert f"tpu_qsim_torch.{mod}" in names

@@ -30,10 +30,11 @@ import tpu_qsim_torch.gates as tgates
 from tpu_qsim_torch.convert import circuit_from_jax
 from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
+from tpu_qsim_torch.kernels import gridsweeps as tgs
 from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
-from test_torch_gridsweeps import core_matrix
+from test_torch_gridsweeps import core_matrix, emulate_block
 from test_torch_whole_circuit import tiled_bases
 
 P_JAX = js.SweepParams(k_bits=2, rb_bits=2)     # blk_bits 9, 4 parts
@@ -181,71 +182,67 @@ def test_layouts_are_the_jax_relabelings():
 
 def emulate_sweep(
     re: np.ndarray, im: np.ndarray, table: fc.OpTable, group_bits: int = 0,
-    threads: int = 1024,
 ) -> None:
-    """Apply one sweep's op table to the flat planes in place, as sweep.cu
-    does: unit by unit (the inactive bits' assignments: a low sweep's parts,
-    a high sweep's steps), each op in turn, CTA r of a group of
-    ``2^group_bits`` taking the r-th contiguous part of a narrow op's items
-    and a tiled core's tiles in turn, and slot l at state index
-    ``cta_g | (l & (2^blk - 1)) | hi_off[l >> blk]``."""
+    """Apply one sweep's table (``ts.sweep_table``) to the flat planes in
+    place, as sweep.cu does: unit by unit (the inactive bits' assignments: a
+    low sweep's parts, a high sweep's steps), stage by stage. A tile stage's
+    register table runs tile by tile (CTA r of a group of ``2^group_bits``
+    taking tiles r, r + 2^group_bits, ...), each tile at the unit's share of
+    the global index OR the tile index deposited at the unit's bits outside
+    the tile, through the grid sweep's block mirror (:func:`emulate_block`).
+    A unit stage's wide core runs over the unit, its tiles dealt to the
+    group's CTAs in turn, slot l at ``GlobalSlots``' state index ``cta_g |
+    (l & (2^blk - 1)) | hi_off[l >> blk]``."""
     ints = table.ints
-    n_ops, blk, a, n_inact = (int(v) for v in ints[:4])
+    n_stages, blk, a, n_inact = (int(v) for v in ints[:4])
+    tile_bits = int(ints[ts.HEADER_TILE_BITS])
+    threads = 1 << (tile_bits - tgs.REG_BITS)
     active = [int(p) for p in ints[16:16 + a]]
     inact = [int(p) for p in ints[32:32 + n_inact]]
     kbits = blk + a
+    unit_mask = sum(1 << p for p in [*range(blk), *active])
     hi_off = np.array([sum(1 << active[j] for j in range(a) if (h >> j) & 1)
                        for h in range(1 << a)], dtype=np.int64)
-    w = table.coef[:, 0].astype(np.complex128) + 1j * table.coef[:, 1]
+    desc = ints[fc.SWEEP_HEADER:fc.SWEEP_HEADER + n_stages * ts.STAGE_WORDS]
+    desc = desc.reshape(n_stages, ts.STAGE_WORDS)
+    ends = [*(int(d[1]) for d in desc[1:]), ints.size]
+    cends = [*(int(d[2]) for d in desc[1:]), len(table.coef)]
+    assert int(ints[fc.HEADER_MAX_CORE]) == table.max_core
+    members = 1 << group_bits
     for u in range(1 << n_inact):
         cta_g = sum(1 << p for b, p in enumerate(inact) if (u >> b) & 1)
 
         def index(ls):
             return cta_g | (ls & ((1 << blk) - 1)) | hi_off[ls >> blk]
 
-        def bit(code, ls):
-            if code < fc.EXT:
-                return (ls >> code) & 1
-            return np.full_like(ls, (cta_g >> (code - fc.EXT)) & 1)
-
-        for o in range(n_ops):
-            op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
+        for d, end, cend in zip(desc, ends, cends):
+            kind, ioff, coff, outside, n_out = (int(v) for v in d[:5])
+            assert not any(d[5:])
+            sub = fc.OpTable(ints[ioff:end], table.coef[coff:cend], 0.0, 0)
+            if kind == ts.STAGE_TILE:
+                assert int(sub.ints[1]) + int(sub.ints[2]) == tile_bits
+                assert outside & ~unit_mask == 0 and bin(outside).count("1") == n_out
+                for r in range(members):
+                    for t in range(r, 1 << n_out, members):
+                        tile_g = cta_g
+                        for b, p in enumerate(q for q in range(32) if (outside >> q) & 1):
+                            tile_g |= ((t >> b) & 1) << p
+                        emulate_block(re, im, sub, tile_g)
+                continue
+            assert kind == ts.STAGE_UNIT and int(sub.ints[0]) == 1
+            op = sub.ints[fc.SWEEP_HEADER:][: fc.OP_HEADER]
             if (cta_g & int(op[5])) != int(op[6]):
                 continue
             m, off = int(op[1]), int(op[2])
+            assert op[0] == fc.KIND_DENSE and m >= fc.TILE_CORE
             codes = [int(x) for x in op[8:8 + m]]
-            if op[0] == fc.KIND_DIAG:
-                per = (1 << kbits) >> group_bits
-                for r in range(1 << group_bits):
-                    ls = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-                    idx = np.zeros_like(ls)
-                    for code in codes:
-                        idx = (idx << 1) | bit(code, ls)
-                    g = index(ls)
-                    amp = (re[g] + 1j * im[g]) * w[off + idx]
-                    re[g], im[g] = amp.real, amp.imag
-                continue
             assert max(codes) < kbits
             offs = [sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
                     for j in range(1 << m)]
+            w = sub.coef[:, 0].astype(np.complex128) + 1j * sub.coef[:, 1]
             core = core_matrix(w, off, m)
-            if m >= fc.TILE_CORE:
-                # the wide instance runs at most WIDE_THREADS a CTA
-                bases = tiled_bases(op, kbits, 1 << group_bits,
-                                    min(threads, ts.WIDE_THREADS))
-            else:
-                pos = [int(x) for x in op[24:24 + m]]
-                assert pos == sorted(codes)
-                per = (1 << (kbits - m)) >> group_bits
-                assert per >= 1
-                bases = []
-                for r in range(1 << group_bits):
-                    base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-                    for p in pos:                  # insert a 0 at each target
-                        base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-                    bases.append(base[(base & int(op[3])) == int(op[4])])
-            for base in bases:
-                gs = [index(base | d) for d in offs]
+            for base in tiled_bases(op, kbits, members, threads):
+                gs = [index(base | dd) for dd in offs]
                 y = core @ np.stack([re[g] + 1j * im[g] for g in gs])
                 for j, g in enumerate(gs):
                     re[g], im[g] = y[j].real, y[j].imag
@@ -304,6 +301,48 @@ def test_op_table_emulation_matches_oracle(name, group_bits):
     for table in prog.tables:
         emulate_sweep(re, im, table, group_bits)
     np.testing.assert_allclose(re + 1j * im, jax_oracle(c, psi), atol=1e-6, rtol=0)
+
+
+def _main_path_circuit() -> tq.Circuit:
+    """The 26q sweeps main path: an 8-qubit core on 10-17 between two random
+    layers (the grid planner refuses it)."""
+    register_both("torch_sweep_dense8", _unitary(8, 8))
+    c = tq.random_circuit(26, 40, seed=42).add("torch_sweep_dense8", *range(10, 18))
+    return c.extend(tq.random_circuit(26, 40, seed=43).gates)
+
+
+@pytest.mark.parametrize("name", ["random26", "main26", "wide12", "external12"])
+def test_plan_stages_cut_each_sweep_in_order(name):
+    prog = {
+        "random26": lambda: ts.SweepProgram(tq.random_circuit(26, 100, seed=42)),
+        "main26": lambda: ts.SweepProgram(_main_path_circuit()),
+        "wide12": lambda: ts.SweepProgram(circuit_from_jax(_wide_sweep_circuit(12)), P),
+        "external12": lambda: ts.SweepProgram(circuit_from_jax(_external_bits_circuit(12)), P),
+    }[name]()
+    lanes = set(range(tgs.LANE_BITS))
+    for gates, stages, lay, t in zip(prog.sweep_gates, prog.stages, prog.layouts, prog.tile_bits):
+        # every op in exactly one stage, in order
+        assert [id(g) for st in stages for g in st.gates] == [id(g) for g in gates]
+        unit = set(range(lay.blk_bits)) | set(lay.active)
+        moving = [[set(ts.moving_qubits(g.u, g.qubits)) for g in st.gates] for st in stages]
+        for st, mv in zip(stages, moving):
+            if st.kind == "unit":     # a core of TILE_CORE qubits or more, alone
+                assert len(st.gates) == 1 and len(mv[0]) >= fc.TILE_CORE and st.layout == lay
+                continue
+            tile = set(range(st.layout.blk_bits)) | set(st.layout.active)
+            assert len(tile) == t and lanes <= tile <= unit
+            assert all(m <= tile and len(m) < fc.TILE_CORE for m in mv)
+            assert st.outside == sum(1 << q for q in unit - tile)
+        # a tile stage ends where the next op's moving bits would not fit
+        for (a, ma), (b, mb) in zip(zip(stages, moving), zip(stages[1:], moving[1:])):
+            if a.kind == b.kind == "tile":
+                assert len(lanes.union(*ma, mb[0])) > t
+    if name == "random26":      # 59 per-op passes before the stages
+        assert [[len(st.gates) for st in sw] for sw in prog.stages] == [[20, 8], [15], [7], [9]]
+        assert sum(map(len, prog.stages)) <= 6
+    if name == "main26":
+        assert [[st.kind for st in sw] for sw in prog.stages] == [
+            ["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]]
 
 
 def test_sweep_tables_at_full_width():
@@ -411,14 +450,15 @@ def test_program_bytes_and_flops():
 
 
 @pytest.mark.parametrize("n,in_flight,max_core,want", [
-    (26, 1, 1, (1, 9)),         # 528 resident -> 512 CTAs, one unit at a time
+    # a group has no more CTAs than its unit has 2^13-slot tiles (512 threads)
+    (26, 1, 1, (1, 8)),         # 528 resident -> 512 CTAs; a 21-bit unit, 2^8 tiles
     (26, 4, 1, (4, 7)),
     (26, 64, 1, (32, 4)),       # no more groups than the low sweep's 32 parts
-    (26, 1, 8, (1, 9)),         # kbits 21 - 8 = 13 >= 9
+    (26, 1, 8, (1, 8)),         # a wide core: the same tiles at WIDE_THREADS
     (26, 2, 8, (2, 8)),
-    (26, None, 1, (1, 9)),      # 16 MB parts: one fits the L2 budget
-    (24, None, 1, (4, 7)),      # 4 MB parts: 6 fit, a power of two in flight
-    (22, None, 1, (16, 5)),     # 1 MB parts
+    (26, None, 1, (8, 6)),      # 16 MB parts: one fits the L2 budget, 8 at least
+    (24, None, 1, (8, 6)),      # 4 MB parts: 6 fit, 8 at least
+    (22, None, 1, (16, 4)),     # 1 MB parts of 2^4 tiles
 ])
 def test_launch_grid(n, in_flight, max_core, want):
     lay = ts.low_layout(n)
@@ -426,13 +466,13 @@ def test_launch_grid(n, in_flight, max_core, want):
     assert got == want
     high = ts.high_layout(ts.Sweep("high", [], {n - 1}), n)      # 8 MB steps
     assert ts.launch_grid(high, ts.SweepGeometry(512, None), 1, 528)[0] == min(
-        2, 1 << (n - 20))
-    # a group never has more CTAs than a core of min(widest, 4) qubits has
-    # groups of slots (a tiled core deals its tiles to the CTAs in turn)
+        ts.MIN_IN_FLIGHT, 1 << (n - 20))
+    # a unit no larger than a tile is one tile: one CTA a group; 256 threads
+    # make 2^12-slot tiles, twice as many
     small = ts.low_layout(12, P)          # 10 block bits
-    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 8, 528) == (1, 6)
-    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 3, 528) == (1, 7)
+    assert ts.launch_grid(small, ts.SweepGeometry(512, 1), 8, 528) == (1, 0)
+    assert ts.launch_grid(ts.low_layout(26), ts.SweepGeometry(256, 1), 3, 528) == (1, 9)
     # the resident count rounds down to a power of two
-    assert ts.launch_grid(lay, ts.SweepGeometry(512, 1), 1, 300) == (1, 8)
+    assert ts.launch_grid(ts.low_layout(26), ts.SweepGeometry(512, 1), 1, 300) == (1, 8)
     with pytest.raises(RuntimeError, match="resident"):
         ts.launch_grid(lay, ts.SweepGeometry(512, 1), 1, 0)

@@ -95,21 +95,28 @@ def test_core_past_the_limit_raises_naming_it():
     ok = tq.Circuit(n).add(_dense(8, controls=1), *range(9))
     engine, prog = dispatch.plan_run(ok, np.float32, CUDA)
     assert engine == "whole_circuit" and prog.table.max_core == 8
-    # still open: a 12-qubit core on qubits 0-11 of 16 lies in the
-    # whole-circuit kernel's block, and the JAX package runs it
-    # (_emit_gate_generic), but the tiled op streams whole columns of the
-    # core through a 16 KB panel, so the op table refuses cores wider than
-    # MAX_DENSE_QUBITS = 11 and no engine takes the circuit (a product of
-    # random 1-qubit unitaries: dense, and cheaper to make than a QR)
+    # a 12-qubit core on qubits 0-11 of 16 (the JAX package runs it with
+    # _emit_gate_generic): the tiled op streams whole columns of the core
+    # through a 16 KB panel, so the op table refuses cores wider than
+    # MAX_DENSE_QUBITS = 11, and dispatch splits the circuit there: the
+    # gate is a whole-state dense pass between whole-circuit launches, and
+    # the run matches the oracle (the core a product of random 1-qubit
+    # unitaries: dense, and cheaper to make than a QR)
     rng = np.random.default_rng(12)
     u12 = np.ones((1, 1), np.complex128)
     for _ in range(12):
         m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
         u12 = np.kron(u12, np.linalg.qr(m)[0])
-    tq.gates.register_gate("torch_wide_kron12", u12)
-    wide12 = tq.Circuit(16).add("torch_wide_kron12", *range(12))
+    register_both("torch_wide_kron12", u12)
+    wide12 = _between_random(16, ("torch_wide_kron12", tuple(range(12))))
     with pytest.raises(ValueError, match="at most MAX_DENSE_QUBITS = 11"):
-        dispatch.plan_run(wide12, np.float32, CUDA)
+        fc.build_op_table(fc.as_pgates(wide12.gates), fc.BlockLayout(16, 16, ()), max_bits=16)
+    engine, prog = dispatch.plan_run(wide12, np.float32, CUDA)
+    assert engine == "whole_circuit+dense_pass"
+    assert prog.engines == ["whole_circuit", "dense_pass", "whole_circuit"]
+    psi = random_state(16, np.random.default_rng(16))
+    got = tq.apply.to_complex(prog.run(tq.apply.from_complex(psi, np.float32, "cpu")))
+    np.testing.assert_allclose(got, jax_oracle(wide12, psi), atol=TOL, rtol=0)
 
 
 def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():

@@ -46,7 +46,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 # name -> {C function: argtypes}; every launch returns an int (cudaError_t)
 # and every library has <name>_error_string(int) -> const char*
 SIGNATURES: dict[str, dict[str, list]] = {
@@ -68,11 +68,15 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "scatter_segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sweep": {
-        # threads, int* ctas
-        "sweep_prepare": [_I, _P],
+        # threads, wide, int* ctas
+        "sweep_prepare": [_I, _I, _P],
         # high, state, dim, table, coef, kbits, barriers, groups, group_bits,
         # threads, max_core, stream
         "sweep_launch": [_I, _P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    },
+    "dense_pass": {
+        # state, out, dim, u, k, tmask, cmask, cval, stream
+        "dense_pass_launch": [_P, _P, _LL, _P, _I, _U, _U, _U, _P],
     },
 }
 

@@ -1,7 +1,9 @@
 // Op semantics shared by the port's kernels: how one op of the device op
 // table (tpu_qsim_torch/kernels/fused_circuit.py::build_op_table) acts on a
 // block of 2^kbits amplitude slots. grid_sweep.cu, whole_circuit.cu,
-// segment.cu and sweep.cu all include this one copy.
+// segment.cu, sweep.cu and dense_pass.cu all include this one copy
+// (grid_sweep.cu and sweep.cu through block_program.cuh, the register
+// program they share).
 //
 // Replaces the op body that every TPU kernel of tpu_qsim shares,
 // tpu_qsim/kernels/fused_circuit.py::emit_ops (XOR-shift gate emission,
@@ -96,6 +98,14 @@ struct Part {
   __device__ unsigned begin(unsigned total) const { return index * (total >> log2); }
   __device__ unsigned end(unsigned total) const { return (index + 1) * (total >> log2); }
 };
+
+// (ar, ai) += w (xr, xi) as four chained FMAs (written as a + b - c, the
+// sum would cost a multiply, an FMA and an add per plane)
+__device__ __forceinline__ void cmac(float& ar, float& ai, float2 w, float xr,
+                                     float xi) {
+  ar = fmaf(w.x, xr, fmaf(-w.y, xi, ar));
+  ai = fmaf(w.x, xi, fmaf(w.y, xr, ai));
+}
 
 __device__ __forceinline__ unsigned bit_of(int code, unsigned l, unsigned cta_g) {
   return code < EXT ? (l >> code) & 1u : (cta_g >> (code - EXT)) & 1u;

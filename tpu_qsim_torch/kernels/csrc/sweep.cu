@@ -11,45 +11,54 @@
 // sweep holds bits [0, 16) plus 4 active top bits of each step (the mid bits
 // and the fifth top bit): 2^20 slots, 8 MB. The TPU kernels kept such a block
 // in VMEM. One CTA's 227 KB cannot hold it, nor a 16-CTA cluster's 3.6 MB;
-// the H100's 50 MB L2 can. So the block stays in device memory, addressed
-// through ops.cuh's GlobalSlots, and one persistent cooperative launch runs
-// the whole sweep:
+// the H100's 50 MB L2 can. So the block (here: the unit, a part of a low
+// sweep or a step of a high one) stays in device memory, and one persistent
+// cooperative launch runs the whole sweep:
 //   - the grid is split into groups of 2^group_bits CTAs; group g walks the
-//     units (the parts of a low sweep, the steps of a high sweep) g,
-//     g + groups, ..., so `groups` units are in flight at once;
-//   - for each unit the group applies the sweep's ops in order, each op as
-//     one pass over the unit's slots, CTA r of the group taking part r of
-//     the op's items (ops.cuh's Part), with a barrier of the group's CTAs
-//     between two ops;
-//   - the barrier is a counter in device memory per group, zeroed by the
-//     launcher, under the cooperative launch's guarantee that every CTA of
-//     the grid is resident at once (no -rdc, no grid.sync()).
-// A unit is touched once per op, but while its group works on it it stays in
-// L2 (at most 50 MB in flight), so device memory sees about one read and one
-// write of the state per sweep.
+//     units g, g + groups, ..., so `groups` units are in flight at once;
+//   - the host (sweeps.py::plan_stages) cuts the sweep's ops into stages.
+//     A tile stage is a run of ops whose moving bits, with state bits 0-4,
+//     fit in the tile bits (2^T slots, T = 13 by default): it is a grid-sweep
+//     register table (gridsweeps.py::register_table) over the tile's bits,
+//     and the unit is 2^(unit bits - T) tiles. CTA r of the group takes
+//     tiles r, r + members, ... and runs each through block_program.cuh's
+//     register program, the program the grid sweep runs on its blocks: the
+//     tile goes from device memory (mostly L2) into registers, through the
+//     stage's ops in registers and shared memory, and back. A unit stage is
+//     one dense core of TILE_CORE qubits or more: ops.cuh's tiled op over the
+//     whole unit through GlobalSlots, its tiles dealt to the group's CTAs in
+//     turn;
+//   - a barrier of the group's CTAs comes between two stages, and only there.
+//     It is a counter in device memory per group, zeroed by the launcher,
+//     under the cooperative launch's guarantee that every CTA of the grid is
+//     resident at once (no -rdc, no grid.sync()).
+// A unit is touched once per stage, but while its group works on it it stays
+// in L2 (at most 50 MB in flight), so device memory sees about one read and
+// one write of the state per sweep.
 //
-// The op table is build_op_table's over the sweep's BlockLayout: low, blk =
-// n - 5 and no active bits, the 5 top bits inactive; high, blk = 16 and the
-// 4 active top bits, the mid bits and the other top bit inactive. Unit u's
-// share of the global index deposits the bits of u at the inactive bits, as
-// the grid sweep's CTA index does, and EXT codes read it (ops.cuh's bit_of),
-// which replaces the TPU kernels' per-part and per-step ext scalars. One
-// template serves both sweeps (GlobalSlots<false> for the low sweep, whose
-// slot l is cta_g + l; GlobalSlots<true> for the high one), each built for
-// cores of up to NARROW_CORE and of up to MAX_CORE qubits, as the other
-// kernels are. Only the wide instance has dynamic shared memory: the scratch
-// in which ops.cuh's tiled op stages a tile of the unit's groups and streams
-// the core, for cores of TILE_CORE qubits and more.
+// The sweep's table (sweeps.py::sweep_table) starts with the unit's layout as
+// build_op_table writes it (low, blk = n - 5 and no active bits, the 5 top
+// bits inactive; high, blk = 16 and the 4 active top bits, the mid bits and
+// the other top bit inactive), then a descriptor per stage, then the stages'
+// own tables. Unit u's share of the global index deposits the bits of u at
+// the inactive bits, as the grid sweep's CTA index does; a tile's share adds
+// the tile index deposited at the unit's bits outside the tile. EXT codes
+// read that share (ops.cuh's bit_of), which replaces the TPU kernels'
+// per-part and per-step ext scalars. One template serves both sweeps
+// (GlobalSlots<false> for the low sweep's unit stages, whose slot l is
+// cta_g + l; GlobalSlots<true> for the high one's), each built for cores of
+// up to NARROW_CORE (tile stages only) and of up to MAX_CORE qubits, as the
+// other kernels are.
 //
 // Bound on this card: device-memory bytes, 16 B per amplitude per sweep
-// (both planes read and written once; 0.32 ms at 26 qubits and 3.35 TB/s).
-// The design pays above that one L2 pass over the unit and one barrier per
-// op; fusing runs of block-local ops into shared-memory passes is what a
-// later kernel can cut.
+// (both planes read and written once; 0.32 ms at 26 qubits and 3.35 TB/s),
+// or the flops of a wide core. The design pays above that one L2 pass over
+// the unit and one barrier per stage, not per op (the design before this one
+// paid them per op: 59 L2 passes for random_circuit(26, 100), now 5).
 
 #include <cuda_runtime.h>
 
-#include "ops.cuh"
+#include "block_program.cuh"
 
 namespace {
 
@@ -86,20 +95,36 @@ __device__ __forceinline__ void group_sync(unsigned* counter, unsigned members,
 // The wide instance takes at most WIDE_THREADS threads, so that ptxas may
 // give the tiled op 128 registers a thread (4 groups a thread).
 constexpr int WIDE_THREADS = 512;
+constexpr int MAX_THREADS = 1024;  // a tile of 2^14 slots
+// The sweep table's header word: T, the tile bits; after the header, a
+// descriptor per stage: kind, offset of its table (int32 words from the
+// sweep table's start), offset of its coefficients (float2), the unit's bits
+// outside the tile (a state-bit mask) and their count.
+constexpr int HEADER_TILE_BITS = 5;
+constexpr int STAGE_WORDS = 8;
+constexpr int STAGE_TILE = 0;  // STAGE_UNIT (1): one wide core over the unit
 
 template <bool HIGH, int MAXM>
-__global__ void __launch_bounds__(MAXM > NARROW_CORE ? WIDE_THREADS : 1024)
+__global__ void __launch_bounds__(MAXM > NARROW_CORE ? WIDE_THREADS : MAX_THREADS)
 sweep_kernel(float* __restrict__ re, float* __restrict__ im,
              const int* __restrict__ table, const float2* __restrict__ coef,
              unsigned* __restrict__ barriers, int group_bits) {
   __shared__ unsigned hi_off[1 << MAX_ACTIVE];
   extern __shared__ float4 dyn_smem[];
-  float2* scratch = reinterpret_cast<float2*>(dyn_smem);
   check_core_width<MAXM>(table);
-  const int n_ops = table[0], blk = table[1], a = table[2];
+  const int n_stages = table[0], blk = table[1], a = table[2];
   const int n_inact = table[3];
   const int kbits = blk + a;
+  const int tile_bits = table[HEADER_TILE_BITS];
+  if ((1u << tile_bits) != blockDim.x << R) __trap();
   const int* inact = table + 32;
+  const int* stages = table + SWEEP_HEADER;
+  // a tile stage's block (remaps, shared-memory ops) and, in the wide
+  // instance, the next tile; a unit stage's tiled op scratch, used at other
+  // times
+  float* sr = reinterpret_cast<float*>(dyn_smem);
+  float* si = sr + (1u << tile_bits);
+  float2* scratch = reinterpret_cast<float2*>(dyn_smem);
   if constexpr (HIGH) {
     for (unsigned h = threadIdx.x; h < (1u << a); h += blockDim.x) {
       unsigned o = 0;
@@ -118,22 +143,73 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
   unsigned target = 0;
   const unsigned units = 1u << n_inact;
   for (unsigned u = group; u < units; u += n_groups) {
-    unsigned cta_g = 0;
+    unsigned unit_g = 0;
     for (int b = 0; b < n_inact; ++b)
-      if ((u >> b) & 1u) cta_g |= 1u << inact[b];
-    const GlobalSlots<HIGH> slots{re, im, cta_g, blk, hi_off};
-    // units are disjoint: the next unit's first op needs no barrier
-    for (int o = 0; o < n_ops; ++o) {
-      if (o > 0) group_sync(counter, members, target);
-      apply_op<MAXM>(slots, table + SWEEP_HEADER + o * OP_HEADER, coef, kbits,
-                     cta_g, part, scratch);
+      if ((u >> b) & 1u) unit_g |= 1u << inact[b];
+    // units are disjoint: the next unit's first stage needs no barrier
+    for (int s = 0; s < n_stages; ++s) {
+      if (s > 0) group_sync(counter, members, target);
+      const int* st = stages + s * STAGE_WORDS;
+      const int* sub = table + st[1];
+      const float2* sc = coef + st[2];
+      if (st[0] == STAGE_TILE) {
+        const BlockShape shape(sub);
+        if (sub[HEADER_REG_BITS] != R || shape.kbits != tile_bits) __trap();
+        const unsigned outside = (unsigned)st[3];
+        const unsigned n_tiles = 1u << st[4];
+        if constexpr (MAXM > NARROW_CORE) {
+          // one CTA an SM: the next tile streams into (pr, pi) while this
+          // one runs, as the grid sweep's next block does
+          float* pr = si + shape.size;
+          float* pi = pr + shape.size;
+          unsigned t = part.index;
+          __syncthreads();  // the last stage's reads of shared memory are done
+          if (t < n_tiles)
+            prefetch_block(pr, pi, re, im, shape.size, shape.blk, shape.a,
+                           sub + 16, unit_g | deposit_bits(t, outside));
+          for (; t < n_tiles; t += members) {
+            run_block<NARROW_CORE, false>(
+                re, im, sub, shape, sc, unit_g | deposit_bits(t, outside), sr,
+                si, scratch, [&](Regs& x) {
+                  cp_async_wait<0>();
+                  __syncthreads();  // the tile is in (pr, pi); (sr, si) is free
+                  x.load(pr, pi);
+                  __syncthreads();
+                  if (t + members < n_tiles)
+                    prefetch_block(pr, pi, re, im, shape.size, shape.blk,
+                                   shape.a, sub + 16,
+                                   unit_g | deposit_bits(t + members, outside));
+                });
+          }
+        } else {
+          for (unsigned t = part.index; t < n_tiles; t += members) {
+            const unsigned tile_g = unit_g | deposit_bits(t, outside);
+            __syncthreads();  // the last tile's reads of (sr, si) are done
+            run_block<NARROW_CORE, false>(
+                re, im, sub, shape, sc, tile_g, sr, si, scratch, [&](Regs& x) {
+                  x.load_global(re, im, shape.blk, shape.a, sub + 16, tile_g);
+                });
+          }
+        }
+      } else if constexpr (MAXM > NARROW_CORE) {
+        __syncthreads();  // the scratch aliases the last tile's (sr, si)
+        const GlobalSlots<HIGH> slots{re, im, unit_g, blk, hi_off};
+        apply_op<MAXM>(slots, sub + SWEEP_HEADER, sc, kbits, unit_g, part,
+                       scratch);
+      }
     }
   }
 }
 
+// Dynamic shared memory of a CTA of `threads` threads: the tile (2^T slots of
+// both planes, 2^T = 16 x threads); in the wide instance also the next
+// tile's, and at least the tiled op's scratch.
 template <int MAXM>
 size_t smem_bytes(int threads) {
-  return MAXM > NARROW_CORE ? tile_scratch_bytes(threads) : 0;
+  const size_t tile = (size_t)2 * sizeof(float) * ((size_t)threads << R);
+  if (MAXM <= NARROW_CORE) return tile;
+  const size_t tiled = tile_scratch_bytes(threads);
+  return 2 * tile > tiled ? 2 * tile : tiled;
 }
 
 template <bool HIGH, int MAXM>
@@ -164,9 +240,10 @@ int launch_core(float* state, long long dim, const int* table,
 template <bool HIGH, int MAXM>
 cudaError_t resident(int threads, int sms, int* ctas) {
   int per_sm = 0;
+  // the most any launch of the instance asks for, whatever its threads
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel<HIGH, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<MAXM>(1024));
+      (int)smem_bytes<MAXM>(MAXM > NARROW_CORE ? WIDE_THREADS : MAX_THREADS));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, sweep_kernel<HIGH, MAXM>, threads, smem_bytes<MAXM>(threads));
@@ -174,54 +251,53 @@ cudaError_t resident(int threads, int sms, int* ctas) {
   return err;
 }
 
+bool valid_threads(int threads, bool wide) {
+  return threads >= 32 && threads <= (wide ? WIDE_THREADS : MAX_THREADS) &&
+         (threads & (threads - 1)) == 0;
+}
+
 }  // namespace
 
-// Allow the wide instance its tile scratch, and report in *ctas how many
-// CTAs every instance of the kernel can keep resident at once on the
-// current device (the most a cooperative launch takes), the narrow ones at
-// `threads` threads and the wide ones at up to WIDE_THREADS (so a narrow
-// launch takes as many CTAs as before the wide instance had its own bound).
+// Allow the instance for narrow cores (`wide` 0: tile stages only) or for
+// wide ones (unit stages too) its shared memory at `threads` threads, and
+// report in *ctas how many CTAs of it the current device keeps resident at
+// once (the most a cooperative launch takes; the low and the high sweep's
+// instances alike). Each instance is counted at its own threads and shared
+// memory, so a narrow launch is not cut to the wide instance's residency.
 // Returns a cudaError_t (0 on success).
-extern "C" int sweep_prepare(int threads, int* ctas) {
+extern "C" int sweep_prepare(int threads, int wide, int* ctas) {
   *ctas = 0;
+  if (!valid_threads(threads, wide != 0)) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // the wide instances at the most threads they take
-  const int wide = threads < WIDE_THREADS ? threads : WIDE_THREADS;
-  int c[4] = {0, 0, 0, 0};
-  if (err == cudaSuccess) err = resident<false, NARROW_CORE>(threads, sms, &c[0]);
-  if (err == cudaSuccess) err = resident<false, MAX_CORE>(wide, sms, &c[1]);
-  if (err == cudaSuccess) err = resident<true, NARROW_CORE>(threads, sms, &c[2]);
-  if (err == cudaSuccess) err = resident<true, MAX_CORE>(wide, sms, &c[3]);
-  if (err == cudaSuccess) {
-    *ctas = c[0];
-    for (int i = 1; i < 4; ++i)
-      if (c[i] < *ctas) *ctas = c[i];
-  }
+  int lo = 0, hi = 0;
+  if (err == cudaSuccess)
+    err = wide ? resident<false, MAX_CORE>(threads, sms, &lo)
+               : resident<false, NARROW_CORE>(threads, sms, &lo);
+  if (err == cudaSuccess)
+    err = wide ? resident<true, MAX_CORE>(threads, sms, &hi)
+               : resident<true, NARROW_CORE>(threads, sms, &hi);
+  if (err == cudaSuccess) *ctas = lo < hi ? lo : hi;
   return (int)err;
 }
 
 // Launch one sweep (`high` 0: a low sweep) on `stream`, in place on the
 // (2, dim) float32 planes `state`. `table` and `coef` are device copies of
-// build_op_table's output over the sweep's BlockLayout of `kbits` kernel
-// bits, `max_core` its widest dense core, `barriers` `groups` words of device
-// memory (zeroed here). The grid is `groups` groups of 2^group_bits CTAs of
-// `threads` threads, at most sweep_prepare's count. Returns the cudaError_t
-// of the launch (0 on success); the launch does not synchronize.
+// sweeps.py::sweep_table's output for a unit of `kbits` bits, `max_core` its
+// widest dense core, `barriers` `groups` words of device memory (zeroed
+// here). The grid is `groups` groups of 2^group_bits CTAs of `threads`
+// threads (16 x threads slots a tile: the table's tile bits), at most
+// sweep_prepare's count for the instance. Returns the cudaError_t of the
+// launch (0 on success); the launch does not synchronize.
 extern "C" int sweep_launch(int high, float* state, long long dim,
                             const int* table, const float* coef, int kbits,
                             unsigned* barriers, int groups, int group_bits,
                             int threads, int max_core, void* stream) {
-  // every CTA of a group takes an equal share of each narrow op's items: a
-  // core of m <= NARROW_CORE qubits has 2^(kbits - m) groups of slots (the
-  // tiled op gives its tiles to the group's CTAs in turn, any count)
-  const int narrow = max_core < NARROW_CORE ? max_core : NARROW_CORE;
-  if (max_core > MAX_CORE || threads < 32 || threads > 1024 ||
-      (max_core > NARROW_CORE && threads > WIDE_THREADS) ||
-      threads % 32 != 0 || !threads_fit_core(threads, max_core) || groups < 1 ||
-      group_bits < 0 || group_bits > kbits - (narrow > 0 ? narrow : 0) ||
+  if (max_core > MAX_CORE || !valid_threads(threads, max_core > NARROW_CORE) ||
+      (threads << R) > (1 << kbits) || !threads_fit_core(threads, max_core) ||
+      groups < 1 || group_bits < 0 || group_bits > kbits ||
       ((long long)groups << group_bits) > (1LL << 20))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

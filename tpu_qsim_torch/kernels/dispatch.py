@@ -24,6 +24,14 @@ qubits 14-21 of 22). Where every engine in reach refuses (at most 26
 qubits), :func:`plan_run` raises a ValueError that names each refusal. The
 route is decided when a circuit is planned and never changes because a
 build or a launch failed.
+
+On the kernel rows, a gate whose dense core (its controls peeled) is wider
+than ``MAX_DENSE_QUBITS`` splits the circuit: the pieces between such gates
+are planned by this table as circuits of their own, each such gate becomes
+a whole-state pass (``csrc/dense_pass.cu``), and a :class:`SplitProgram`
+runs them in order; the engine's name joins the pieces' engines and
+``dense_pass`` (e.g. ``"whole_circuit+dense_pass"``). The JAX package runs
+such cores inside its kernels.
 """
 
 from __future__ import annotations
@@ -56,24 +64,116 @@ def engine_for(num_qubits: int, rdtype, device: torch.device) -> str:
     return "torch"
 
 
+class _TorchPiece:
+    """A piece of a split circuit on the torch engine (above the segmented
+    engine's range, where the grid planner refuses it): its gates one by one
+    through ``apply.py``."""
+
+    def __init__(self, circuit: Circuit):
+        from .fused_circuit import as_pgates
+
+        self.gates = as_pgates(circuit.gates)
+
+    def run(self, state: torch.Tensor) -> torch.Tensor:
+        from .fused_circuit import apply_pgates
+
+        return apply_pgates(state, self.gates)
+
+    run_plain = run
+
+
+class SplitProgram:
+    """A circuit split at its gates with dense cores wider than
+    ``MAX_DENSE_QUBITS``: ``steps`` are the pieces' programs and the passes
+    (:class:`~tpu_qsim_torch.kernels.dense_pass.DensePass`) in circuit order,
+    ``engines`` the name of each. ``run`` and ``run_plain`` map (2, 2^n)
+    planes through each step's ``run`` or ``run_plain`` in turn."""
+
+    def __init__(self, steps: list, engines: list[str]):
+        self.steps = steps
+        self.engines = engines
+        self.engine = "+".join(dict.fromkeys(engines))
+
+    def run(self, state: torch.Tensor) -> torch.Tensor:
+        for step in self.steps:
+            state = step.run(state)
+        return state
+
+    __call__ = run
+
+    def run_plain(self, state: torch.Tensor) -> torch.Tensor:
+        for step in self.steps:
+            state = step.run_plain(state)
+        return state
+
+
+def split_at_wide_cores(circuit: Circuit) -> list | None:
+    """The circuit cut at its gates whose dense core is wider than
+    ``MAX_DENSE_QUBITS``: pieces (circuits, empty ones left out) and such
+    gates (``PGate``) in order; None when it has no such gate."""
+    from .dense_pass import pass_core
+    from .fused_circuit import MAX_DENSE_QUBITS, as_pgates
+
+    n = circuit.num_qubits
+    out: list = []
+    piece = Circuit(n)
+    for g in circuit.gates:
+        if len(g.qubits) > MAX_DENSE_QUBITS:
+            (pg,) = as_pgates([g])
+            if pass_core(pg) is not None:
+                if piece.gates:
+                    out.append(piece)
+                    piece = Circuit(n)
+                out.append(pg)
+                continue
+        piece.append(g)
+    if not out:
+        return None
+    if piece.gates:
+        out.append(piece)
+    return out
+
+
 def plan_run(
     circuit: Circuit, rdtype, device: torch.device,
 ) -> tuple[str, Callable | None]:
     """(engine, program) for ``circuit``; the program is None for the torch
     engine, which the simulator builds from its own fusion settings."""
+    from .dense_pass import DensePass
+
+    n = circuit.num_qubits
+    engine = engine_for(n, rdtype, device)
+    if engine == "torch":
+        return "torch", None
+    parts = split_at_wide_cores(circuit)
+    if parts is None:
+        return _plan_piece(circuit, engine)
+    steps, engines = [], []
+    for part in parts:
+        if isinstance(part, Circuit):
+            name, prog = _plan_piece(part, engine)
+            steps.append(_TorchPiece(part) if prog is None else prog)
+        else:
+            name = "dense_pass"
+            steps.append(DensePass(part, n))
+        engines.append(name)
+    split = SplitProgram(steps, engines)
+    return split.engine, split
+
+
+def _plan_piece(circuit: Circuit, engine: str) -> tuple[str, Callable | None]:
+    """(engine, program) for a circuit with no core wider than
+    ``MAX_DENSE_QUBITS``, on the kernel row ``engine`` of the table."""
     from .fused_circuit import WholeCircuitProgram
     from .gridsweeps import GridSweepProgram
     from .segmented import SegmentedProgram
     from .sweeps import SweepProgram
 
     n = circuit.num_qubits
-    engine = engine_for(n, rdtype, device)
     if engine == "whole_circuit":
         return engine, WholeCircuitProgram(circuit)
     if engine == "segmented":
         return engine, SegmentedProgram(circuit)
-    if engine != "grid_sweep":
-        return "torch", None
     fallbacks = [("grid_sweep", GridSweepProgram)]
     if MIN_SWEEP_QUBITS <= n <= MAX_SWEEP_QUBITS:
         fallbacks.append(("sweeps", SweepProgram))

@@ -318,18 +318,19 @@ def _pad_active(sweep: GridSweep, n: int, blk: int, a_max: int) -> tuple:
     return tuple(sorted(active))
 
 
-def block_threads(kbits: int) -> int:
+def block_threads(kbits: int, max_bits: int = MAX_GRID_BLOCK_BITS) -> int:
     """Threads per CTA of a block of ``2^kbits`` slots, ``2^REG_BITS`` each.
-    Raises ValueError for a block the register design cannot hold."""
-    if not MIN_GRID_BLOCK_BITS <= kbits <= MAX_GRID_BLOCK_BITS:
+    Raises ValueError for a block the register design cannot hold (in the
+    grid-sweep kernel, or up to ``2^max_bits`` slots in the caller's)."""
+    if not MIN_GRID_BLOCK_BITS <= kbits <= max_bits:
         raise ValueError(
-            f"the grid-sweep kernel holds blocks of 2^{MIN_GRID_BLOCK_BITS}.."
-            f"2^{MAX_GRID_BLOCK_BITS} amplitudes, got 2^{kbits}"
+            f"the register program holds blocks of 2^{MIN_GRID_BLOCK_BITS}.."
+            f"2^{max_bits} amplitudes, got 2^{kbits}"
         )
     return 1 << (kbits - REG_BITS)
 
 
-def register_table(table: OpTable) -> OpTable:
+def register_table(table: OpTable, max_bits: int = MAX_GRID_BLOCK_BITS) -> OpTable:
     """The grid-sweep kernel's table: ``table`` with the register remaps
     written in, and after the ops a descriptor per op (:func:`_descriptor`)
     that says where and how it runs.
@@ -340,12 +341,14 @@ def register_table(table: OpTable) -> OpTable:
     ones: the targets of the next register ops in order (up to the next
     shared-memory op) while they fit in ``REG_BITS``, then the current bits, then
     the lowest others. After a shared-memory op the amplitudes are reloaded
-    anyway, so the bits are chosen anew there at no cost.
+    anyway, so the bits are chosen anew there at no cost. ``max_bits``: the
+    largest block of the kernel that reads the table (the sweep kernel's
+    tiles reach 2^14 slots).
     """
     ints = table.ints
     head = ints[:SWEEP_HEADER].copy()
     kbits = int(head[1]) + int(head[2])
-    block_threads(kbits)    # refuses a block outside the register design
+    block_threads(kbits, max_bits)    # refuses a block outside the register design
     r = REG_BITS
     ops = ints[SWEEP_HEADER:].reshape(-1, OP_HEADER)
     needs: list[frozenset | None] = []

@@ -21,9 +21,15 @@ the view of the top K bits, so the TPU engine's ``to_parts``/``from_parts``
 staging copies have no counterpart. The relabelings of the TPU kernels
 (``_relabel_low``, ``_relabel_high``) are the sweeps' :class:`BlockLayout`
 s, whose codes name block bits or, as ``EXT + q``, state bit q outside the
-block. The block is 2^17-2^21 slots of device memory; the kernel keeps the
-parts or steps in flight in L2 (:class:`SweepGeometry`, chosen on the card
-with ``python -m tpu_qsim_torch.kernels.tune_sweeps``).
+block. The block (a *unit*: a part or a step) is 2^17-2^21 slots of device
+memory; the kernel keeps the units in flight in L2 (:class:`SweepGeometry`,
+chosen on the card with ``python -m tpu_qsim_torch.kernels.tune_sweeps``).
+:func:`plan_stages` cuts a sweep's ops into stages: runs of ops that fit in
+a 2^T-slot tile, each run as one grid-sweep register table over the tile's
+bits (``gridsweeps.register_table``) that the kernel applies tile by tile
+in one pass over the unit, and dense cores of ``TILE_CORE`` qubits or more,
+each a pass of ops.cuh's tiled op over the whole unit. :func:`sweep_table`
+joins a sweep's stages into the kernel's table.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ from ..circuit import Circuit, Gate
 from ..gates import op_matrix
 from . import LAUNCHES
 from .fused_circuit import (
+    HEADER_MAX_CORE,
     MAX_DENSE_QUBITS,
     MAX_SWEEP_BITS,
     NARROW_CORE,
+    SWEEP_HEADER,
     TILE_CORE,
     BlockLayout,
     OpTable,
@@ -222,41 +230,81 @@ def high_layout(
 # ---------------------------------------------------------------------------
 
 
-# Bytes of the state a sweep keeps in flight when its geometry does not fix
-# the count: half the H100's 50 MB L2, so the units being worked on stay there
-# (PERF.md)
+# Units a sweep keeps in flight when its geometry does not fix the count: as
+# many as fit in half the H100's 50 MB L2, and at least MIN_IN_FLIGHT (with
+# tile passes, 4 or 8 units of 16 MB at 26 qubits ran faster than 1 or 2 on
+# the H100, 8 by 1-2%: PERF.md)
 L2_BUDGET = 24 << 20
+MIN_IN_FLIGHT = 8
 
 
 @dataclass(frozen=True)
 class SweepGeometry:
-    """How a sweep launch spreads over the card: ``threads`` per CTA and
-    ``in_flight`` parts or steps at once (None: as many as fit in
-    ``L2_BUDGET``). The launch takes the most CTAs the card keeps resident,
-    rounded down to a power of two, each unit owned by an equal share.
-    Chosen on the H100 with ``python -m tpu_qsim_torch.kernels.tune_sweeps``
-    (PERF.md)."""
+    """How a sweep launch spreads over the card: ``threads`` per CTA, each
+    holding 16 amplitudes of a tile (so a tile is 2^T = 16 x threads slots,
+    smaller only where the unit is), and ``in_flight`` units at once (None:
+    as many as fit in ``L2_BUDGET``, at least ``MIN_IN_FLIGHT``). The launch
+    takes the most CTAs the card keeps resident, rounded down to a power of
+    two, each unit owned by an equal share. Chosen on the H100 with
+    ``python -m tpu_qsim_torch.kernels.tune_sweeps`` (PERF.md)."""
 
-    threads: int = 1024
+    threads: int = 512
     in_flight: int | None = None
 
 
-# (device, threads) -> CTAs every instance keeps resident at once
+# sweep.cu's wide instance (cores of TILE_CORE qubits and more) takes at most
+# this many threads a CTA: its tiled op then has 128 registers a thread
+WIDE_THREADS = 512
+MAX_TILE_BITS = 14      # 1024 threads of 16 amplitudes
+STAGE_WORDS = 8         # sweep.cu's descriptor per stage
+HEADER_TILE_BITS = 5    # sweep table header word: T
+STAGE_TILE, STAGE_UNIT = 0, 1
+
+
+def sweep_tile_bits(geometry: SweepGeometry, max_core: int, kbits: int) -> int:
+    """T, the tile bits of a sweep whose widest dense core is ``max_core``
+    over a unit of ``kbits`` bits: 16 amplitudes a thread of the geometry's
+    CTA (at most ``WIDE_THREADS`` for a table with a tiled core), no more
+    than the unit. Raises ValueError for a tile the register program cannot
+    hold (fewer than one warp's 2^9 slots, more than 2^MAX_TILE_BITS)."""
+    from .gridsweeps import MIN_GRID_BLOCK_BITS, REG_BITS
+
+    threads = geometry.threads if max_core < TILE_CORE else min(geometry.threads, WIDE_THREADS)
+    bits = min(threads.bit_length() - 1 + REG_BITS, kbits)
+    if threads & (threads - 1) or not MIN_GRID_BLOCK_BITS <= bits <= MAX_TILE_BITS:
+        raise ValueError(
+            f"a sweep tile holds 2^{MIN_GRID_BLOCK_BITS}..2^{MAX_TILE_BITS} slots "
+            f"(16 a thread of a power of two of threads); {threads} threads over "
+            f"a 2^{kbits}-slot unit give 2^{bits}"
+        )
+    return bits
+
+
+def sweep_threads(geometry: SweepGeometry, max_core: int, kbits: int) -> int:
+    """Threads per CTA of a sweep launch: 16 amplitudes of its tile each."""
+    from .gridsweeps import REG_BITS
+
+    return 1 << (sweep_tile_bits(geometry, max_core, kbits) - REG_BITS)
+
+
+# (device, threads, wide) -> CTAs of that kernel instance resident at once
 _resident: dict[tuple, int] = {}
 
 
-def resident_ctas(device: torch.device, threads: int) -> int:
-    """How many CTAs of ``threads`` threads the card keeps resident at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs), the most one
-    cooperative sweep launch takes. Asked once per process and size."""
+def resident_ctas(device: torch.device, threads: int, wide: bool) -> int:
+    """How many CTAs of ``threads`` threads of the sweep kernel's instance
+    for narrow cores (``wide`` False) or wide ones the card keeps resident at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs), the most
+    one cooperative sweep launch takes. Each instance is counted at its own
+    threads and shared memory. Asked once per process and instance."""
     from . import _build
 
-    key = (torch.device(device), threads)
+    key = (torch.device(device), threads, bool(wide))
     if key not in _resident:
         lib = _build.library("sweep")
         ctas = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
-            err = lib.sweep_prepare(threads, ctypes.byref(ctas))
+            err = lib.sweep_prepare(threads, int(wide), ctypes.byref(ctas))
         _build.check("sweep", lib, err, "sweep_prepare")
         _resident[key] = ctas.value
     return _resident[key]
@@ -265,33 +313,123 @@ def resident_ctas(device: torch.device, threads: int) -> int:
 def launch_grid(
     layout: BlockLayout, geometry: SweepGeometry, max_core: int, resident: int,
 ) -> tuple[int, int]:
-    """(groups, group_bits) of one sweep launch: ``groups`` parts or steps
-    in flight, each owned by ``2^group_bits`` CTAs. A group takes no more
-    CTAs than a core of ``min(max_core, NARROW_CORE)`` qubits has groups of
-    slots (``sweep.cu`` splits each narrow op's items over the group's CTAs;
-    the tiled op deals its tiles to them in turn)."""
+    """(groups, group_bits) of one sweep launch: ``groups`` units in
+    flight, each owned by ``2^group_bits`` CTAs. A group takes no more CTAs
+    than a unit has tiles (``sweep.cu`` deals a tile stage's tiles, and the
+    tiled op's, to the group's CTAs in turn)."""
     if resident < 1:
         raise RuntimeError("the card cannot keep one sweep CTA resident")
     ctas = 1 << (resident.bit_length() - 1)     # a power of two
     units = 1 << len(layout.inactive)
     in_flight = geometry.in_flight
     if in_flight is None:
-        in_flight = L2_BUDGET // (8 << layout.kbits)   # 2 float32 planes
+        in_flight = max(MIN_IN_FLIGHT, L2_BUDGET // (8 << layout.kbits))  # 2 float32 planes
     groups = max(1, min(in_flight, units, ctas))
     groups = 1 << (groups.bit_length() - 1)
     group_bits = (ctas // groups).bit_length() - 1
-    return groups, min(group_bits, layout.kbits - min(max_core, NARROW_CORE))
+    tiles_bits = layout.kbits - sweep_tile_bits(geometry, max_core, layout.kbits)
+    return groups, min(group_bits, tiles_bits)
 
 
-# sweep.cu's wide instance (cores of TILE_CORE qubits and more) takes at most
-# this many threads a CTA: its tiled op then has 128 registers a thread
-WIDE_THREADS = 512
+@dataclass
+class Stage:
+    """A run of a sweep's ops that the kernel applies in one pass over the
+    unit. ``kind`` "tile": ops whose moving bits, with state bits 0-4, lie in
+    the tile's bits (``layout``, state bits; ``outside`` the unit's bits
+    outside the tile); "unit": one dense core of ``TILE_CORE`` qubits or
+    more, ``layout`` the sweep's unit."""
+
+    kind: str
+    gates: list[PGate]
+    layout: BlockLayout
+    outside: int = 0
 
 
-def sweep_threads(geometry: SweepGeometry, max_core: int) -> int:
-    """Threads per CTA of a sweep launch: the geometry's, at most
-    ``WIDE_THREADS`` for a table with a tiled core."""
-    return geometry.threads if max_core < TILE_CORE else min(geometry.threads, WIDE_THREADS)
+def plan_stages(
+    gates: list[PGate], unit: BlockLayout, tile_bits: int,
+) -> list[Stage]:
+    """Cut a sweep's ops, in order, into stages: a tile stage is a maximal run
+    of ops whose moving bits, together with the lane bits 0-4, fit in
+    ``tile_bits`` bits (diagonals, and controls on any bit, move nothing);
+    a dense core of ``TILE_CORE`` qubits or more is a unit stage of its own.
+    A tile stage's bits are those bits padded with the unit's lowest others."""
+    from .gridsweeps import LANE_BITS as TILE_LANE_BITS
+
+    unit_bits = [*range(unit.blk_bits), *unit.active]
+    lanes = frozenset(range(TILE_LANE_BITS))
+    stages: list[Stage] = []
+    run: list[PGate] = []
+    bits = set(lanes)
+
+    def close() -> None:
+        if not run:
+            return
+        tile = set(bits)
+        for q in unit_bits:
+            if len(tile) >= tile_bits:
+                break
+            tile.add(q)
+        blk = min(set(range(tile_bits + 1)) - tile)
+        layout = BlockLayout(unit.n, blk, tuple(sorted(q for q in tile if q >= blk)))
+        outside = sum(1 << q for q in unit_bits if q not in tile)
+        stages.append(Stage("tile", list(run), layout, outside))
+
+    for g in gates:
+        mv = moving_qubits(g.u, g.qubits)
+        assert mv <= set(unit_bits), "the sweep planner keeps moving bits in the unit"
+        if len(mv) >= TILE_CORE:
+            close()
+            run, bits = [], set(lanes)
+            stages.append(Stage("unit", [g], unit))
+            continue
+        if len(bits | mv) > tile_bits:
+            close()
+            run, bits = [], set(lanes)
+        run.append(g)
+        bits |= mv
+    close()
+    return stages
+
+
+def sweep_table(stages: list[Stage], unit: BlockLayout, tile_bits: int) -> OpTable:
+    """The sweep kernel's table: the unit's header (as ``build_op_table``
+    writes it, with the stage count in word 0 and T in word
+    ``HEADER_TILE_BITS``), a descriptor per stage (kind, offset of its table
+    in int32 words, offset of its coefficients, the unit's bits outside the
+    tile and their count), then each stage's table: a tile stage's
+    ``register_table`` over its tile, a unit stage's ``build_op_table`` over
+    the unit. Coefficients follow one another at even offsets (16-byte
+    aligned, for the tiled op's copies)."""
+    from .gridsweeps import register_table
+
+    head = build_op_table([], unit, max_bits=MAX_SWEEP_BITS).ints[:SWEEP_HEADER].copy()
+    head[0] = len(stages)
+    head[HEADER_TILE_BITS] = tile_bits
+    desc = np.zeros((len(stages), STAGE_WORDS), dtype=np.int32)
+    ints: list[np.ndarray] = [head, desc.reshape(-1)]
+    coefs: list[np.ndarray] = []
+    int_off, coef_off = SWEEP_HEADER + desc.size, 0
+    flops, max_core = 0.0, 0
+    for i, st in enumerate(stages):
+        if st.kind == "tile":
+            t = register_table(build_op_table(st.gates, st.layout), MAX_TILE_BITS)
+            desc[i, :5] = (STAGE_TILE, int_off, coef_off, st.outside, bin(st.outside).count("1"))
+        else:
+            t = build_op_table(st.gates, unit, max_bits=MAX_SWEEP_BITS)
+            desc[i, :3] = (STAGE_UNIT, int_off, coef_off)
+        ints.append(t.ints)
+        int_off += t.ints.size
+        coefs.append(t.coef)
+        coef_off += len(t.coef)
+        if coef_off % 2:
+            coefs.append(np.zeros((1, 2), np.float32))
+            coef_off += 1
+        flops += t.flops_per_amp
+        max_core = max(max_core, t.max_core)
+    head[HEADER_MAX_CORE] = max_core
+    coef = np.concatenate(coefs) if coefs else np.zeros((1, 2), np.float32)
+    return OpTable(np.concatenate(ints).astype(np.int32), np.ascontiguousarray(coef),
+                   flops, max_core)
 
 
 def _sweep(
@@ -313,9 +451,10 @@ def _sweep(
     if layout.kbits > MAX_SWEEP_BITS:
         raise ValueError(f"a block of 2^{layout.kbits} slots exceeds 2^{MAX_SWEEP_BITS}")
     lib = _build.library("sweep")
-    threads = sweep_threads(geometry, max_core)
+    threads = sweep_threads(geometry, max_core, layout.kbits)
     groups, group_bits = launch_grid(
-        layout, geometry, max_core, resident_ctas(state.device, threads)
+        layout, geometry, max_core,
+        resident_ctas(state.device, threads, max_core > NARROW_CORE),
     )
     barriers = torch.empty(groups, dtype=torch.int32, device=state.device)
     with torch.cuda.device(state.device):
@@ -341,11 +480,10 @@ def low_sweep(
     """Launch the low-sweep kernel on ``state`` (in place).
 
     ``ints``/``coef`` are the device copies of the sweep's
-    :class:`~tpu_qsim_torch.kernels.fused_circuit.OpTable` over
-    :func:`low_layout`, ``max_core`` its widest dense core (the kernel
-    instance for narrow cores is launched when it is at most 4). Launches
-    on the current stream without synchronizing and raises on a refused
-    launch.
+    :func:`sweep_table` over :func:`low_layout` for ``geometry``,
+    ``max_core`` its widest dense core (the kernel instance for narrow cores
+    is launched when it is at most 4). Launches on the current stream
+    without synchronizing and raises on a refused launch.
     """
     return _sweep("low_sweep", state, ints, coef, layout, geometry, max_core)
 
@@ -369,7 +507,8 @@ class SweepProgram:
     ``run`` maps (2, 2^n) float32 planes to planes: on a CUDA tensor it
     launches one kernel per sweep, in place; on a CPU tensor it runs the
     plain version, :meth:`run_plain`. Each sweep's gates are the planner's,
-    with same-qubit 1q runs merged (:func:`merge_1q_chains`).
+    with same-qubit 1q runs merged (:func:`merge_1q_chains`), cut into
+    :attr:`stages` (:func:`plan_stages`) of :attr:`tile_bits` tiles.
     """
 
     def __init__(
@@ -393,12 +532,18 @@ class SweepProgram:
             low_layout(n, params) if s.kind == "low" else high_layout(s, n, params)
             for s in plan
         ]
-        self.tables: list[OpTable] = [
-            build_op_table(g, lay, max_bits=MAX_SWEEP_BITS)
-            for g, lay in zip(self.sweep_gates, self.layouts)
-        ]
-        widest = max((t.max_core for t in self.tables), default=0)
-        check_tile(widest, sweep_threads(geometry, widest))
+        self.tile_bits: list[int] = []
+        self.stages: list[list[Stage]] = []
+        self.tables: list[OpTable] = []
+        for gates, lay in zip(self.sweep_gates, self.layouts):
+            widest = max((len(moving_qubits(g.u, g.qubits)) for g in gates), default=0)
+            bits = sweep_tile_bits(geometry, widest, lay.kbits)
+            stages = plan_stages(gates, lay, bits)
+            table = sweep_table(stages, lay, bits)
+            check_tile(table.max_core, sweep_threads(geometry, table.max_core, lay.kbits))
+            self.tile_bits.append(bits)
+            self.stages.append(stages)
+            self.tables.append(table)
         self._device_tables: dict[torch.device, list] = {}
 
     @property

@@ -14,7 +14,13 @@ Rows (``ROWS``):
   programs, each forced;
 * one k-qubit dense op at 26 qubits (k = 6, 7, 8) alone in a low sweep
   (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, blk 8, 5 active
-  bits: 512 threads), less the same sweep holding one 1-qubit op instead.
+  bits: 512 threads), less the same sweep holding one 1-qubit op instead;
+* a 12-qubit dense gate on qubits 0-11 (a Kronecker product of seeded
+  random 1-qubit unitaries), built as above at 16 and 22 qubits: the run
+  (whole-circuit or grid-sweep launches around one dense pass), and the
+  pass alone on a random state beside ``torch.matmul`` of the core on the
+  complex64 view (TF32 off). A checkout without the dense pass prints the
+  refusal instead.
 
 For each row: plan it, run it once from |0..0> (or a seeded random state)
 and print the engine, the kernels it launched and a fingerprint of the state
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from tpu_qsim_torch import Circuit, StateVectorSimulator, random_circuit
+from tpu_qsim_torch.circuit import Gate
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 
@@ -51,7 +58,11 @@ ROWS = {
     "26q_dense6_on_0": (26, 6, 0),      # grid sweep, the wide instance
     "26q_random_on_sweeps": (26, 0, 0),
     "26q_random_on_grid": (26, 0, 0),
+    "16q_dense12_on_0": (16, 12, 0),    # whole circuit + dense pass
+    "22q_dense12_on_0": (22, 12, 0),    # grid sweep + dense pass
 }
+PASS_QUBITS = (16, 22)
+PASS_CORE = 12
 ONE_OP_QUBITS = 26
 ONE_OP_WIDTHS = (6, 7, 8)
 
@@ -65,9 +76,24 @@ def dense_gate(k: int) -> str:
     return name
 
 
+def kron_gate(qubits: tuple[int, ...], seed: int) -> Gate:
+    """A dense gate on ``qubits``: a Kronecker product of seeded random
+    1-qubit unitaries, carried inline (a QR and the registry's unitarity
+    check of a 4096 x 4096 matrix would take seconds)."""
+    rng = np.random.default_rng(seed)
+    u = np.ones((1, 1), np.complex128)
+    for _ in qubits:
+        m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+        u = np.kron(u, np.linalg.qr(m)[0])
+    return Gate(f"kron{len(qubits)}", tuple(qubits), matrix_bytes=u.tobytes())
+
+
 def wide_circuit(n: int, k: int, lo: int) -> Circuit:
     c = random_circuit(n, 40, seed=42)
-    c.add(dense_gate(k), *range(lo, lo + k))
+    if k >= PASS_CORE:
+        c.append(kron_gate(tuple(range(lo, lo + k)), seed=n))
+    else:
+        c.add(dense_gate(k), *range(lo, lo + k))
     for g in random_circuit(n, 40, seed=43).gates:
         c.append(g)
     return c
@@ -129,7 +155,10 @@ def time_row(name: str, card: str) -> dict:
     else:
         sim = StateVectorSimulator(n)
         reset_launches()
-        sim.run(c)
+        try:
+            sim.run(c)
+        except ValueError as e:     # a checkout that refuses the circuit
+            return {"row": name, "card": card, "refused": str(e)[:300]}
         engine = sim.engine
         _, fn = sim.compiled_run(c)
         state = sim.state_planes
@@ -171,10 +200,44 @@ def time_one_op(card: str) -> list[dict]:
     return rows
 
 
+def time_dense_pass(card: str) -> list[dict]:
+    """The dense pass alone at ``PASS_QUBITS`` on a random state, beside one
+    ``torch.matmul`` of its core on the complex64 view (TF32 off)."""
+    try:
+        from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass
+        from tpu_qsim_torch.kernels.fused_circuit import as_pgates
+    except ImportError as e:
+        return [{"row": "dense_pass", "card": card, "refused": str(e)}]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    try:
+        for n in PASS_QUBITS:
+            step = DensePass(as_pgates([kron_gate(tuple(range(PASS_CORE)), seed=n)])[0], n)
+            rng = np.random.default_rng(n)
+            psi = rng.standard_normal((2, 1 << n)).astype(np.float32)
+            x = torch.from_numpy(psi / np.linalg.norm(psi)).cuda()
+            u = step.u_on(x.device)
+            um = torch.complex(u[:, 0], u[:, 1]).view(1 << PASS_CORE, 1 << PASS_CORE)
+            z = torch.complex(x[0], x[1]).view(-1, 1 << PASS_CORE)
+            got = dense_pass(x, u, step.tmask, step.cmask)
+            y = torch.matmul(z, um).reshape(-1)      # um is the operand transposed
+            err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - y)))
+            ms = statistics.median(_times_ms(lambda: dense_pass(x, u, step.tmask), 7))
+            mm_ms = statistics.median(_times_ms(lambda: torch.matmul(z, um), 7))
+            rows.append({"row": f"{n}q_dense12_pass", "card": card, "ms": ms,
+                         "matmul_ms": mm_ms, "max_abs_err_vs_matmul": err})
+            del x, z, um, got, y
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", action="append", default=None, metavar="NAME",
-                        help=f"time only these rows (of {', '.join(ROWS)}, one_op)")
+                        help=f"time only these rows (of {', '.join(ROWS)}, one_op, "
+                             "dense_pass)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_run needs a CUDA card")
@@ -183,10 +246,10 @@ def main() -> None:
         capture_output=True, text=True, timeout=10, check=True,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    names = [*ROWS, "one_op"] if args.only is None else args.only
+    names = [*ROWS, "one_op", "dense_pass"] if args.only is None else args.only
     for name in names:
-        if name == "one_op":
-            for row in time_one_op(card):
+        if name in ("one_op", "dense_pass"):
+            for row in (time_one_op if name == "one_op" else time_dense_pass)(card):
                 print(json.dumps(row), flush=True)
         else:
             print(json.dumps(time_row(name, card)), flush=True)
