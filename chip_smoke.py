@@ -5,14 +5,15 @@
 
 Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
-1. build ``grid_sweep.cu``, ``whole_circuit.cu``, ``segment.cu``,
-   ``sweep.cu`` and ``dense_pass.cu``, one nvcc each, all at once (under
-   60 s in all), with ptxas's registers and spills;
+1. build ``grid_sweep.cu``, ``segment.cu``, ``sweep.cu`` (also the
+   whole-circuit route's kernel) and ``dense_pass.cu``, one nvcc each, all at
+   once (under 60 s in all), with ptxas's registers and spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
-3. whole-circuit kernel: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
+3. whole-circuit route: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
    16, 18 through the simulator against the oracle (max |d amp| <= 1e-6,
-   one launch per run);
+   one launch per run), its stages as planned (every op in one, at most 4
+   at 18 qubits);
 4. 18 qubits, the whole-circuit main path: ``StateVectorSimulator(18).run``
    then ``get_state``, ``probabilities``, ``sample`` and ``histogram``,
    counted; then the kernel against its plain version on the card
@@ -39,9 +40,10 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    ``random_circuit(26, 100, seed=42)`` through the sweeps (at most 6 tile
    stages) and the grid-sweep programs agrees within 1e-6;
 8. dense cores of 7-10 qubits through ``run`` (the tiled op): the whole
-   circuit at 12 qubits against the oracle, segments at 22 (7 qubits on
-   15-21), the grid sweep at 26 (on qubits 0..k-1) and the low sweep at 26
-   (9 and 10 qubits) against their plain versions (1e-6);
+   circuit at 12 qubits, and a 10-qubit core at 10 (its tiled op on more
+   threads than the tile has), against the oracle, segments at 22 (7
+   qubits on 15-21), the grid sweep at 26 (on qubits 0..k-1) and the low
+   sweep at 26 (9 and 10 qubits) against their plain versions (1e-6);
 8b. dense cores of 12 qubits, the split route: ``random_circuit(n, 40,
     seed=42)``, a 12-qubit dense gate on qubits 0-11, ``random_circuit(n,
     40, seed=43)`` through ``StateVectorSimulator(n).run``, counted: at 16
@@ -50,14 +52,16 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     launches around it, against its plain version (1e-7); the pass alone on
     a random state against its plain version and against ``torch.matmul``
     of the core on the complex64 view (TF32 off), 1e-7 each, and timed
-    beside both and its bound at 16 and 22 qubits;
+    beside both at 16 and 22 qubits, with two bounds and the share of each:
+    the float32 FMAs' (any design without tensor cores) and this design's
+    (three TF32 tensor-core products per real one);
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
 10. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
     and histogram, QFT|0> amplitudes;
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
-    grid-sweep run, the whole-circuit kernel at 12, 16 and 18 qubits, the
+    grid-sweep run, the whole-circuit route at 12, 16 and 18 qubits, the
     segment kernels at 19 and the 26-qubit sweeps runs (each sweep, each
     kernel's share, and the grid sweep on the same random circuit), beside
     the plain versions, the torch engine (the route below 20 qubits before
@@ -91,8 +95,8 @@ from tpu_qsim_torch import apply as ap
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
-from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass
-from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, placeable_clusters
+from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass, pass_instance
+from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
@@ -109,6 +113,8 @@ N_SWEEPS_ORACLE = 22
 SMS = 132          # H100 SXM
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # non-tensor-core float32 peak, same source
+TF32_FLOP_PER_S = 495e12       # dense TF32 tensor-core peak, same source
+MAX_WHOLE_STAGES = 4           # random_circuit(18, 100, seed=42) at its geometry
 
 
 def check(cond: bool, msg: str) -> None:
@@ -304,16 +310,29 @@ def phase_whole_circuit_oracle() -> dict:
         launches = dict(LAUNCHES)
         _, prog = sim.compiled_run(c)
         err, fid = compare(sim.state_planes, oracle_planes(c, sim.device))
+        stages = check_whole_stages(prog)
         log(f"phase {n}q_whole_circuit_oracle: wall_s={time.perf_counter() - t0:.3f} "
             f"max_abs_err={err:.3e} (tol 1e-6) fidelity={fid:.9f} launches={launches} "
-            f"cluster={1 << prog.cluster_bits} CTAs x {prog.threads} threads "
-            f"({placeable_clusters(sim.device, n, prog.cluster_bits, prog.threads)} "
-            f"placeable at once), ops={len(prog.gates)}")
+            f"tiles=2^{prog.tile_bits} slots, {prog.ctas} CTAs x {prog.threads} threads, "
+            f"ops={len(prog.gates)} stages={stages}")
         check(sim.engine == "whole_circuit", f"{n}q ran on {sim.engine}")
         check(launches == {"whole_circuit": 1}, f"{n}q launches {launches}")
         check(err <= 1e-6, f"{n}q max |d amp| {err} > 1e-6")
         errs[n] = err
     return errs
+
+
+def check_whole_stages(prog) -> list:
+    """The whole-circuit program's stages ((kind, ops) each): every merged
+    op in one stage, in order; at most ``MAX_WHOLE_STAGES`` for the main
+    path's circuit at 18 qubits."""
+    stages = [(st.kind, len(st.gates)) for st in prog.stages]
+    check([id(g) for st in prog.stages for g in st.gates] == [id(g) for g in prog.gates],
+          f"{prog.num_qubits}q stages do not hold the ops in order")
+    if prog.num_qubits == N_WHOLE:
+        check(len(stages) <= MAX_WHOLE_STAGES,
+              f"{N_WHOLE}q in {len(stages)} stages (at most {MAX_WHOLE_STAGES})")
+    return stages
 
 
 def phase_segmented() -> dict:
@@ -520,6 +539,7 @@ def phase_wide_cores() -> dict:
     errs = {}
     for n, k, lo, engine in ((12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
                              (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit"),
+                             (10, 10, 0, "whole_circuit"),
                              (22, 7, 15, "segmented"), (26, 7, 0, "grid_sweep"),
                              (26, 8, 0, "grid_sweep"), (26, 9, 0, "grid_sweep"),
                              (26, 10, 0, "grid_sweep"), (26, 9, 8, "sweeps"),
@@ -599,7 +619,7 @@ def phase_dense_pass() -> dict:
             err, _ = compare(got, step.run_plain(x))
             # targets 0-11: the complex view (2^(n-12), 4096) times the
             # operand transposed (its index bit j is qubit j)
-            um = torch.complex(u[:, 0], u[:, 1]).view(1 << DENSE_PASS_CORE, 1 << DENSE_PASS_CORE).T
+            um = torch.complex(u[0], u[1])
             z = torch.complex(x[0], x[1]).view(-1, 1 << DENSE_PASS_CORE)
             y = torch.matmul(z, um.T).reshape(-1)
             err_mm = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - y)))
@@ -607,11 +627,17 @@ def phase_dense_pass() -> dict:
             ms = median_ms(lambda: dense_pass(x, u, step.tmask, step.cmask), inner=10)
             plain_ms = median_ms(lambda: step.run_plain(x), reps=3)
             mm_ms = median_ms(lambda: torch.matmul(z, um.T), inner=10)
-            b = bound(step.bytes_moved(), step.flops())
+            # this design's bound: three TF32 tensor-core products per real
+            # one; beside it the float32 FMAs' (any design without them)
+            b = bound(step.bytes_moved(), 3 * step.flops(), TF32_FLOP_PER_S)
+            fp32 = bound(step.bytes_moved(), step.flops())
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": mm_ms, **b,
+                   "share": b["bound_ms"] / ms, "fp32_bound_ms": fp32["bound_ms"],
+                   "fp32_bound_by": fp32["bound_by"], "fp32_share": fp32["bound_ms"] / ms,
                    "max_abs_err": err, "max_abs_err_vs_matmul": err_mm,
                    "launches": launches["dense_pass"], "run_max_abs_err": err_plain,
-                   "run_oracle_max_abs_err": err_oracle}
+                   "run_oracle_max_abs_err": err_oracle,
+                   "instance": pass_instance(step.k, n - step.k - len(step.controls))}
             log(f"phase {n}q_dense_pass: k={step.k} {json.dumps(row)}")
             check(err <= 1e-7, f"{n}q dense pass vs plain {err} > 1e-7")
             check(err_mm <= 1e-7, f"{n}q dense pass vs torch.matmul {err_mm} > 1e-7")
@@ -657,9 +683,9 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return median_ms(graph.replay, reps, inner)
 
 
-def bound(bytes_moved: float, flops: float) -> dict:
+def bound(bytes_moved: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S) -> dict:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / FP32_FLOP_PER_S * 1e3
+    flops_ms = flops / flop_per_s * 1e3
     return {"bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms, "flops_ms": flops_ms,
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
@@ -705,13 +731,14 @@ def phase_timing_whole_circuit() -> dict:
         plain_ms = median_ms(lambda: prog.run_plain(x), inner=5)
         engine_ms = torch_engine_ms(c, inner=5)
         b = bound(prog.bytes_moved(), prog.flops())
-        ctas = 1 << prog.cluster_bits
+        stages = check_whole_stages(prog)
         log(f"phase timing_whole_circuit: n={n} ops={len(prog.gates)} ms={ms:.5f} "
             f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.4f} torch_engine_ms={engine_ms:.4f} "
             f"bound_ms={b['bound_ms']:.5f} bytes_ms={b['bytes_ms']:.5f} flops_ms={b['flops_ms']:.5f} "
-            f"cluster={ctas} CTAs x {prog.threads} threads, SMs <= {min(ctas, SMS)} of {SMS}")
+            f"tiles=2^{prog.tile_bits} slots, {prog.ctas} CTAs x {prog.threads} threads, "
+            f"SMs <= {min(prog.ctas, SMS)} of {SMS}, stages={stages}")
         rows[n] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                   "torch_engine_ms": engine_ms, **b}
+                   "torch_engine_ms": engine_ms, "stages": len(stages), **b}
     return rows
 
 
@@ -882,6 +909,7 @@ def main() -> int:
     phase_whole_circuit_oracle()
     whole = phase_main(N_WHOLE, "whole_circuit", ("whole_circuit",))
     check(whole["launches"] == {"whole_circuit": 1}, f"18q launches {whole['launches']}")
+    log(f"phase {N_WHOLE}q_whole_stages: {check_whole_stages(whole['prog'])}")
     whole_closed = phase_closed_forms(N_WHOLE, "whole_circuit")
     seg = phase_segmented()
     seg_closed = phase_closed_forms(N_SEG, "segmented")
@@ -916,7 +944,7 @@ def main() -> int:
     }, {
         "name": "whole_circuit",
         "route": "cuda",
-        "source": "tpu_qsim_torch/kernels/csrc/whole_circuit.cu",
+        "source": "tpu_qsim_torch/kernels/csrc/sweep.cu",
         "replaces": "tpu_qsim/kernels/fused_circuit.py:1552",
         "launches": whole["launches"]["whole_circuit"],
         "max_abs_err": whole["max_abs_err"],
@@ -928,6 +956,7 @@ def main() -> int:
         "eager_ms": t_whole[N_WHOLE]["eager_ms"],
         "torch_engine_ms": t_whole[N_WHOLE]["torch_engine_ms"],
         "ms_by_qubits": {n: r["ms"] for n, r in t_whole.items()},
+        "stages_by_qubits": {n: r["stages"] for n, r in t_whole.items()},
         "fidelity": whole["fidelity"],
         "ghz_max_abs_err": whole_closed["ghz_max_abs_err"],
         "qft_max_mag_err": whole_closed["qft_max_mag_err"],
@@ -994,6 +1023,7 @@ def main() -> int:
         "bound_by": main_pass["bound_by"],
         "library_ms": main_pass["library_ms"],
         "max_abs_err_vs_matmul": main_pass["max_abs_err_vs_matmul"],
+        "fp32_bound_ms": main_pass["fp32_bound_ms"],
         "run_oracle_max_abs_err": main_pass["run_oracle_max_abs_err"],
         "by_qubits": passes,
     })

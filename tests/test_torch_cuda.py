@@ -3,8 +3,10 @@
 grid_sweep, whole_circuit, segment, scatter_segment, low_sweep,
 high_sweep and dense_pass each run against the plain version of their
 program, dense cores of 7 and 8 qubits on each kernel too, the sweeps at
-tiles of 2^12 to 2^14 slots; the simulator's routing (the split at a
-12-qubit core included) and each wrapper's refusals are checked as well.
+tiles of 2^12 to 2^14 slots, the whole-circuit route (the sweep kernel over
+the whole state) at two geometries, and each instance of the dense pass's
+3xTF32 product; the simulator's routing (the split at a 12-qubit core
+included) and each wrapper's refusals are checked as well.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -188,7 +190,7 @@ def test_new_wrappers_reject_bad_inputs(cuda_device):
     x = _random_planes(12, 0, cuda_device)
     for bad in (x.double(), x.cpu(), x[:, : 1 << 11], x.t().contiguous()):
         with pytest.raises(ValueError):
-            fc.whole_circuit(bad, ints, coef, wprog.cluster_bits, wprog.threads)
+            fc.whole_circuit(bad, ints, coef, wprog.tile_bits, wprog.threads, wprog.ctas)
     sprog = seg.SegmentedProgram(tq.random_circuit(19, 60, seed=1))
     ints, coef, maps = sprog._tables_on(cuda_device)[-1]
     y = _random_planes(19, 0, cuda_device)
@@ -227,7 +229,7 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
         elif kernel == "whole_circuit":
             prog = fc.WholeCircuitProgram(c)
             ints, coef = prog._tables_on(cuda_device)
-            fc.whole_circuit(y, ints, coef, prog.cluster_bits, prog.threads,
+            fc.whole_circuit(y, ints, coef, prog.tile_bits, prog.threads, prog.ctas,
                              max_core or prog.table.max_core)
         else:
             prog = seg.SegmentedProgram(c)
@@ -249,7 +251,7 @@ def test_wrappers_refuse_cores_wider_than_six(cuda_device):
     ints, coef = prog._tables_on(cuda_device)
     x = _random_planes(12, 0, cuda_device)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fc.whole_circuit(x, ints, coef, prog.cluster_bits, prog.threads,
+        fc.whole_circuit(x, ints, coef, prog.tile_bits, prog.threads, prog.ctas,
                          fc.MAX_DENSE_QUBITS + 1)
 
 
@@ -388,10 +390,10 @@ def _kron_core(k: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("n,targets,controls", [
-    (16, tuple(range(12)), ()),                    # 16 groups: the 1 x 2 instance
+    (16, tuple(range(12)), ()),                    # 16 groups: the small instance
     (14, (3, 0, 5, 1, *range(6, 14)), (2,)),       # a control on a low bit
-    (22, tuple(range(10, 22)), ()),                # 1024 groups: the 4 x 4 instance
-    (14, (13, 2, 9, 0, 7, 5, 11), (4, 12)),        # a 7-qubit core, two controls
+    (22, tuple(range(10, 22)), ()),                # 1024 groups: the large instance
+    (14, (13, 2, 9, 0, 7, 5, 11), (4, 12)),        # a 7-qubit core, two controls: medium
 ])
 def test_dense_pass_matches_plain(cuda_device, n, targets, controls):
     from tpu_qsim_torch.kernels import dense_pass as dp
@@ -436,10 +438,63 @@ def test_dense_pass_refuses_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             dp.dense_pass(bad, u, tmask)
     with pytest.raises(ValueError):
-        dp.dense_pass(x, u[: 1 << 20], tmask)                 # not 4^12 entries
+        dp.dense_pass(x, u[:, : 1 << 11], tmask)              # not 2^12 x 2^12
     with pytest.raises(ValueError):
         dp.dense_pass(x, u.cpu(), tmask)
     with pytest.raises(ValueError):
         dp.dense_pass(x, u, tmask, cmask=1)                   # a control on a target
     with pytest.raises(ValueError):
         dp.dense_pass(x, u, tmask << 3)                       # targets past the state
+
+
+@pytest.mark.parametrize("n,instance", [(16, "small"), (18, "medium"), (22, "large")])
+def test_dense_pass_instances_at_3xtf32(cuda_device, n, instance):
+    # a 12-qubit core on qubits 0-11: each instance's 3xTF32 product against
+    # the plain version and torch.matmul of the core (TF32 off), within 1e-7
+    from tpu_qsim_torch.kernels import dense_pass as dp
+
+    targets = tuple(range(12))
+    assert dp.pass_instance(12, n - 12) == instance
+    core = _kron_core(12, n)
+    u = torch.from_numpy(dp.core_operand(core, targets)).to(cuda_device)
+    x = _random_planes(n, n + 2, cuda_device)
+    got = dp.dense_pass(x, u, (1 << 12) - 1)
+    want = dp.apply_controlled(x, core, targets)
+    assert float((got - want).abs().max()) <= 1e-7
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y = torch.matmul(torch.complex(x[0], x[1]).view(-1, 1 << 12),
+                         torch.complex(u[0], u[1]).T).reshape(-1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert float((torch.complex(got[0], got[1]) - y).abs().max()) <= 1e-7
+
+
+@pytest.mark.parametrize("n,tile_bits,ctas", [(16, 11, 32), (18, 13, 16), (18, 10, 64)])
+def test_staged_whole_circuit_geometries(cuda_device, n, tile_bits, ctas):
+    # the whole-circuit route at tiles and CTA counts off its table: each
+    # CTA takes tiles in turn where there are fewer CTAs than tiles
+    prog = fc.WholeCircuitProgram(tq.random_circuit(n, 100, seed=7), tile_bits, ctas)
+    assert (prog.tile_bits, prog.ctas) == (tile_bits, ctas) and len(prog.stages) > 1
+    x = _random_planes(n, 8, cuda_device)
+    reset_launches()
+    got = prog.run(x.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["whole_circuit"] == 1
+    assert float((got - prog.run_plain(x)).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("k", [9, 10])
+def test_whole_circuit_core_wider_than_its_tile_threads(cuda_device, k):
+    # at 10 qubits a tile of 2^10 slots has 64 threads; a 9- or 10-qubit
+    # core's tiled op needs 128 or 256: the launch takes that many, the
+    # others idle in the tile stages
+    c = _dense_core_circuit(10, k, 0)
+    prog = fc.WholeCircuitProgram(c)
+    assert prog.tile_bits == 10 and prog.threads == (1 << k) // 4
+    assert [st.kind for st in prog.stages] == ["tile", "unit", "tile"]
+    x = _random_planes(10, k, cuda_device)
+    got = prog.run(x.clone())
+    torch.cuda.synchronize()
+    assert float((got - prog.run_plain(x)).abs().max()) <= 1e-6

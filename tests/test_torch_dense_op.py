@@ -25,8 +25,8 @@ from tpu_qsim_torch.kernels import sweeps as ts
 from conftest import random_state
 from test_torch_gridsweeps import _mixed_circuit, emulate_sweep as emulate_grid_sweep
 from test_torch_segmented import emulate_segments
-from test_torch_sweeps import emulate_sweep, jax_oracle, register_both
-from test_torch_whole_circuit import emulate_ops, tiled_bases
+from test_torch_sweeps import emulate_sweep, jax_oracle, register_both, tiled_bases
+from test_torch_whole_circuit import emulate_whole_circuit
 
 TOL = 1e-5
 
@@ -96,11 +96,10 @@ def test_tiled_core_through_each_mirror(kernel, k):
         qubits = (11,) + tuple(range(10 - k, 10)) if k < 10 else (11,) + tuple(range(10))
         c = _between_random(n, name, qubits)
         prog = fc.WholeCircuitProgram(c)
-        assert prog.table.max_core == k and prog.cluster_bits == 3
+        assert prog.table.max_core == k and (prog.tile_bits, prog.ctas) == fc.GEOMETRY[n]
+        assert prog.threads == max(1 << (prog.tile_bits - 4), (1 << k) // 4)
         psi = random_state(n, np.random.default_rng(k))
-        slices = psi.copy().reshape(1 << prog.cluster_bits, -1)
-        emulate_ops(slices, prog.table, prog.threads)
-        got = slices.reshape(-1)
+        got = emulate_whole_circuit(psi, prog)
     elif kernel == "grid_sweep":
         n = 13
         c = _between_random(n, name, (12,) + tuple(range(k)))

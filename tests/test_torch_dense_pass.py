@@ -5,13 +5,17 @@
   table's engine, each such gate becomes a ``DensePass``, in circuit order;
   a circuit without such a gate plans exactly as before.
 * :func:`emulate_dense_pass`, a numpy mirror of ``csrc/dense_pass.cu`` (its
-  CTA tiles, the gather of X in slot order chunk by chunk, the output tile
-  in slot order, the copy of the groups whose controls fail), and the pass's
-  plain version (the torch engine's ``apply_unitary`` under the controls)
-  agree with the JAX package's complex128 oracle within 1e-6 at 14-16 qubits
-  with a 12-qubit core, uncontrolled and with a control peeled, and with
-  7-qubit cores that take the kernel's other instance. (float32 planes and
-  coefficients, amplitudes <= 1: a 4096-term sum rounds at ~1e-8 here.)
+  three instances' CTA tiles in their launch order, the gather of X in slot
+  order chunk by chunk, U's two row-major planes, the 3xTF32 split of every
+  operand, the output tile in slot order, the copy of the groups whose
+  controls fail), and the pass's plain version (the torch engine's
+  ``apply_unitary`` under the controls) agree with the JAX package's
+  complex128 oracle within 1e-6 at 14-16 qubits with a 12-qubit core,
+  uncontrolled and with a control peeled, and with 7-qubit cores on the
+  large and the medium instance; the mirror agrees with the plain version
+  within 1e-7. (float32 planes and coefficients, amplitudes <= 1: a
+  4096-term sum rounds at ~1e-8 here, and the split's dropped terms are
+  below 2^-21 of each product.)
 The kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -184,26 +188,51 @@ def _low_bits(mask: int, count: int) -> int:
     return out
 
 
+# dense_pass.cu's columns a chunk (BK) of each instance
+INSTANCE_BK = {"small": 128, "medium": 64, "large": 32}
+
+
+def tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """dense_pass.cu's split of float32 values into the two TF32 operands
+    the tensor cores multiply, as float64: the high part rounded to nearest
+    at 10 mantissa bits with ties away from zero (cvt.rna.tf32.f32: add half
+    an ulp to the bits, clear the low 13), and the float32 remainder with the
+    low 13 bits the tensor cores drop cleared."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    hi = ((a.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+    lo = (a - hi).astype(np.float32)          # exact: hi is a's nearest TF32
+    lo = (lo.view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+    return hi.astype(np.float64), lo.astype(np.float64)
+
+
 def emulate_dense_pass(
-    x: np.ndarray, u: np.ndarray, tmask: int, cmask: int = 0,
+    x: np.ndarray, u: np.ndarray, tmask: int, cmask: int = 0, instance: str | None = None,
 ) -> np.ndarray:
-    """The pass as dense_pass.cu computes it, on complex amplitudes ``x``
-    and the operand ``u`` (``core_operand``'s (4^k, 2) float32): CTA by CTA
-    (tiles of BM rows x BN groups of the instance the launcher picks), X
-    gathered chunk by chunk of BK columns in slot order, the tile's output
-    written in slot order, then the copy of the groups whose controls fail.
-    Slots written twice or never fail the test."""
+    """The pass as dense_pass.cu computes it, on complex64 amplitudes ``x``
+    and the operand ``u`` (``core_operand``'s (2, 2^k, 2^k) float32): CTA by
+    CTA in launch order (tiles of BM rows x BN groups of ``instance``, by
+    default the one the wrapper picks, the group tiles of a row tile
+    together), X gathered chunk by chunk of BK columns in slot order, each
+    real product hi.hi + hi.lo + lo.hi of the operands' TF32 parts
+    (:func:`tf32_split`), summed here in float64, the tile's output written
+    in slot order, then the copy of the groups whose controls fail. Slots
+    written twice or never fail the test."""
     dim = x.size
     k = bin(tmask).count("1")
     free = (dim - 1) & ~(tmask | cmask)
     log2g = bin(free).count("1")
-    tx, rn, rm, bk = (16, 4, 4, 16) if log2g >= 6 else (8, 2, 1, 64)
-    bn, bm = tx * rn, (256 // tx) * rm
+    instance = instance or dp.pass_instance(k, log2g)
+    bm, bn = dp.INSTANCES[instance]
+    bk = INSTANCE_BK[instance]
     d = 1 << k
-    um = (u[:, 0] + 1j * u[:, 1].astype(np.complex128)).reshape(d, d).T   # column-major
-    row_tiles = d // bm
-    group_tiles = max(1, (1 << log2g) // bn)
+    assert u.shape == (2, d, d) and u.dtype == np.float32
+    urh, url = tf32_split(u[0])
+    uih, uil = tf32_split(u[1])
+    xrh, xrl = tf32_split(x.real)
+    xih, xil = tf32_split(x.imag)
     log2tg = min(log2g, bn.bit_length() - 1)
+    row_tiles = d // bm
+    group_tiles = 1 << (log2g - log2tg)
     tlow = _low_bits(tmask, bk.bit_length() - 1)
     flow = _low_bits(free, log2tg)
     thigh = tmask & ~tlow
@@ -215,13 +244,19 @@ def emulate_dense_pass(
     out = np.zeros(dim, np.complex128)
     written = np.zeros(dim, np.int64)
     for cta in range(row_tiles * group_tiles):
-        r0, g0 = (cta % row_tiles) * bm, (cta // row_tiles) * bn
+        r0, g0 = (cta // group_tiles) * bm, (cta % group_tiles) * bn
         gbase = int(_deposit(np.array([g0]), free)[0]) | cmask
         his = gbase | _deposit(np.arange(d // bk), thigh)
-        xt = np.zeros((d, 1 << log2tg), np.complex128)
+        idx = np.zeros((d, 1 << log2tg), np.int64)     # slot of X[c, g]
         for chunk, hi in enumerate(his):
-            xt[chunk * bk + xc, xg] = x[hi | xe]
-        acc = um[r0:r0 + bm] @ xt
+            idx[chunk * bk + xc, xg] = hi | xe
+        rows = slice(r0, r0 + bm)
+
+        def prod(ah, al, bh, bl):
+            return ah[rows] @ bh[idx] + ah[rows] @ bl[idx] + al[rows] @ bh[idx]
+
+        acc = (prod(urh, url, xrh, xrl) - prod(uih, uil, xih, xil)
+               + 1j * (prod(uih, uil, xrh, xrl) + prod(urh, url, xih, xil)))
         slots = gbase | int(_deposit(np.array([r0]), tmask)[0]) | ye
         out[slots] = acc[yr, yg]
         written[slots] += 1
@@ -235,8 +270,8 @@ def emulate_dense_pass(
 
 
 @pytest.mark.parametrize("n,k,controls", [
-    (14, 12, 0), (15, 12, 0), (16, 12, 0), (14, 12, 1),   # the 1 x 2 instance
-    (14, 7, 0), (14, 7, 1),                               # the 4 x 4 one (64+ groups)
+    (14, 12, 0), (15, 12, 0), (16, 12, 0), (14, 12, 1),   # the small instance
+    (14, 7, 0), (14, 7, 1),                   # the large one (forced), the medium one
 ])
 def test_mirror_and_plain_match_oracle(n, k, controls):
     # targets in no order, some on the lane bits; a control on bit 2
@@ -250,22 +285,27 @@ def test_mirror_and_plain_match_oracle(n, k, controls):
     tmask, cmask = sum(1 << q for q in targets), sum(1 << q for q in ctrls)
     psi = random_state(n, np.random.default_rng(n))
     want = jax_oracle(c, psi)
-    x = psi.astype(np.complex64).astype(np.complex128)
-    got = emulate_dense_pass(x, dp.core_operand(core, tuple(targets)), tmask, cmask)
+    x = psi.astype(np.complex64)
+    instance = "large" if (k, controls) == (7, 0) else None
+    assert dp.pass_instance(k, n - k - controls) == ("small" if k == 12 else "medium")
+    got = emulate_dense_pass(x, dp.core_operand(core, tuple(targets)), tmask, cmask, instance)
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
     plain = dp.apply_controlled(tq.apply.from_complex(psi, np.float32, "cpu"), core,
                                 tuple(targets), tuple(ctrls))
     np.testing.assert_allclose(tq.apply.to_complex(plain), want, atol=TOL, rtol=0)
+    np.testing.assert_allclose(got, tq.apply.to_complex(plain), atol=1e-7, rtol=0)
 
 
 def test_core_operand_orders_bits_and_stores_columns():
     # a 3-qubit core on qubits (5, 1, 3): index MSB qubit 5; the operand's
-    # index bit j is the j-th lowest target (1, 3, 5), columns contiguous
+    # index bit j is the j-th lowest target (1, 3, 5); a real and an
+    # imaginary plane, each row-major (a row's columns contiguous), as the
+    # tensor cores' A operand
     rng = np.random.default_rng(0)
     core = rng.standard_normal((8, 8)) + 1j * rng.standard_normal((8, 8))
     u = dp.core_operand(core, (5, 1, 3))
-    assert u.shape == (64, 2) and u.dtype == np.float32
-    up = (u[:, 0] + 1j * u[:, 1]).reshape(8, 8).T    # up[row, col]
+    assert u.shape == (2, 8, 8) and u.dtype == np.float32 and u.flags.c_contiguous
+    up = u[0] + 1j * u[1]                            # up[row, col]
     for j1 in range(8):
         for j2 in range(8):
             # operand bit 0 -> qubit 1 (matrix bit 1), bit 1 -> qubit 3
@@ -290,3 +330,28 @@ def test_cpu_pass_runs_plain_version_and_wrapper_refuses_cpu():
         step.run(x.double())
     sim = tq.StateVectorSimulator(n, device="cpu").run(c)
     assert sim.engine == "torch"     # the CPU route has no kernel to split for
+
+
+def test_pass_instance_follows_the_groups():
+    # 16 groups or fewer: small; the large tiles when they make 128 CTAs or
+    # more (one an SM of the H100's 132); medium between
+    assert [dp.pass_instance(12, g) for g in (0, 2, 4)] == ["small"] * 3
+    assert [dp.pass_instance(12, g) for g in (5, 6, 7)] == ["medium"] * 3
+    assert [dp.pass_instance(12, g) for g in (8, 10)] == ["large"] * 2
+    assert dp.pass_instance(7, 13) == "large" and dp.pass_instance(7, 12) == "medium"
+    assert dp.pass_instance(13, 7) == "large" and dp.MIN_PASS_CORE == 7
+
+
+def test_tf32_split_recovers_float32():
+    # the two parts are TF32 numbers (low 13 bits clear), the high one the
+    # nearest with ties away from zero, and together they hold a float32
+    # value to 2^-21 of it
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 2, 4096)).astype(np.float32)
+    hi, lo = tf32_split(a)
+    for part in (hi, lo):
+        assert not (part.astype(np.float32).view(np.uint32) & 0x1fff).any()
+    assert (np.abs(a - hi) <= np.abs(a) * 2.0 ** -11).all()
+    assert (np.abs(a - hi - lo) <= np.abs(a) * 2.0 ** -21).all()
+    tie = np.array([1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11)], np.float32)
+    np.testing.assert_array_equal(tf32_split(tie)[0], [1.0 + 2.0 ** -10, -(1.0 + 2 * 2.0 ** -10)])

@@ -211,10 +211,10 @@ def emulate_segments(psi: np.ndarray, prog: seg.SegmentedProgram) -> np.ndarray:
         for b in range(1 << (n - lb)):
             ident = (b << lb) | np.arange(1 << lb)
             src = ident if step.gather_src is None else _lut_map(maps, n, lb, b)
-            block = cur[src].copy().reshape(1, -1)
+            block = cur[src].copy()
             emulate_ops(block, step.table)
             dst = ident if step.scatter_dst is None else _lut_map(maps[seg.MAP_WORDS:], n, lb, b)
-            out[dst] = block[0]
+            out[dst] = block
         assert not np.isnan(out).any()
         cur = out
     return cur

@@ -35,7 +35,6 @@ from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
 from test_torch_gridsweeps import core_matrix, emulate_block
-from test_torch_whole_circuit import tiled_bases
 
 P_JAX = js.SweepParams(k_bits=2, rb_bits=2)     # blk_bits 9, 4 parts
 P = ts.SweepParams(k_bits=2, rb_bits=2)
@@ -180,12 +179,37 @@ def test_layouts_are_the_jax_relabelings():
 # ---------------------------------------------------------------------------
 
 
+def tiled_bases(op: np.ndarray, kbits: int, parts: int, threads: int) -> list:
+    """Per CTA of a Part of ``parts``, the group bases a tiled core's op
+    (ops.cuh's ``apply_dense_tiled``) takes: its groups enumerated with zeros
+    at the target and control bits and the controls' values ORed in, cut
+    into tiles of min(4 GT threads / 2^m, groups) groups (GT = 4 groups a
+    thread for a core of 7 qubits or more at up to 512 threads, else 2), CTA
+    r taking tiles r, r + parts, ... in turn."""
+    m = int(op[1])
+    assert 1 << m <= 4 * threads, "a tile holds one group block or more"
+    gt = 4 if threads <= 512 and m >= 7 else 2
+    fixed = sum(1 << int(c) for c in op[8:8 + m]) | int(op[3])
+    base = np.arange(1 << (kbits - bin(fixed).count("1")), dtype=np.int64)
+    tg = min(4 * gt * threads >> m, base.size)
+    for p in range(kbits):                  # insert a 0 at each fixed bit
+        if (fixed >> p) & 1:
+            base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+    base |= int(op[4])
+    tiles = [base[t:t + tg] for t in range(0, base.size, tg)]
+    return [np.concatenate(tiles[r::parts] or [base[:0]]) for r in range(parts)]
+
+
 def emulate_sweep(
     re: np.ndarray, im: np.ndarray, table: fc.OpTable, group_bits: int = 0,
+    threads: int | None = None,
 ) -> None:
     """Apply one sweep's table (``ts.sweep_table``) to the flat planes in
     place, as sweep.cu does: unit by unit (the inactive bits' assignments: a
-    low sweep's parts, a high sweep's steps), stage by stage. A tile stage's
+    low sweep's parts, a high sweep's steps; the whole-circuit route's one
+    unit, the whole state), stage by stage, on CTAs of ``threads`` threads
+    (None: 16 amplitudes of a tile each; more only where a unit stage's
+    tiled op needs them, the others idle in the tile stages). A tile stage's
     register table runs tile by tile (CTA r of a group of ``2^group_bits``
     taking tiles r, r + 2^group_bits, ...), each tile at the unit's share of
     the global index OR the tile index deposited at the unit's bits outside
@@ -196,7 +220,9 @@ def emulate_sweep(
     ints = table.ints
     n_stages, blk, a, n_inact = (int(v) for v in ints[:4])
     tile_bits = int(ints[ts.HEADER_TILE_BITS])
-    threads = 1 << (tile_bits - tgs.REG_BITS)
+    tile_threads = 1 << (tile_bits - tgs.REG_BITS)
+    threads = tile_threads if threads is None else threads
+    assert threads >= tile_threads and not threads & (threads - 1)
     active = [int(p) for p in ints[16:16 + a]]
     inact = [int(p) for p in ints[32:32 + n_inact]]
     kbits = blk + a

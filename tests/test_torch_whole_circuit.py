@@ -6,11 +6,14 @@
   ~1e-7 rounding per gate), on random circuits, every single-gate type on
   lane and row bits, two-qubit gates, toffoli, and 5- and 6-qubit inline
   unitaries (on lane bits).
-* The op table over ``BlockLayout(n, n, ())``, executed by a numpy mirror of
-  ``csrc/whole_circuit.cu`` that keeps the state as 2^c CTA slices and
-  addresses slot l as ``[l >> (n - c), l & mask]``, agrees with the
-  complex128 oracle within 1e-6 for clusters of 1, 4 and 8 CTAs.
-  The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py).
+* The program's table (``sweeps.sweep_table`` of the stages
+  ``sweeps.plan_stages`` cuts over the whole state as one unit), executed by
+  the numpy mirror of ``csrc/sweep.cu`` (``test_torch_sweeps.emulate_sweep``),
+  agrees with the complex128 oracle within 1e-6 at three tile sizes and CTA
+  counts; ``random_circuit(18, 100, seed=42)`` plans into at most 4 stages.
+* :func:`emulate_ops` mirrors ``ops.cuh`` on one CTA's block (the segment
+  kernel's): narrow ops on their work items, tiled cores tile by tile.
+  The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
 
 import jax
@@ -28,6 +31,7 @@ from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 
 from conftest import random_state
+from test_torch_sweeps import emulate_sweep, tiled_bases
 
 TOL = 2e-6
 
@@ -130,41 +134,15 @@ def test_wide_inline_unitary(n, k, qubits):
 # ---------------------------------------------------------------------------
 
 
-def tiled_bases(op: np.ndarray, kbits: int, parts: int, threads: int) -> list:
-    """Per CTA of a Part of ``parts``, the group bases a tiled core's op
-    (ops.cuh's ``apply_dense_tiled``) takes: its groups enumerated with zeros
-    at the target and control bits and the controls' values ORed in, cut
-    into tiles of min(4 GT threads / 2^m, groups) groups (GT = 4 groups a
-    thread for a core of 7 qubits or more at up to 512 threads, else 2), CTA
-    r taking tiles r, r + parts, ... in turn."""
-    m = int(op[1])
-    assert 1 << m <= 4 * threads, "a tile holds one group block or more"
-    gt = 4 if threads <= 512 and m >= 7 else 2
-    fixed = sum(1 << int(c) for c in op[8:8 + m]) | int(op[3])
-    base = np.arange(1 << (kbits - bin(fixed).count("1")), dtype=np.int64)
-    tg = min(4 * gt * threads >> m, base.size)
-    for p in range(kbits):                  # insert a 0 at each fixed bit
-        if (fixed >> p) & 1:
-            base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-    base |= int(op[4])
-    tiles = [base[t:t + tg] for t in range(0, base.size, tg)]
-    return [np.concatenate(tiles[r::parts] or [base[:0]]) for r in range(parts)]
-
-
-def emulate_ops(slices: np.ndarray, table: fc.OpTable, threads: int = 512) -> None:
-    """Apply an op table to a block held as 2^c CTA slices, in place, as
-    ``ops.cuh`` does: CTA r takes the r-th contiguous part of a narrow op's
-    work items and the tiles of a tiled core (:func:`tiled_bases`) in turn;
-    a tiled core, or a dense target at or above the slice bits, reads and
-    writes slot l at ``slices[l >> lb, l & mask]``, any other op only CTA
-    r's own slice at ``slices[r, l & mask]``."""
+def emulate_ops(block: np.ndarray, table: fc.OpTable, threads: int = 512) -> None:
+    """Apply an op table in place to a block of amplitudes one CTA holds in
+    shared memory, as ``ops.cuh`` does (``segment.cu``'s blocks): a diagonal
+    on every slot, a narrow core on each group of its slots, a tiled core
+    (``TILE_CORE`` qubits and more, column-major at an even coefficient
+    offset) on the groups of :func:`tiled_bases`."""
     ints, coef = table.ints, table.coef
-    n_ops, kbits = int(ints[0]), int(ints[1])
-    parts, size = slices.shape
-    lb = size.bit_length() - 1
-    c = parts.bit_length() - 1
-    assert lb + c == kbits
-    mask = size - 1
+    n_ops, kbits = int(ints[0]), int(ints[1]) + int(ints[2])
+    assert block.size == 1 << kbits
     w = coef[:, 0].astype(np.complex128) + 1j * coef[:, 1]
     for o in range(n_ops):
         op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
@@ -172,45 +150,41 @@ def emulate_ops(slices: np.ndarray, table: fc.OpTable, threads: int = 512) -> No
         m, off = int(op[1]), int(op[2])
         codes = [int(x) for x in op[8:8 + m]]
         assert max(codes) < kbits
-        tiled = op[0] != fc.KIND_DIAG and m >= fc.TILE_CORE
-        remote = tiled or (op[0] != fc.KIND_DIAG and max(codes) >= lb)
-
-        def at(r, ls):
-            return (ls >> lb, ls & mask) if remote else (r, ls & mask)
-
         if op[0] == fc.KIND_DIAG:
-            per = (1 << kbits) >> c
-            for r in range(parts):
-                ls = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-                idx = np.zeros_like(ls)
-                for code in codes:
-                    idx = (idx << 1) | ((ls >> code) & 1)
-                slices[at(r, ls)] *= w[off + idx]
+            ls = np.arange(1 << kbits, dtype=np.int64)
+            idx = np.zeros_like(ls)
+            for code in codes:
+                idx = (idx << 1) | ((ls >> code) & 1)
+            block *= w[off + idx]
             continue
         offs = [
             sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
             for j in range(1 << m)
         ]
         u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
-        if tiled:                          # column-major, 16-byte aligned
+        if m >= fc.TILE_CORE:               # column-major, 16-byte aligned
             assert off % 2 == 0
             u = u.T
-            bases = tiled_bases(op, kbits, parts, threads)
+            (base,) = tiled_bases(op, kbits, 1, threads)
         else:
             pos = [int(x) for x in op[24:24 + m]]
             assert pos == sorted(codes)
-            per = (1 << (kbits - m)) >> c
-            bases = []
-            for r in range(parts):
-                base = np.arange(r * per, (r + 1) * per, dtype=np.int64)
-                for p in pos:                  # insert a 0 at each target
-                    base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-                bases.append(base[(base & int(op[3])) == int(op[4])])
-        for r, base in enumerate(bases):
-            x = np.stack([slices[at(r, base | d)] for d in offs])
-            y = u @ x
-            for j, d in enumerate(offs):
-                slices[at(r, base | d)] = y[j]
+            base = np.arange(1 << (kbits - m), dtype=np.int64)
+            for p in pos:                  # insert a 0 at each target
+                base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
+            base = base[(base & int(op[3])) == int(op[4])]
+        y = u @ np.stack([block[base | d] for d in offs])
+        for j, d in enumerate(offs):
+            block[base | d] = y[j]
+
+
+def emulate_whole_circuit(psi: np.ndarray, prog: fc.WholeCircuitProgram) -> np.ndarray:
+    """``psi`` after the program's one launch, as the sweep kernel runs it
+    over the whole state: its ``ctas`` CTAs of ``threads`` threads, stage by
+    stage (``emulate_sweep``)."""
+    re, im = psi.real.copy(), psi.imag.copy()
+    emulate_sweep(re, im, prog.table, prog.ctas.bit_length() - 1, prog.threads)
+    return re + 1j * im
 
 
 def _wide_circuit(n: int) -> tq.Circuit:
@@ -230,23 +204,23 @@ def _wide_circuit(n: int) -> tq.Circuit:
     return c
 
 
-@pytest.mark.parametrize("cluster_bits", [0, 2, 3])
+@pytest.mark.parametrize("tile_bits,ctas", [(10, 1), (9, 1), (9, 2)])
 @pytest.mark.parametrize("name", ["random", "qft", "wide"])
-def test_op_table_emulation_matches_oracle(name, cluster_bits):
+def test_op_table_emulation_matches_oracle(name, tile_bits, ctas):
+    # one tile of the whole state, or two taken by one CTA or by two
     n = 10
     c = {
         "random": lambda: tq.random_circuit(n, 80, seed=9),
         "qft": lambda: tq.qft_circuit(n),
         "wide": lambda: _wide_circuit(n),
     }[name]()
-    prog = fc.WholeCircuitProgram(c, cluster_bits=cluster_bits, threads=256)
-    psi = random_state(n, np.random.default_rng(cluster_bits))
-    slices = psi.copy().reshape(1 << cluster_bits, -1)
-    emulate_ops(slices, prog.table)
+    prog = fc.WholeCircuitProgram(c, tile_bits=tile_bits, ctas=ctas)
+    assert (prog.tile_bits, prog.ctas) == (tile_bits, ctas)
+    psi = random_state(n, np.random.default_rng(tile_bits + ctas))
     ref = tq.CPUReferenceSimulator(n)
     ref.set_state(psi)
     ref.run(c)
-    np.testing.assert_allclose(slices.reshape(-1), ref.state, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(emulate_whole_circuit(psi, prog), ref.state, atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +236,7 @@ def test_cpu_program_runs_plain_version_without_launching():
     assert LAUNCHES["whole_circuit"] == 0
     ints, coef = prog._tables_on(torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        fc.whole_circuit(x, ints, coef, prog.cluster_bits, prog.threads)
+        fc.whole_circuit(x, ints, coef, prog.tile_bits, prog.threads, prog.ctas)
     with pytest.raises(ValueError, match="float32"):
         prog.run(x.double())
     with pytest.raises(ValueError, match="shape"):
@@ -270,17 +244,34 @@ def test_cpu_program_runs_plain_version_without_launching():
 
 
 def test_program_geometry_and_limits():
-    for n, (c, threads) in fc.GEOMETRY.items():
+    # GEOMETRY: tiles of 2^T slots, 16 a thread, and the CTAs of the one
+    # group (a power of two, at most the state's tiles); the table's unit is
+    # the whole state, with no part bits
+    for n, (t, ctas) in fc.GEOMETRY.items():
         prog = fc.WholeCircuitProgram(tq.ghz_circuit(n))
-        assert (prog.cluster_bits, prog.threads) == (c, threads)
-        assert n - c <= fc.MAX_BLOCK_BITS and c <= fc.MAX_CLUSTER_BITS
+        assert 9 <= t <= min(n, 14) and ctas & (ctas - 1) == 0 and ctas <= 1 << (n - t)
+        assert (prog.tile_bits, prog.ctas, prog.threads) == (t, ctas, 1 << (t - 4))
         assert prog.table.ints[1] == n and prog.table.ints[2:4].tolist() == [0, 0]
+        assert prog.table.ints[5] == t
     assert sorted(fc.GEOMETRY) == list(range(10, 19))
     for bad in (9, 19):
         with pytest.raises(ValueError, match="10..18"):
             fc.WholeCircuitProgram(tq.ghz_circuit(bad))
-    with pytest.raises(ValueError, match="cannot hold"):
-        fc.WholeCircuitProgram(tq.ghz_circuit(18), cluster_bits=3)
+    for t, ctas in ((8, 1), (15, 1), (12, 3)):
+        with pytest.raises(ValueError, match="power of two"):
+            fc.WholeCircuitProgram(tq.ghz_circuit(18), tile_bits=t, ctas=ctas)
+    # no more CTAs than tiles; a tile no larger than the state
+    assert fc.WholeCircuitProgram(tq.ghz_circuit(12), tile_bits=11, ctas=64).ctas == 2
+    assert fc.WholeCircuitProgram(tq.ghz_circuit(10), tile_bits=12).tile_bits == 10
+
+
+def test_main_path_circuit_plans_into_few_stages():
+    # random_circuit(18, 100, seed=42): 50 merged ops, each a barrier-separated
+    # pass in a per-op design, in at most 4 tile passes at the chosen T
+    prog = fc.WholeCircuitProgram(tq.random_circuit(18, 100, seed=42))
+    assert len(prog.gates) == 50 and all(st.kind == "tile" for st in prog.stages)
+    assert len(prog.stages) <= 4
+    assert [id(g) for st in prog.stages for g in st.gates] == [id(g) for g in prog.gates]
 
 
 def test_program_bytes_and_flops():

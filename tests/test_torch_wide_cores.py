@@ -27,7 +27,7 @@ from conftest import random_state
 from test_torch_gridsweeps import emulate_sweep as emulate_grid_sweep
 from test_torch_segmented import emulate_segments
 from test_torch_sweeps import register_both, emulate_sweep, jax_oracle
-from test_torch_whole_circuit import emulate_ops
+from test_torch_whole_circuit import emulate_whole_circuit
 
 TOL = 1e-5
 CUDA = torch.device("cuda")
@@ -85,9 +85,8 @@ def test_core_past_the_limit_raises_naming_it():
         engine, prog = dispatch.plan_run(c, np.float32, CUDA)
         assert engine == "whole_circuit" and prog.table.max_core == k
         psi = random_state(n, np.random.default_rng(k))
-        slices = psi.copy().reshape(1 << prog.cluster_bits, -1)
-        emulate_ops(slices, prog.table, prog.threads)
-        np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
+        np.testing.assert_allclose(emulate_whole_circuit(psi, prog), jax_oracle(c, psi),
+                                   atol=TOL, rtol=0)
     wide = tq.Circuit(15).add(_dense(10), *range(5, 15))
     with pytest.raises(ValueError, match="a 10-qubit gate needs local_bits >= 15"):
         seg.SegmentedProgram(wide)
@@ -120,19 +119,22 @@ def test_core_past_the_limit_raises_naming_it():
 
 
 def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():
-    # an 8-qubit core at 10 qubits has 4 groups; since the tiled op deals its
-    # tiles to the cluster's CTAs in turn, a cluster of 8 CTAs takes it (the
-    # CTAs without a tile wait at the barrier). What is still refused is a
-    # CTA too small for the core's tile: 2^m <= 4 x threads
+    # an 8-qubit core at 10 qubits has 4 groups; the tiled op deals its tiles
+    # to the launch's CTAs in turn, so 2 CTAs of 2^9-slot tiles take it (a
+    # CTA without a tile waits at the barrier), each with the 64 threads the
+    # core's tile needs, twice the tile's 32. The cluster kernel that could
+    # be placed wider than the groups is gone; what is refused now is a
+    # geometry outside the register program (tiles of 2^9..2^14 slots) or a
+    # CTA count that is not a power of two
     c = _between_random(10, (_dense(8), tuple(range(8))))
-    prog = fc.WholeCircuitProgram(c, cluster_bits=3, threads=256)
-    assert prog.table.max_core == 8
+    prog = fc.WholeCircuitProgram(c, tile_bits=9, ctas=2)
+    assert prog.table.max_core == 8 and (prog.ctas, prog.threads) == (2, 64)
     psi = random_state(10, np.random.default_rng(8))
-    slices = psi.copy().reshape(8, -1)
-    emulate_ops(slices, prog.table, prog.threads)
-    np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
-    with pytest.raises(ValueError, match="threads"):
-        fc.WholeCircuitProgram(c, cluster_bits=3, threads=32)
+    np.testing.assert_allclose(emulate_whole_circuit(psi, prog), jax_oracle(c, psi),
+                               atol=TOL, rtol=0)
+    for t, ctas in ((8, 2), (9, 3)):
+        with pytest.raises(ValueError, match="power of two"):
+            fc.WholeCircuitProgram(c, tile_bits=t, ctas=ctas)
 
 
 # ---------------------------------------------------------------------------
@@ -140,18 +142,50 @@ def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cluster_bits", [0, 2])
+@pytest.mark.parametrize("tile_bits,ctas", [(11, 1), (9, 4)])
 @pytest.mark.parametrize("k,controls", [(7, 0), (8, 0), (7, 1)])
-def test_whole_circuit_emulation(k, controls, cluster_bits):
+def test_whole_circuit_emulation(k, controls, tile_bits, ctas):
     n = 11
     qubits = (10, 2, 9, 0, 5, 8, 1, 4, 6)[:k + controls]
     c = _between_random(n, (_dense(k, controls), qubits))
-    prog = fc.WholeCircuitProgram(c, cluster_bits=cluster_bits, threads=256)
-    assert prog.table.max_core == k
+    prog = fc.WholeCircuitProgram(c, tile_bits=tile_bits, ctas=ctas)
+    assert prog.table.max_core == k and any(st.kind == "unit" for st in prog.stages)
     psi = random_state(n, np.random.default_rng(k))
-    slices = psi.copy().reshape(1 << cluster_bits, -1)
-    emulate_ops(slices, prog.table)
-    np.testing.assert_allclose(slices.reshape(-1), jax_oracle(c, psi), atol=TOL, rtol=0)
+    np.testing.assert_allclose(emulate_whole_circuit(psi, prog), jax_oracle(c, psi),
+                               atol=TOL, rtol=0)
+
+
+# the parent's whole-circuit route (a cluster of CTAs of these threads) took
+# cores of up to min(n, 11, log2(4 x threads)) qubits
+PARENT_THREADS = {10: 512, 11: 512, 12: 512, 13: 512, 14: 256, 15: 256, 16: 512,
+                  17: 1024, 18: 1024}
+
+
+@pytest.mark.parametrize("n", sorted(PARENT_THREADS))
+def test_whole_circuit_takes_every_core_it_took(n):
+    # every core width the cluster kernel's geometry took still plans, on the
+    # lowest and the highest qubits, as a unit stage whose CTAs have the
+    # threads its tiled op needs; at 10 qubits the widest run through the
+    # mirror against the oracle
+    from tpu_qsim_torch.kernels.time_run import kron_gate
+
+    kmax = min(n, fc.MAX_DENSE_QUBITS, (4 * PARENT_THREADS[n]).bit_length() - 1)
+    for k in range(fc.TILE_CORE, kmax + 1):
+        for lo in (0, n - k):
+            gate = kron_gate(tuple(range(lo, lo + k)), seed=k)
+            c = tq.Circuit(n).h(0).cnot(0, n - 1).append(gate).h(n - 1)
+            engine, prog = dispatch.plan_run(c, np.float32, CUDA)
+            assert engine == "whole_circuit" and prog.table.max_core == k
+            assert (1 << k) <= 4 * prog.threads <= 4 * ts.WIDE_THREADS
+            assert [st.kind for st in prog.stages].count("unit") == 1
+            if n == 10 and k >= 9 and lo == 0:
+                assert prog.threads > 1 << (prog.tile_bits - 4)     # spare threads
+                psi = random_state(n, np.random.default_rng(k))
+                ref = tq.CPUReferenceSimulator(n)
+                ref.set_state(psi)
+                ref.run(c)
+                np.testing.assert_allclose(emulate_whole_circuit(psi, prog), ref.state,
+                                           atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("k,controls,lo", [(7, 0, 0), (8, 0, 0), (7, 1, 1)])

@@ -28,6 +28,17 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC", "-shared",
     "-Xptxas", "-v", "--split-compile=4",
 )
+# libraries whose kernels use sm_90a-only instructions (wgmma): -arch=sm_90a
+# emits compute_90 PTX, which ptxas refuses them in
+ARCH_FLAGS = {"dense_pass": ("-gencode", "arch=compute_90a,code=sm_90a")}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` is built with."""
+    arch = ARCH_FLAGS.get(name)
+    if arch is None:
+        return NVCC_FLAGS
+    return tuple(f for f in NVCC_FLAGS if f != "-arch=sm_90a") + arch
 BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -54,12 +65,6 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # state, dim, table, coef, kbits, steps, max_core, stream
         "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P],
     },
-    "whole_circuit": {
-        # n, cluster_bits, threads, int* clusters
-        "whole_circuit_prepare": [_I, _I, _I, _P],
-        # state, n, table, coef, cluster_bits, threads, max_core, stream
-        "whole_circuit_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
-    },
     "segment": {
         "segment_prepare": [],
         # in, out, dim, n, table, coef, maps, gather, local_bits, threads,
@@ -68,15 +73,15 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "scatter_segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sweep": {
-        # threads, wide, int* ctas
-        "sweep_prepare": [_I, _I, _P],
+        # threads, wide, spare, int* ctas
+        "sweep_prepare": [_I, _I, _I, _P],
         # high, state, dim, table, coef, kbits, barriers, groups, group_bits,
-        # threads, max_core, stream
-        "sweep_launch": [_I, _P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+        # threads, max_core, spare, stream
+        "sweep_launch": [_I, _P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     },
     "dense_pass": {
-        # state, out, dim, u, k, tmask, cmask, cval, stream
-        "dense_pass_launch": [_P, _P, _LL, _P, _I, _U, _U, _U, _P],
+        # state, out, dim, u, k, tmask, cmask, cval, instance, stream
+        "dense_pass_launch": [_P, _P, _LL, _P, _I, _U, _U, _U, _I, _P],
     },
 }
 
@@ -86,7 +91,7 @@ def library_path(name: str) -> Path:
     key.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         key.update(header.name.encode() + header.read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
+    key.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 
@@ -97,7 +102,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S

@@ -378,8 +378,11 @@ struct BlockShape {
 // thread may still read it when the program returns. The last store goes
 // from registers (or shared memory, after a shared-memory op) to the planes,
 // as streaming stores where STREAM (the block is not read again soon).
-// Cores in shared-memory ops are at most MAXM qubits wide.
-template <int MAXM, bool STREAM, class LoadFirst>
+// Cores in shared-memory ops are at most MAXM qubits wide. With SPARE the
+// CTA may have more threads than the block's 2^(blk + a - R): the warps past
+// them hold no values and only share the barriers and the shared-memory ops
+// (load_first must skip them too).
+template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst>
 __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           float* __restrict__ im,
                                           const int* __restrict__ table,
@@ -395,6 +398,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
   const int* desc = table + SWEEP_HEADER + n_ops * OP_HEADER;
   const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
   const int* regs = table + HEADER_REGS;  // the current register bits
+  const bool holds = !SPARE || threadIdx.x < (size >> R);  // values of its own
   bool first = true;
   int o = 0;
   for (;;) {
@@ -407,7 +411,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
         first = false;
         read_smem = false;
       } else {
-        x.load(sr, si);  // the shared-memory run ended at a barrier
+        if (holds) x.load(sr, si);  // the shared-memory run ended at a barrier
         read_smem = true;
       }
       for (; o < n_ops; ++o) {
@@ -416,19 +420,20 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
         const int4 d0 = __ldg(dp), d1 = __ldg(dp + 1);
         if (d0.x & D_REMAP) {
           if (read_smem) __syncthreads();
-          x.store(sr, si);
+          if (holds) x.store(sr, si);
           __syncthreads();
           regs = op + 8;
           x.set(regs, lane, warp, size);
-          x.load(sr, si);
+          if (holds) x.load(sr, si);
           read_smem = true;
           continue;
         }
         if ((cta_g & (unsigned)d1.x) != (unsigned)d1.y) continue;
         if (!(d0.x & D_REG)) break;
-        reg_op(x, d0, d1, op, coef, lane, cta_g);
+        if (holds) reg_op(x, d0, d1, op, coef, lane, cta_g);
       }
       if (o == n_ops) {
+        if (!holds) return;
         unsigned gm[R];
         const unsigned gt = x.global(gm, blk, a, active, cta_g);
 #pragma unroll
@@ -445,7 +450,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
         return;
       }
       if (read_smem) __syncthreads();
-      x.store(sr, si);
+      if (holds) x.store(sr, si);
       __syncthreads();
     }
     // a run of shared-memory ops

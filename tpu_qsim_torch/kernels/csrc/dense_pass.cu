@@ -14,35 +14,71 @@
 // to `out`:
 //   - U is the core with its index bits in ascending state-bit order (bit j
 //     of a row or column index is the j-th lowest target bit; the host,
-//     kernels/dense_pass.py, permutes the gate's matrix so), stored
-//     column-major as float2, as build_op_table stores wide cores;
+//     kernels/dense_pass.py::core_operand, permutes the gate's matrix so),
+//     stored as two row-major float32 planes Ur and Ui;
 //   - column g of X holds the 2^k amplitudes of group g: the slots whose
 //     bits outside the targets and controls are those of g (deposited at
 //     the free bits) and whose control bits hold the control values. Groups
 //     whose controls fail are copied from `in` to `out` unchanged, by CTAs
 //     of their own after the product's;
-//   - it is a plain tiled complex GEMM. A CTA owns a tile of BM rows x BN
-//     groups (fewer groups when the state has fewer), each of its 256
-//     threads RM rows x RN groups, strided so that a warp's shared-memory
-//     reads broadcast or fall on consecutive words. U streams through shared
-//     memory in chunks of BK columns (each column's BM rows are one
-//     contiguous run of U), X's chunk is gathered from the state in the
-//     order of slot indices (consecutive threads on consecutive slots
-//     wherever the targets lie), and the next chunk's loads are issued into
-//     registers before the current chunk is multiplied. Four chained FMAs
-//     per complex product (ops.cuh's cmac). The output tile goes through
-//     shared memory and out in slot order too.
-// Two instances: BM = BN = 64 (4 x 4 a thread, BK = 16) for 64 groups and
-// more, where the flops bound it; and BM = 32, BN = 16 (1 x 2 a thread,
-// BK = 64) for fewer, where U's bytes bound it and more CTAs, each with more
-// of U in flight, stream it.
+//   - the product runs on the tensor cores in its real form on the planes,
+//     Yr = Ur Xr - Ui Xi and Yi = Ui Xr + Ur Xi, TF32 products accumulated
+//     in float32 (mma.sync m16n8k8, or wgmma m64n64k8 in the large
+//     instance). TF32 keeps 10 mantissa bits, which
+//     alone misses the 1e-6 gate, so every operand is split in registers
+//     into a TF32 high part (rounded to nearest, as cvt.rna.tf32.f32 does,
+//     in two integer operations) and the remainder, whose bits past TF32's
+//     the tensor cores drop, and each real product is hi.lo + lo.hi +
+//     hi.hi, small terms first ("3xTF32"): float32's own accuracy at three
+//     tensor-core products per real one (the lo.lo term and what the low
+//     part drops are below 2^-21 of each term). U is split as it is read,
+//     never stored twice: at 16 qubits U's bytes set the bound;
+//   - the tensor cores add into their accumulator with truncation, so a
+//     4096-term sum in one accumulator drifted past the 1e-7 gate against
+//     float32 FMAs at 16 and 22 qubits on the H100: each chunk's share goes
+//     into fresh accumulators, added to the run's in float32 (rounded to
+//     nearest) after the chunk;
+//   - a CTA owns a tile of BM rows x BN groups (fewer groups when the state
+//     has fewer; the columns past them are computed from whatever the
+//     shared memory holds and never stored). The mma.sync instances' warps
+//     are WM x WN x WK: each computes MT x NT fragments of 16 rows x 8
+//     groups over its share WK of each chunk's columns (the shares summed
+//     through shared memory at the end). U and X stream through a ring of STAGES chunks of BK
+//     columns in dynamic shared memory, fed by cp.async: U's rows 16 bytes
+//     at a time, X's chunk gathered from the state in the order of slot
+//     indices (consecutive threads on consecutive slots wherever the
+//     targets lie), 16 bytes at a time where the two lowest targets are
+//     state bits 0 and 1, else 4. Rows of the shared tiles are BK + 4 floats
+//     apart, so every fragment load of a warp falls on 32 distinct banks.
+//     The output tile goes through shared memory and out in slot order too.
+// Three instances, all of 8 warps: "large", 128 rows x 64 groups, BK = 32,
+// 3 stages, for states with many groups, where the tensor cores' rate bounds
+// it: two warpgroups of 64 rows, each issuing wgmma m64n64k8 with U's split
+// fragments in registers (-Ui by the instruction's A scale; two sets, the
+// next k8 step's made while one group of 12 products runs) and X's chunk
+// split once into four TF32 planes in shared memory (wgmma reads B only
+// there), in the K-major layout of 8 x 16-byte core matrices (on the H100
+// 1.6 ms at n = 22, k = 12, where mma.sync warps of 32 x 32 took 2.1);
+// "small", 32 rows x 16 groups (mma.sync warps of 16 x 16, two on the rows,
+// four on the columns of a chunk), BK = 128, 4 stages, for 16 groups or
+// fewer, where U's bytes bound it and 2^k / 32 CTAs each keep 3 chunks of U
+// (96 KB) in flight; "medium", 32 rows x 64 groups (mma.sync warps of 32 x
+// 16, four on the groups, two on the columns), BK = 64, 4 stages, between
+// them (32-64 groups at k = 12: each CTA reads its rows of U once for all
+// the groups, and 2^k / 32 CTAs fill the card). All take cores of 7 qubits
+// and more (a chunk of BK columns, a tile of BM rows). The host
+// (kernels/dense_pass.py::pass_instance) picks one.
 //
 // Bound on this card: the larger of U's bytes plus 16 B per amplitude (the
 // state read and written once) over 3.35 TB/s and 8 flops per complex
-// multiply-add, 8 x 2^(n + k), over 67 TFLOP/s: at n = 16, k = 12 U's
-// 128 MB set it (0.04 ms); at n = 22 the flops (2.05 ms).
+// multiply-add, 8 x 2^(n + k): over 67 TFLOP/s of float32 FMAs (the bound
+// of any float32 design without tensor cores: 2.05 ms at n = 22, k = 12),
+// and, for this design, three times as many TF32 flops over the 495 TFLOP/s
+// of the tensor cores (0.83 ms at n = 22). At n = 16, k = 12 U's 128 MB set
+// it (0.04 ms).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "ops.cuh"
 
@@ -50,14 +86,13 @@ namespace {
 
 using namespace qsim;
 
-constexpr int THREADS = 256;
-
 struct Pass {
   const float* re;  // in
   const float* im;
   float* ore;  // out
   float* oim;
-  const float2* u;        // 2^k x 2^k, column-major, ascending index bits
+  const float* ur;        // 2^k x 2^k, row-major, ascending index bits
+  const float* ui;
   unsigned tmask;         // the target bits
   unsigned cmask, cval;   // the control bits and their values
   unsigned free;          // the other bits of the state: the group bits
@@ -79,141 +114,535 @@ __device__ __forceinline__ unsigned low_bits(unsigned mask, int count) {
   return out;
 }
 
-template <int TX, int RN, int RM, int BK>
-__global__ void __launch_bounds__(THREADS) dense_pass_kernel(const Pass p) {
-  constexpr int TY = THREADS / TX;
-  constexpr int BN = TX * RN;  // groups of a tile
-  constexpr int BM = TY * RM;  // rows of a tile
-  constexpr int UE = BK * BM / THREADS;  // U elements a thread loads a chunk
-  constexpr int XE = (BK * BN + THREADS - 1) / THREADS;
-  constexpr int YE = (BM * BN + THREADS - 1) / THREADS;
-  constexpr int LOG2BK = ilog2(BK);
-  constexpr int LOG2BM = ilog2(BM);
-  constexpr int SMEM = BK * (BM + BN) > BM * BN ? BK * (BM + BN) : BM * BN;
-  static_assert(UE * THREADS == BK * BM, "U chunk split evenly");
-  static_assert((1 << LOG2BK) == BK && (1 << LOG2BM) == BM, "tile sizes");
-  __shared__ float2 smem[SMEM];
-  float2* us = smem;            // [BK][BM]
-  float2* xs = smem + BK * BM;  // [BK][BN]
-  float2* ys = smem;            // [BM][BN], after the last chunk
-
-  const unsigned t = threadIdx.x;
-  if (blockIdx.x >= p.gemm_ctas) {  // copy the groups whose controls fail
-    const unsigned stride = (gridDim.x - p.gemm_ctas) * THREADS;
-    for (unsigned l = (blockIdx.x - p.gemm_ctas) * THREADS + t; l < p.dim;
-         l += stride)
-      if ((l & p.cmask) != p.cval) {
-        p.ore[l] = __ldg(p.re + l);
-        p.oim[l] = __ldg(p.im + l);
-      }
-    return;
-  }
-  const unsigned D = 1u << p.k;
-  const unsigned row_tiles = D / BM;
-  const unsigned r0 = (blockIdx.x % row_tiles) * BM;
-  const unsigned g0 = (blockIdx.x / row_tiles) * BN;
-  const int log2g = __popc(p.free);
-  const int log2tg = min(log2g, __ffs(BN) - 1);  // this tile's groups
-  const unsigned tg = 1u << log2tg;
-  const unsigned gbase = deposit_bits(g0, p.free) | p.cval;
-  // X's chunk: BK columns (the lowest LOG2BK target bits vary) x tg groups
-  // (the lowest log2tg free bits), element e at the e-th slot in order
-  const unsigned tlow = low_bits(p.tmask, LOG2BK), flow = low_bits(p.free, log2tg);
-  const unsigned xmask = tlow | flow;
-  const unsigned thigh = p.tmask & ~tlow;
-  const unsigned xcount = BK << log2tg;
-  unsigned xl[XE], xo[XE];  // slot bits in the chunk; smem offset c * BN + g
-#pragma unroll
-  for (int i = 0; i < XE; ++i) {
-    const unsigned l = deposit_bits(t + i * THREADS, xmask);
-    xl[i] = l;
-    xo[i] = extract_bits(l, tlow) * BN + extract_bits(l, flow);
-  }
-  const float2* u = p.u + r0;
-  const unsigned chunks = D / BK;
-
-  float2 un[UE], xn[XE];  // the next chunk, in flight in registers
-  auto fetch = [&](unsigned chunk) {
-#pragma unroll
-    for (int i = 0; i < UE; ++i) {
-      const unsigned e = t + i * THREADS;  // column e / BM, row e % BM
-      un[i] = __ldg(u + (size_t)(chunk * BK + e / BM) * D + e % BM);
-    }
-    const unsigned hi = gbase | deposit_bits(chunk, thigh);
-#pragma unroll
-    for (int i = 0; i < XE; ++i)
-      if (t + i * THREADS < xcount) {
-        const unsigned l = hi | xl[i];
-        xn[i] = make_float2(__ldg(p.re + l), __ldg(p.im + l));
-      }
-  };
-
-  const unsigned tx = t % TX, ty = t / TX;
-  float ar[RM][RN], ai[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) ar[i][j] = ai[i][j] = 0.f;
-
-  fetch(0);
-  for (unsigned chunk = 0; chunk < chunks; ++chunk) {
-#pragma unroll
-    for (int i = 0; i < UE; ++i) us[t + i * THREADS] = un[i];
-#pragma unroll
-    for (int i = 0; i < XE; ++i)
-      if (t + i * THREADS < xcount) xs[xo[i]] = xn[i];
-    __syncthreads();
-    if (chunk + 1 < chunks) fetch(chunk + 1);
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float2 w[RM], x[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) w[i] = us[c * BM + ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) x[j] = xs[c * BN + tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) cmac(ar[i][j], ai[i][j], w[i], x[j].x, x[j].y);
-    }
-    __syncthreads();  // the chunk's readers are done before it is overwritten
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j)
-      ys[(ty + i * TY) * BN + tx + j * TX] = make_float2(ar[i][j], ai[i][j]);
-  __syncthreads();
-  // the output tile: BM rows (the lowest LOG2BM target bits) x tg groups
-  const unsigned rlow = low_bits(p.tmask, LOG2BM);
-  const unsigned ymask = rlow | flow;
-  const unsigned yhi = gbase | deposit_bits(r0, p.tmask);
-  const unsigned ycount = BM << log2tg;
-#pragma unroll
-  for (int i = 0; i < YE; ++i) {
-    const unsigned e = t + i * THREADS;
-    if (e < ycount) {
-      const unsigned l = deposit_bits(e, ymask);
-      const float2 y = ys[extract_bits(l, rlow) * BN + extract_bits(l, flow)];
-      p.ore[yhi | l] = y.x;
-      p.oim[yhi | l] = y.y;
-    }
-  }
+// x as a TF32 high part (10 mantissa bits, rounded to nearest with ties
+// away from zero, as cvt.rna.tf32.f32; the low 13 bits cleared) and the
+// float32 remainder x - hi, exact, which the tensor cores read as TF32 by
+// dropping its low 13 bits.
+__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
 }
 
-template <int TX, int RN, int RM, int BK>
-int launch(Pass p, cudaStream_t stream) {
-  constexpr int BM = THREADS / TX * RM, BN = TX * RN;
-  const unsigned row_tiles = (1u << p.k) / BM;
-  const unsigned group_tiles = p.groups > (unsigned)BN ? p.groups / BN : 1u;
-  p.gemm_ctas = row_tiles * group_tiles;
+// Four 8 x 4 tiles of 32-bit words from shared memory, as ldmatrix's four
+// 8 x 8 b16 matrices: lane l gives the row address of tile l / 8, row l % 8,
+// and gets word l % 4 of row l / 4 of each tile, the fragment layout of
+// mma's and wgmma's TF32 A operand.
+__device__ __forceinline__ void ldmatrix4(uint32_t (&d)[4], const float* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(a));
+}
+
+// d += a b: a 16 x 8 TF32 fragment (row-major), b 8 x 8 (column-major), d
+// 16 x 8 float32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// A CTA's tile of the product (BM rows of U from r0, BN groups from g0, the
+// group tiles of a row tile launched together, so U's rows come from device
+// memory about once) and how its chunks of BK columns are loaded: U's rows
+// 16 bytes at a time, X's chunk gathered in the order of slot indices
+// (4 consecutive slots at once where the two lowest targets are bits 0-1).
+// Shared tiles: Ur, Ui [BM][S] then Xr, Xi [BN][S] per ring slot.
+template <int BM, int BN, int BK, int THREADS>
+struct Tile {
+  static constexpr int S = BK + 4;  // floats from one tile row to the next
+  static constexpr int U_FLOATS = 2 * BM * S;
+  static constexpr int STAGE = U_FLOATS + 2 * BN * S;
+  static constexpr int UC = 2 * BM * BK / 4 / THREADS;            // U's 16-byte copies a thread
+  static constexpr int XE = (BK * BN + THREADS - 1) / THREADS;    // X's elements a thread
+  static_assert(UC * THREADS * 4 == 2 * BM * BK, "U's chunk split evenly");
+  static_assert(S % 32 == 4 && S % 4 == 0, "conflict-free, 16-byte aligned rows");
+  static_assert(BM <= 128 && BK <= 128, "cores of 7 qubits and more");
+
+  const Pass p;
+  unsigned D, r0, gbase, tlow, flow, thigh, xcount;
+  int log2tg;
+  bool quads;
+  unsigned xl[XE], xo[XE];  // slot bits in the chunk; offset g * S + c in a plane
+
+  __device__ __forceinline__ Tile(const Pass& pass, unsigned t) : p(pass) {
+    D = 1u << p.k;
+    log2tg = min(__popc(p.free), ilog2(BN));  // this tile's groups
+    const unsigned group_tiles = 1u << (__popc(p.free) - log2tg);
+    r0 = (blockIdx.x / group_tiles) * BM;
+    gbase = deposit_bits((blockIdx.x % group_tiles) * BN, p.free) | p.cval;
+    // X's chunk: BK columns (the lowest log2(BK) target bits vary) x
+    // 2^log2tg groups (the lowest log2tg free bits), element e at the e-th
+    // slot in order
+    tlow = low_bits(p.tmask, ilog2(BK));
+    flow = low_bits(p.free, log2tg);
+    thigh = p.tmask & ~tlow;
+    quads = (p.tmask & 3u) == 3u;
+    xcount = (unsigned)BK << log2tg >> (quads ? 2 : 0);
+#pragma unroll
+    for (int i = 0; i < XE; ++i) {
+      const unsigned l = deposit_bits(quads ? 4 * (t + i * THREADS) : t + i * THREADS, tlow | flow);
+      xl[i] = l;
+      xo[i] = extract_bits(l, flow) * S + extract_bits(l, tlow);
+    }
+  }
+
+  // start the copies of chunk c into the ring slot at `us`, one cp.async group
+  __device__ __forceinline__ void load(float* us, unsigned c, unsigned t) const {
+    float* xs = us + U_FLOATS;
+#pragma unroll
+    for (int i = 0; i < UC; ++i) {  // 16 bytes of a row of Ur or Ui
+      const unsigned e = t + i * THREADS;
+      const unsigned plane = e / (BM * BK / 4), rest = e % (BM * BK / 4);
+      const unsigned row = rest / (BK / 4), q = rest % (BK / 4);
+      const float* src = (plane ? p.ui : p.ur) + (size_t)(r0 + row) * D + c * BK + 4 * q;
+      cp_async16(us + plane * BM * S + row * S + 4 * q, src);
+    }
+    const unsigned hi = gbase | deposit_bits(c, thigh);
+#pragma unroll
+    for (int i = 0; i < XE; ++i) {
+      if (t + i * THREADS >= xcount) break;
+      const unsigned l = hi | xl[i];
+      if (quads) {
+        cp_async16(xs + xo[i], p.re + l);
+        cp_async16(xs + BN * S + xo[i], p.im + l);
+      } else {
+        cp_async4(xs + xo[i], p.re + l);
+        cp_async4(xs + BN * S + xo[i], p.im + l);
+      }
+    }
+    cp_async_commit();
+  }
+
+  // the output tile ys[row * YS + g] (two planes, yi = yr + BM * YS) out in
+  // slot order: BM rows (the lowest log2(BM) target bits) x the groups
+  template <int YS>
+  __device__ __forceinline__ void store(const float* yr, unsigned t) const {
+    const unsigned rlow = low_bits(p.tmask, ilog2(BM));
+    const unsigned ymask = rlow | flow;
+    const unsigned yhi = gbase | deposit_bits(r0, p.tmask);
+    const unsigned ycount = (unsigned)BM << log2tg;
+    for (unsigned e = t; e < ycount; e += THREADS) {
+      const unsigned l = deposit_bits(e, ymask);
+      const unsigned y = extract_bits(l, rlow) * YS + extract_bits(l, flow);
+      p.ore[yhi | l] = yr[y];
+      p.oim[yhi | l] = yr[BM * YS + y];
+    }
+  }
+};
+
+// CTAs past the product's copy the groups whose controls fail.
+__device__ __forceinline__ void copy_failing(const Pass& p, unsigned threads) {
+  const unsigned stride = (gridDim.x - p.gemm_ctas) * threads;
+  for (unsigned l = (blockIdx.x - p.gemm_ctas) * threads + threadIdx.x; l < p.dim; l += stride)
+    if ((l & p.cmask) != p.cval) {
+      p.ore[l] = __ldg(p.re + l);
+      p.oim[l] = __ldg(p.im + l);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync instances: warps of MT x NT fragments of 16 x 8
+// ---------------------------------------------------------------------------
+
+template <int WM_, int WN_, int WK_, int MT_, int NT_, int BK_, int STAGES_>
+struct Shape {
+  static constexpr int WM = WM_, WN = WN_, WK = WK_, MT = MT_, NT = NT_;
+  static constexpr int BK = BK_, STAGES = STAGES_;
+  static constexpr int THREADS = 32 * WM * WN * WK;
+  static constexpr int BM = WM * MT * 16;  // rows of a tile
+  static constexpr int BN = WN * NT * 8;   // groups of a tile
+  using T = Tile<BM, BN, BK, THREADS>;
+  static constexpr int S = T::S;
+  static constexpr int ACC = MT * NT * 4;      // accumulators per thread and plane
+  static constexpr int RED = (WK - 1) * WM * WN * 2 * ACC * 32;  // the shares past the first
+  static constexpr int YS = BN + 4;            // floats from one output row to the next
+  static constexpr int EPI = RED + 2 * BM * YS;
+  static constexpr int FLOATS = STAGES * T::STAGE > EPI ? STAGES * T::STAGE : EPI;
+  static constexpr size_t SMEM = sizeof(float) * FLOATS;
+  static constexpr int KSTEPS = BK / 8 / WK;                      // k8 steps a warp a chunk
+  static_assert(KSTEPS * 8 * WK == BK, "columns split evenly");
+};
+
+using Medium = Shape<1, 4, 2, 2, 2, 64, 4>;
+using Small = Shape<2, 1, 4, 1, 2, 128, 4>;
+
+template <class SH>
+__global__ void __launch_bounds__(SH::THREADS, 1) dense_pass_kernel(const Pass p) {
+  constexpr int BM = SH::BM, BN = SH::BN, S = SH::S;
+  constexpr int STAGES = SH::STAGES, MT = SH::MT, NT = SH::NT;
+  extern __shared__ float4 dyn_smem[];
+  float* smem = reinterpret_cast<float*>(dyn_smem);
+  const unsigned t = threadIdx.x;
+  if (blockIdx.x >= p.gemm_ctas) {
+    copy_failing(p, SH::THREADS);
+    return;
+  }
+  const typename SH::T tile(p, t);
+  const unsigned chunks = tile.D / SH::BK;
+
+  const unsigned lane = t % 32, warp = t / 32;
+  const unsigned wm = warp % SH::WM, wn = (warp / SH::WM) % SH::WN;
+  const unsigned wk = warp / (SH::WM * SH::WN);
+  const unsigned fg = lane / 4, ft = lane % 4;  // the fragments' groupID, thread in group
+  float accr[MT][NT][4], acci[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) accr[i][j][v] = acci[i][j][v] = 0.f;
+  // ldmatrix row addresses: A tile l / 8 is rows + 8 (l & 8), columns + 4
+  // (l & 16); B tile l / 8 is Xr (l < 16) or Xi, columns + 4 (l & 8)
+  const unsigned arow = (wm * MT * 16 + (lane & 8) + (lane & 7)) * S + (lane & 16 ? 4 : 0);
+  const unsigned brow = (lane & 16 ? BN * S : 0) + (wn * NT * 8 + (lane & 7)) * S +
+                        (lane & 8 ? 4 : 0);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if ((unsigned)s < chunks) tile.load(smem + s * SH::T::STAGE, s, t);
+    else cp_async_commit();
+  }
+  for (unsigned c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1's slot
+    if (c + STAGES - 1 < chunks)
+      tile.load(smem + (c + STAGES - 1) % STAGES * SH::T::STAGE, c + STAGES - 1, t);
+    else
+      cp_async_commit();
+    const float* us = smem + (c % STAGES) * SH::T::STAGE;
+    const float* xs = us + SH::T::U_FLOATS;
+    float tr[MT][NT][4], ti[MT][NT][4];  // this chunk's share
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) tr[i][j][v] = ti[i][j][v] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < SH::KSTEPS; ++ks) {
+      const int k0 = (wk * SH::KSTEPS + ks) * 8;
+      uint32_t arh[MT][4], arl[MT][4], aih[MT][4], ail[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {  // rows fg (+ 8), columns ft (+ 4)
+        uint32_t r[4], m[4];
+        ldmatrix4(r, us + arow + i * 16 * S + k0);
+        ldmatrix4(m, us + BM * S + arow + i * 16 * S + k0);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          split(r[v], arh[i][v], arl[i][v]);
+          split(m[v], aih[i][v], ail[i][v]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // group fg, columns ft (+ 4): Xr, then Xi
+        uint32_t b[4], bh[4], bl[4];
+        ldmatrix4(b, xs + brow + j * 8 * S + k0);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) split(b[v], bh[v], bl[v]);
+        const uint32_t nh0 = bh[2] ^ 0x80000000u, nh1 = bh[3] ^ 0x80000000u;
+        const uint32_t nl0 = bl[2] ^ 0x80000000u, nl1 = bl[3] ^ 0x80000000u;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          // Yr += Ur Xr - Ui Xi, Yi += Ui Xr + Ur Xi: small terms first
+          mma(tr[i][j], arl[i], bh[0], bh[1]);
+          mma(tr[i][j], arh[i], bl[0], bl[1]);
+          mma(tr[i][j], ail[i], nh0, nh1);
+          mma(tr[i][j], aih[i], nl0, nl1);
+          mma(tr[i][j], arh[i], bh[0], bh[1]);
+          mma(tr[i][j], aih[i], nh0, nh1);
+          mma(ti[i][j], ail[i], bh[0], bh[1]);
+          mma(ti[i][j], aih[i], bl[0], bl[1]);
+          mma(ti[i][j], arl[i], bh[2], bh[3]);
+          mma(ti[i][j], arh[i], bl[2], bl[3]);
+          mma(ti[i][j], aih[i], bh[0], bh[1]);
+          mma(ti[i][j], arh[i], bh[2], bh[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          accr[i][j][v] += tr[i][j][v];
+          acci[i][j][v] += ti[i][j][v];
+        }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  // the WK shares of the columns: the others' accumulators via shared memory
+  const unsigned wmn = warp % (SH::WM * SH::WN);
+  if constexpr (SH::WK > 1) {
+    float* red = smem + ((wk - 1) * SH::WM * SH::WN + wmn) * 2 * SH::ACC * 32 + lane;
+    if (wk > 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int a = (i * NT + j) * 4 + v;
+            red[a * 32] = accr[i][j][v];
+            red[(SH::ACC + a) * 32] = acci[i][j][v];
+          }
+    }
+    __syncthreads();
+    if (wk == 0) {
+#pragma unroll
+      for (unsigned w = 1; w < SH::WK; ++w) {
+        const float* r = smem + ((w - 1) * SH::WM * SH::WN + wmn) * 2 * SH::ACC * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              const int a = (i * NT + j) * 4 + v;
+              accr[i][j][v] += r[a * 32];
+              acci[i][j][v] += r[(SH::ACC + a) * 32];
+            }
+      }
+    }
+  }
+  // the output tile, ys[row][g] in two planes after the reduction's space
+  float* ysr = smem + SH::RED;
+  if (wk == 0) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {  // row fg (+ 8), groups 2 ft (+ 1)
+          const unsigned row = wm * MT * 16 + i * 16 + fg + (v >> 1) * 8;
+          const unsigned g = wn * NT * 8 + j * 8 + 2 * ft + (v & 1);
+          ysr[row * SH::YS + g] = accr[i][j][v];
+          ysr[BM * SH::YS + row * SH::YS + g] = acci[i][j][v];
+        }
+  }
+  __syncthreads();
+  tile.template store<SH::YS>(ysr, t);
+}
+
+// ---------------------------------------------------------------------------
+// The large instance: wgmma, two warpgroups of 64 rows x 64 groups
+// ---------------------------------------------------------------------------
+
+// d (+)= scale_a a b: the m64n64k8 TF32 product of a warpgroup, a's fragment
+// in registers (the warp's 16 rows, as mma's), b from shared memory through
+// its descriptor, d the 64 x 64 float32 fragment (columns 8 j + 2 ft (+ 1),
+// rows fg (+ 8) in d[4 j + v]); d is overwritten where scale_d is 0.
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SCALE_A));
+}
+
+// Registers that an in-flight wgmma reads or writes: keep the compiler's
+// own reads and writes of them (and its reuse of them) on their side of the
+// wait.
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_operands(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i / 4][i % 4])::"memory");
+}
+
+// Descriptor of a K-major TF32 operand in shared memory without swizzle:
+// 8 x 16-byte core matrices, 1024 bytes apart along K and 128 along N.
+__device__ __forceinline__ uint64_t smem_desc(const float* base) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(base);
+  return (uint64_t)((a >> 4) & 0x3fffu) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+struct Large {
+  static constexpr int THREADS = 256, BM = 128, BN = 64, BK = 32, STAGES = 3;
+  using T = Tile<BM, BN, BK, THREADS>;
+  static constexpr int S = T::S;
+  static constexpr int PART = BN * BK;   // one of X's four TF32 planes, canonical
+  static constexpr int YS = BN + 4;
+  static constexpr int MAIN = STAGES * T::STAGE + 4 * PART;
+  static constexpr int FLOATS = MAIN > 2 * BM * YS ? MAIN : 2 * BM * YS;
+  static constexpr size_t SMEM = sizeof(float) * FLOATS;
+  static_assert(BN == 64 && BK % 8 == 0, "m64n64k8 products");
+};
+
+__global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass p) {
+  using SH = Large;
+  constexpr int BM = SH::BM, BN = SH::BN, BK = SH::BK, S = SH::S, STAGES = SH::STAGES;
+  extern __shared__ float4 dyn_smem[];
+  float* smem = reinterpret_cast<float*>(dyn_smem);
+  const unsigned t = threadIdx.x;
+  if (blockIdx.x >= p.gemm_ctas) {
+    copy_failing(p, SH::THREADS);
+    return;
+  }
+  const SH::T tile(p, t);
+  const unsigned chunks = tile.D / BK;
+  float* xt = smem + STAGES * SH::T::STAGE;  // Xr hi, Xr lo, Xi hi, Xi lo
+
+  const unsigned lane = t % 32, warp = t / 32;
+  const unsigned fg = lane / 4, ft = lane % 4;
+  // A's ldmatrix rows: the warp's 16 of its warpgroup's 64
+  const unsigned arow = (warp * 16 + (lane & 8) + (lane & 7)) * S + (lane & 16 ? 4 : 0);
+  float accr[32], acci[32], tr[32], ti[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) accr[i] = acci[i] = tr[i] = ti[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if ((unsigned)s < chunks) tile.load(smem + s * SH::T::STAGE, s, t);
+    else cp_async_commit();
+  }
+  for (unsigned c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    // chunk c is in; every warpgroup's products of chunk c - 1 are done
+    // (each waits for its own), so its slot and xt are free
+    __syncthreads();
+    if (c + STAGES - 1 < chunks)
+      tile.load(smem + (c + STAGES - 1) % STAGES * SH::T::STAGE, c + STAGES - 1, t);
+    else
+      cp_async_commit();
+    const float* us = smem + (c % STAGES) * SH::T::STAGE;
+    {  // X's chunk into four TF32 planes, 8 x 4 core matrices (k / 4, n / 8)
+      const float* xs = us + SH::T::U_FLOATS;
+      for (unsigned i = t; i < 2 * BN * BK / 4; i += SH::THREADS) {
+        const unsigned plane = i / (BN * BK / 4), rest = i % (BN * BK / 4);
+        const unsigned n = rest % BN, kq = rest / BN;
+        const float4 v = *reinterpret_cast<const float4*>(xs + plane * BN * S + n * S + 4 * kq);
+        uint4 h, l;
+        split(__float_as_uint(v.x), h.x, l.x);
+        split(__float_as_uint(v.y), h.y, l.y);
+        split(__float_as_uint(v.z), h.z, l.z);
+        split(__float_as_uint(v.w), h.w, l.w);
+        const unsigned o = (kq * (BN / 8) + n / 8) * 32 + (n % 8) * 4;
+        *reinterpret_cast<uint4*>(xt + 2 * plane * SH::PART + o) = h;
+        *reinterpret_cast<uint4*>(xt + (2 * plane + 1) * SH::PART + o) = l;
+      }
+      // the generic proxy's writes, before wgmma reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    // U's fragments of k8 step ks, split: rh, rl, ih, il; two sets, so that
+    // the next step's are made while the tensor cores run this one's
+    uint32_t a[2][4][4];
+    auto prepare = [&](int ks, uint32_t (&f)[4][4]) {
+      uint32_t r[4], m[4];
+      ldmatrix4(r, us + arow + ks * 8);
+      ldmatrix4(m, us + BM * S + arow + ks * 8);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        split(r[v], f[0][v], f[1][v]);
+        split(m[v], f[2][v], f[3][v]);
+      }
+    };
+    prepare(0, a[0]);
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const uint32_t(&f)[4][4] = a[ks & 1];
+      const float* xk = xt + ks * 2 * (BN / 8) * 32;  // core matrices 2 ks, 2 ks + 1
+      const uint64_t xrh = smem_desc(xk), xrl = smem_desc(xk + SH::PART);
+      const uint64_t xih = smem_desc(xk + 2 * SH::PART), xil = smem_desc(xk + 3 * SH::PART);
+      const int keep = ks > 0;  // this chunk's share starts afresh
+      fence_operands(tr);
+      fence_operands(ti);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      // Yr += Ur Xr - Ui Xi, Yi += Ui Xr + Ur Xi: small terms first
+      wgmma<1>(tr, f[1], xrh, keep);
+      wgmma<1>(tr, f[0], xrl, 1);
+      wgmma<-1>(tr, f[3], xih, 1);
+      wgmma<-1>(tr, f[2], xil, 1);
+      wgmma<1>(tr, f[0], xrh, 1);
+      wgmma<-1>(tr, f[2], xih, 1);
+      wgmma<1>(ti, f[3], xrh, keep);
+      wgmma<1>(ti, f[2], xrl, 1);
+      wgmma<1>(ti, f[1], xih, 1);
+      wgmma<1>(ti, f[0], xil, 1);
+      wgmma<1>(ti, f[2], xrh, 1);
+      wgmma<1>(ti, f[0], xih, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the step before is done, and with it the other set of fragments
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_operands(a[(ks + 1) & 1]);
+      if (ks + 1 < BK / 8) prepare(ks + 1, a[(ks + 1) & 1]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(a[(BK / 8 - 1) & 1]);
+    fence_operands(tr);
+    fence_operands(ti);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      accr[i] += tr[i];
+      acci[i] += ti[i];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  float* ysr = smem;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {  // row fg (+ 8) of the warp's 16, groups 8 j + 2 ft (+ 1)
+      const unsigned row = warp * 16 + fg + (v >> 1) * 8;
+      const unsigned g = j * 8 + 2 * ft + (v & 1);
+      ysr[row * SH::YS + g] = accr[4 * j + v];
+      ysr[BM * SH::YS + row * SH::YS + g] = acci[4 * j + v];
+    }
+  __syncthreads();
+  tile.store<SH::YS>(ysr, t);
+}
+
+// the shared memory past 48 KB, allowed once per device and instance (the
+// CUDA call on every launch cost the host more than the 16-qubit pass
+// takes)
+template <class SH, class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  static unsigned long long allowed = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && (allowed >> dev & 1ull))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) allowed |= 1ull << dev;
+  return err;
+}
+
+template <class SH, class K>
+int launch(K kernel, Pass p, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<SH>(kernel, SH::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned row_tiles = (1u << p.k) / SH::BM;
+  const unsigned group_tiles = p.groups > (unsigned)SH::BN ? p.groups / SH::BN : 1u;
+  p.gemm_ctas = row_tiles * group_tiles;  // the kernel takes the group tiles minor
   unsigned copy_ctas = 0;
   if (p.cmask) {
-    copy_ctas = p.dim / THREADS;
+    copy_ctas = p.dim / SH::THREADS;
     if (copy_ctas > 1024) copy_ctas = 1024;
+    if (copy_ctas < 1) copy_ctas = 1;
   }
-  dense_pass_kernel<TX, RN, RM, BK><<<p.gemm_ctas + copy_ctas, THREADS, 0, stream>>>(p);
+  kernel<<<p.gemm_ctas + copy_ctas, SH::THREADS, SH::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -221,23 +650,28 @@ int launch(Pass p, cudaStream_t stream) {
 
 // Launch the pass on `stream`: out = the gate applied to `state`, both
 // (2, dim) float32 planes on the device, distinct. `u` is the device copy of
-// the 2^k x 2^k core (float2, column-major, index bit j the j-th lowest bit
-// of `tmask`), `cmask`/`cval` the control bits and values (disjoint from
-// the targets). Returns the cudaError_t of the launch (0 on success); the
-// launch does not synchronize and allocates nothing.
+// the 2^k x 2^k core (two row-major float32 planes, re then im, index bit j
+// the j-th lowest bit of `tmask`), `cmask`/`cval` the control bits and
+// values (disjoint from the targets), `instance` 0 small (32 x 16 tiles), 1
+// medium (32 x 64) or 2 large (128 x 64), k >= 7. Returns the cudaError_t of the
+// launch (0 on success); the launch does not synchronize and allocates
+// nothing.
 extern "C" int dense_pass_launch(const float* state, float* out, long long dim,
                                  const float* u, int k, unsigned tmask,
-                                 unsigned cmask, unsigned cval, void* stream) {
+                                 unsigned cmask, unsigned cval, int instance,
+                                 void* stream) {
   if (dim < 2 || dim > (1LL << 30) || (dim & (dim - 1)) || state == out ||
-      k < 6 || __builtin_popcount(tmask) != k || (tmask & cmask) ||
-      (cval & ~cmask) || ((tmask | cmask) & ~(unsigned)(dim - 1)))
+      k < 7 || instance < 0 || instance > 2 || __builtin_popcount(tmask) != k || (tmask & cmask) ||
+      (cval & ~cmask) || ((tmask | cmask) & ~(unsigned)(dim - 1)) ||
+      (reinterpret_cast<uintptr_t>(u) & 15) || (reinterpret_cast<uintptr_t>(state) & 15))
     return (int)cudaErrorInvalidValue;
   Pass p{};
   p.re = state;
   p.im = state + dim;
   p.ore = out;
   p.oim = out + dim;
-  p.u = reinterpret_cast<const float2*>(u);
+  p.ur = u;
+  p.ui = u + ((size_t)1 << (2 * k));
   p.tmask = tmask;
   p.cmask = cmask;
   p.cval = cval;
@@ -246,7 +680,9 @@ extern "C" int dense_pass_launch(const float* state, float* out, long long dim,
   p.groups = 1u << __builtin_popcount(p.free);
   p.dim = (unsigned)dim;
   const cudaStream_t s = (cudaStream_t)stream;
-  return p.groups >= 64 ? launch<16, 4, 4, 16>(p, s) : launch<8, 2, 1, 64>(p, s);
+  return instance == 2   ? launch<Large>(dense_pass_wgmma, p, s)
+         : instance == 1 ? launch<Medium>(dense_pass_kernel<Medium>, p, s)
+                         : launch<Small>(dense_pass_kernel<Small>, p, s);
 }
 
 extern "C" const char* dense_pass_error_string(int err) {

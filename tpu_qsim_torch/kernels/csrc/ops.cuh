@@ -1,9 +1,8 @@
 // Op semantics shared by the port's kernels: how one op of the device op
 // table (tpu_qsim_torch/kernels/fused_circuit.py::build_op_table) acts on a
-// block of 2^kbits amplitude slots. grid_sweep.cu, whole_circuit.cu,
-// segment.cu, sweep.cu and dense_pass.cu all include this one copy
-// (grid_sweep.cu and sweep.cu through block_program.cuh, the register
-// program they share).
+// block of 2^kbits amplitude slots. grid_sweep.cu, segment.cu, sweep.cu and
+// dense_pass.cu all include this one copy (grid_sweep.cu and sweep.cu
+// through block_program.cuh, the register program they share).
 //
 // Replaces the op body that every TPU kernel of tpu_qsim shares,
 // tpu_qsim/kernels/fused_circuit.py::emit_ops (XOR-shift gate emission,
@@ -12,22 +11,15 @@
 // Where slot l lives is the caller's choice, through a Slots type whose
 // re(l) / im(l) return pointers:
 //   BlockSlots   - this CTA's own shared memory holds the whole block, at l
-//                  (the grid sweep, the segments);
-//   LocalSlots   - this CTA's own shared memory holds the slots l with one
-//                  value of l >> local_bits, at l & mask;
-//   ClusterSlots - a thread-block cluster's distributed shared memory: slot l
-//                  lives in CTA l >> local_bits, at l & mask there;
+//                  (the grid sweep, the segments, a tile of the sweeps);
 //   GlobalSlots  - device memory (the sweep kernels): slot l is the state
 //                  index of l under the block layout of the current part or
 //                  step, see below.
 // Which work items a CTA takes is a Part: an op's items are split into 2^log2
-// equal contiguous parts and the CTA takes part `index`. In a cluster, part
-// r of an op that moves no bit >= local_bits touches only CTA r's slots, so
-// the caller may run such an op through LocalSlots.
+// equal contiguous parts and the CTA takes part `index`.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace qsim {
@@ -40,35 +32,13 @@ constexpr int KIND_DIAG = 0;        // KIND_DENSE (1): a dense core
 constexpr int TILE_CORE = 5;        // dense cores of this many qubits and more: apply_dense_tiled
 constexpr int NARROW_CORE = 4;      // the widest core of a kernel's narrow instance
 
-// Masking every access of a single-CTA block (LocalSlots with mask size - 1)
-// cost the 28q grid sweep 3% against this type on the H100 (PERF.md).
+// Masking every access of a single-CTA block (a mask of size - 1 on each
+// slot) cost the 28q grid sweep 3% against this type on the H100 (PERF.md).
 struct BlockSlots {
   float* sr;
   float* si;
   __device__ float* re(unsigned l) const { return sr + l; }
   __device__ float* im(unsigned l) const { return si + l; }
-};
-
-struct LocalSlots {
-  float* sr;
-  float* si;
-  unsigned mask;
-  __device__ float* re(unsigned l) const { return sr + (l & mask); }
-  __device__ float* im(unsigned l) const { return si + (l & mask); }
-};
-
-struct ClusterSlots {
-  float* sr;  // this CTA's planes; every CTA of the cluster has the same offsets
-  float* si;
-  int local_bits;
-  __device__ float* re(unsigned l) const {
-    return cooperative_groups::this_cluster().map_shared_rank(sr, l >> local_bits) +
-           (l & ((1u << local_bits) - 1u));
-  }
-  __device__ float* im(unsigned l) const {
-    return cooperative_groups::this_cluster().map_shared_rank(si, l >> local_bits) +
-           (l & ((1u << local_bits) - 1u));
-  }
 };
 
 // The sweep kernels' block: kernel bits [0, blk) are state bits [0, blk),
@@ -109,19 +79,6 @@ __device__ __forceinline__ void cmac(float& ar, float& ai, float2 w, float xr,
 
 __device__ __forceinline__ unsigned bit_of(int code, unsigned l, unsigned cta_g) {
   return code < EXT ? (l >> code) & 1u : (cta_g >> (code - EXT)) & 1u;
-}
-
-// True when the op may touch slots along a block bit >= bits: a dense core
-// with a target there, or any tiled core (its tiles go to the CTAs in turn,
-// whatever their slots); diagonal ops move nothing.
-// The narrow instance (MAXM = NARROW_CORE) has no tiled core to test for:
-// the extra test cost the 18q whole-circuit kernel 6% on the H100.
-template <int MAXM>
-__device__ __forceinline__ bool op_moves_from(const int* op, int bits) {
-  if constexpr (MAXM > NARROW_CORE) {
-    if (op[0] != KIND_DIAG && op[1] >= TILE_CORE) return true;
-  }
-  return op[0] != KIND_DIAG && op[24 + op[1] - 1] >= bits;
 }
 
 // Diagonal op: one thread per slot, d[bits of the op's qubits]. Ops on one
@@ -229,8 +186,8 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
 // threads, else 2), so a CTA of T threads takes tiles of TG = 4 GT T / D
 // groups (fewer if the op has fewer groups):
 //   1. the tile's X is staged from the slots into shared memory, xs[c][g]
-//      (its slots may be this CTA's shared memory, a cluster's or device
-//      memory: the op reads each once). A tile is the slots whose bits
+//      (its slots may be this CTA's shared memory or device memory: the op
+//      reads each once). A tile is the slots whose bits
 //      outside the targets and the tile's lowest free bits are fixed; its
 //      elements are taken in the order of their slot indices, so a warp's
 //      32 loads are consecutive slots wherever the targets lie (no bank

@@ -50,6 +50,20 @@
 // up to NARROW_CORE (tile stages only) and of up to MAX_CORE qubits, as the
 // other kernels are.
 //
+// The same kernel runs the whole-circuit route (10-18 qubits, the port of
+// tpu_qsim/kernels/fused_circuit.py::build_pallas_run_gates, the pallas_call
+// at fused_circuit.py:1552, which holds the whole state in VMEM): the whole
+// state is one unit of a low sweep with no part bits, kernels/fused_circuit.py
+// ::WholeCircuitProgram cuts the circuit into stages as a sweep's, and one
+// group of CTAs, each holding one tile at a time, runs them in one launch,
+// the 2-8 MB state in L2 between stages. At 10-12 qubits a unit stage's
+// tiled op may need more threads than the tile has (2^k <= 4 x threads,
+// tiles of 2^T <= 2^n slots): the low wide instance built with SPARE then
+// runs the tile stages on the tile's threads while the other warps wait at
+// the barriers. (Instances built for at most 512 threads, so that ptxas
+// gives the narrow register program 128 registers instead of 64 and 1.2 KB
+// of spills, ran the route no faster on the H100.)
+//
 // Bound on this card: device-memory bytes, 16 B per amplitude per sweep
 // (both planes read and written once; 0.32 ms at 26 qubits and 3.35 TB/s),
 // or the flops of a wide core. The design pays above that one L2 pass over
@@ -104,7 +118,7 @@ constexpr int HEADER_TILE_BITS = 5;
 constexpr int STAGE_WORDS = 8;
 constexpr int STAGE_TILE = 0;  // STAGE_UNIT (1): one wide core over the unit
 
-template <bool HIGH, int MAXM>
+template <bool HIGH, int MAXM, bool SPARE = false>
 __global__ void __launch_bounds__(MAXM > NARROW_CORE ? WIDE_THREADS : MAX_THREADS)
 sweep_kernel(float* __restrict__ re, float* __restrict__ im,
              const int* __restrict__ table, const float2* __restrict__ coef,
@@ -116,7 +130,9 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
   const int n_inact = table[3];
   const int kbits = blk + a;
   const int tile_bits = table[HEADER_TILE_BITS];
-  if ((1u << tile_bits) != blockDim.x << R) __trap();
+  if (SPARE ? (1u << tile_bits) > blockDim.x << R
+            : (1u << tile_bits) != blockDim.x << R)
+    __trap();
   const int* inact = table + 32;
   const int* stages = table + SWEEP_HEADER;
   // a tile stage's block (remaps, shared-memory ops) and, in the wide
@@ -168,12 +184,12 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
             prefetch_block(pr, pi, re, im, shape.size, shape.blk, shape.a,
                            sub + 16, unit_g | deposit_bits(t, outside));
           for (; t < n_tiles; t += members) {
-            run_block<NARROW_CORE, false>(
+            run_block<NARROW_CORE, false, SPARE>(
                 re, im, sub, shape, sc, unit_g | deposit_bits(t, outside), sr,
                 si, scratch, [&](Regs& x) {
                   cp_async_wait<0>();
                   __syncthreads();  // the tile is in (pr, pi); (sr, si) is free
-                  x.load(pr, pi);
+                  if (!SPARE || threadIdx.x < (shape.size >> R)) x.load(pr, pi);
                   __syncthreads();
                   if (t + members < n_tiles)
                     prefetch_block(pr, pi, re, im, shape.size, shape.blk,
@@ -212,7 +228,7 @@ size_t smem_bytes(int threads) {
   return 2 * tile > tiled ? 2 * tile : tiled;
 }
 
-template <bool HIGH, int MAXM>
+template <bool HIGH, int MAXM, bool SPARE = false>
 int launch(float* state, long long dim, const int* table, const float* coef,
            unsigned* barriers, int groups, int group_bits, int threads,
            cudaStream_t stream) {
@@ -221,8 +237,9 @@ int launch(float* state, long long dim, const int* table, const float* coef,
   const float2* c = reinterpret_cast<const float2*>(coef);
   void* args[] = {&re, &im, &table, &c, &barriers, &group_bits};
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)sweep_kernel<HIGH, MAXM>, dim3((unsigned)groups << group_bits),
-      dim3(threads), args, smem_bytes<MAXM>(threads), stream);
+      (const void*)sweep_kernel<HIGH, MAXM, SPARE>,
+      dim3((unsigned)groups << group_bits), dim3(threads), args,
+      smem_bytes<MAXM>(threads), stream);
 }
 
 template <bool HIGH>
@@ -237,16 +254,17 @@ int launch_core(float* state, long long dim, const int* table,
                                       groups, group_bits, threads, stream);
 }
 
-template <bool HIGH, int MAXM>
+template <bool HIGH, int MAXM, bool SPARE = false>
 cudaError_t resident(int threads, int sms, int* ctas) {
   int per_sm = 0;
   // the most any launch of the instance asks for, whatever its threads
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<HIGH, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<HIGH, MAXM, SPARE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<MAXM>(MAXM > NARROW_CORE ? WIDE_THREADS : MAX_THREADS));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sweep_kernel<HIGH, MAXM>, threads, smem_bytes<MAXM>(threads));
+        &per_sm, sweep_kernel<HIGH, MAXM, SPARE>, threads,
+        smem_bytes<MAXM>(threads));
   *ctas = per_sm * sms;
   return err;
 }
@@ -262,16 +280,22 @@ bool valid_threads(int threads, bool wide) {
 // wide ones (unit stages too) its shared memory at `threads` threads, and
 // report in *ctas how many CTAs of it the current device keeps resident at
 // once (the most a cooperative launch takes; the low and the high sweep's
-// instances alike). Each instance is counted at its own threads and shared
-// memory, so a narrow launch is not cut to the wide instance's residency.
-// Returns a cudaError_t (0 on success).
-extern "C" int sweep_prepare(int threads, int wide, int* ctas) {
+// instances alike, or with `spare` the low wide instance whose CTAs may have
+// more threads than a tile). Each instance is counted at its own threads and
+// shared memory, so a narrow launch is not cut to the wide instance's
+// residency. Returns a cudaError_t (0 on success).
+extern "C" int sweep_prepare(int threads, int wide, int spare, int* ctas) {
   *ctas = 0;
-  if (!valid_threads(threads, wide != 0)) return (int)cudaErrorInvalidValue;
+  if (!valid_threads(threads, wide != 0 || spare != 0))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (spare) {
+    if (err == cudaSuccess) err = resident<false, MAX_CORE, true>(threads, sms, ctas);
+    return (int)err;
+  }
   int lo = 0, hi = 0;
   if (err == cudaSuccess)
     err = wide ? resident<false, MAX_CORE>(threads, sms, &lo)
@@ -288,26 +312,30 @@ extern "C" int sweep_prepare(int threads, int wide, int* ctas) {
 // sweeps.py::sweep_table's output for a unit of `kbits` bits, `max_core` its
 // widest dense core, `barriers` `groups` words of device memory (zeroed
 // here). The grid is `groups` groups of 2^group_bits CTAs of `threads`
-// threads (16 x threads slots a tile: the table's tile bits), at most
-// sweep_prepare's count for the instance. Returns the cudaError_t of the
-// launch (0 on success); the launch does not synchronize.
+// threads (16 x threads slots a tile: the table's tile bits; with `spare`, a
+// low sweep with a wide core, at least that many), at most sweep_prepare's
+// count for the instance. Returns the cudaError_t of the launch (0 on
+// success); the launch does not synchronize.
 extern "C" int sweep_launch(int high, float* state, long long dim,
                             const int* table, const float* coef, int kbits,
                             unsigned* barriers, int groups, int group_bits,
-                            int threads, int max_core, void* stream) {
+                            int threads, int max_core, int spare, void* stream) {
   if (max_core > MAX_CORE || !valid_threads(threads, max_core > NARROW_CORE) ||
-      (threads << R) > (1 << kbits) || !threads_fit_core(threads, max_core) ||
-      groups < 1 || group_bits < 0 || group_bits > kbits ||
-      ((long long)groups << group_bits) > (1LL << 20))
+      (!spare && (threads << R) > (1 << kbits)) ||
+      (spare && (high || max_core <= NARROW_CORE)) ||
+      !threads_fit_core(threads, max_core) || groups < 1 || group_bits < 0 ||
+      group_bits > kbits || ((long long)groups << group_bits) > (1LL << 20))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(barriers, 0, sizeof(unsigned) * groups, s);
   if (err != cudaSuccess) return (int)err;
   const int launched =
-      high ? launch_core<true>(state, dim, table, coef, barriers, groups,
-                               group_bits, threads, max_core, s)
-           : launch_core<false>(state, dim, table, coef, barriers, groups,
-                                group_bits, threads, max_core, s);
+      spare ? launch<false, MAX_CORE, true>(state, dim, table, coef, barriers,
+                                            groups, group_bits, threads, s)
+      : high ? launch_core<true>(state, dim, table, coef, barriers, groups,
+                                 group_bits, threads, max_core, s)
+             : launch_core<false>(state, dim, table, coef, barriers, groups,
+                                  group_bits, threads, max_core, s);
   if (launched != 0) return launched;
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ _emit_gate_generic``, which has no width limit); here
 :func:`kernels.dispatch.plan_run` splits the circuit at each such gate, and
 :class:`DensePass` applies it between the route's launches with the
 hand-written kernel ``csrc/dense_pass.cu``: Y = U X over the whole state, out
-of place into a second state buffer (:func:`dense_pass`).
+of place into a second state buffer (:func:`dense_pass`), on the tensor cores
+with every operand split into two TF32 parts (3xTF32).
 """
 
 from __future__ import annotations
@@ -21,9 +22,30 @@ from .. import apply as ap
 from . import LAUNCHES
 from .fused_circuit import MAX_DENSE_QUBITS, PGate, _is_diagonal, _peel_controls, check_planes
 
-# the kernel takes cores of at least 2^6 rows (its largest row tile); the
-# route sends it only cores wider than the tiled op's
-MIN_PASS_CORE = 6
+# the kernel takes cores of at least 2^7 rows (a tile of its large
+# instance, a chunk of its small one); the route sends it only cores wider
+# than the tiled op's
+MIN_PASS_CORE = 7
+# dense_pass.cu's instances: (rows, groups) of a CTA's tile, and the
+# launcher's number for each
+INSTANCES = {"small": (32, 16), "medium": (32, 64), "large": (128, 64)}
+INSTANCE_CODE = {"small": 0, "medium": 1, "large": 2}
+# the large instance is taken when it makes at least this many CTAs (about
+# one per SM of the H100's 132); with fewer, the medium one's 2^k / 32 row
+# tiles keep more of the card streaming U
+LARGE_MIN_CTAS = 128
+
+
+def pass_instance(k: int, log2_groups: int) -> str:
+    """Which of ``dense_pass.cu``'s instances runs a k-qubit core over
+    2^log2_groups groups: "small" (32 x 16 tiles, U's bytes bound the pass)
+    for 16 groups or fewer; "large" (128 x 64 tiles, the tensor cores' rate
+    bounds it) when it fills the card; else "medium" (32 x 64 tiles)."""
+    if log2_groups <= 4:
+        return "small"
+    rows, groups = INSTANCES["large"]
+    tiles = ((1 << k) // rows) * max(1, (1 << log2_groups) // groups)
+    return "large" if tiles >= LARGE_MIN_CTAS else "medium"
 
 
 def pass_core(g: PGate) -> tuple | None:
@@ -39,16 +61,17 @@ def pass_core(g: PGate) -> tuple | None:
 def core_operand(core: np.ndarray, qubits: tuple[int, ...]) -> np.ndarray:
     """The kernel's U: ``core`` (index MSB ``qubits[0]``, as every gate
     matrix) with its row and column index bits reordered so that bit j is the
-    j-th lowest of ``qubits``, stored column-major as (4^k, 2) float32
-    (re, im) pairs."""
+    j-th lowest of ``qubits``, as (2, 2^k, 2^k) float32: the real and the
+    imaginary plane, each row-major (the tensor cores' row-major A
+    operand)."""
     k = len(qubits)
     order = sorted(qubits)
     # index j of the reordered core -> index of the gate's matrix
     src = np.zeros(1 << k, dtype=np.int64)
     for b, q in enumerate(order):
         src |= ((np.arange(1 << k) >> b) & 1) << (k - 1 - qubits.index(q))
-    u = np.ascontiguousarray(np.asarray(core)[np.ix_(src, src)].T, dtype=np.complex64)
-    return u.reshape(-1).view(np.float32).reshape(-1, 2)
+    u = np.asarray(core)[np.ix_(src, src)]
+    return np.ascontiguousarray(np.stack([u.real, u.imag]), dtype=np.float32)
 
 
 def apply_controlled(
@@ -84,9 +107,10 @@ def dense_pass(
     """Launch the dense-pass kernel: a new (2, 2^n) float32 state (allocated
     here with ``torch.empty``) holding ``state`` after the core ``u`` (the
     device copy of :func:`core_operand`) on the bits of ``tmask``, where the
-    bits of ``cmask`` are all 1. Raises ValueError on inputs the kernel does
-    not take, RuntimeError when the card cannot hold the output buffer or the
-    launch fails. Launches on the current stream without synchronizing."""
+    bits of ``cmask`` are all 1; the instance :func:`pass_instance` picks.
+    Raises ValueError on inputs the kernel does not take, RuntimeError when
+    the card cannot hold the output buffer or the launch fails. Launches on
+    the current stream without synchronizing."""
     from . import _build
 
     if not state.is_cuda or state.dtype != torch.float32:
@@ -97,9 +121,11 @@ def dense_pass(
     k = bin(tmask).count("1")
     if (
         u.device != state.device or u.dtype != torch.float32 or not u.is_contiguous()
-        or tuple(u.shape) != (1 << 2 * k, 2)
+        or tuple(u.shape) != (2, 1 << k, 1 << k)
     ):
-        raise ValueError(f"u must be a contiguous (4^{k}, 2) float32 core on the state's device")
+        raise ValueError(
+            f"u must be a contiguous (2, 2^{k}, 2^{k}) float32 core on the state's device"
+        )
     if k < MIN_PASS_CORE or tmask & cmask or (tmask | cmask) >= dim:
         raise ValueError(f"bad target mask {tmask:#x} / control mask {cmask:#x} for 2^{dim.bit_length() - 1} slots")
     try:     # the free-memory check is made once per core, in DensePass.u_on
@@ -109,12 +135,14 @@ def dense_pass(
             f"the dense pass's output state needs {state.numel() * 4} B of device "
             f"memory, which the card cannot give"
         ) from e
+    log2_groups = (dim.bit_length() - 1) - k - bin(cmask).count("1")
+    instance = INSTANCE_CODE[pass_instance(k, log2_groups)]
     lib = _build.library("dense_pass")
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.dense_pass_launch(
             state.data_ptr(), out.data_ptr(), dim, u.data_ptr(), k, tmask, cmask,
-            cmask, stream,
+            cmask, instance, stream,
         )
     _build.check("dense_pass", lib, err, "dense_pass launch")
     LAUNCHES["dense_pass"] += 1

@@ -2,7 +2,7 @@
 
 | dtype   | n       | device | engine                                               |
 |---------|---------|--------|------------------------------------------------------|
-| float32 | 10..18  | cuda   | whole-circuit program (``csrc/whole_circuit.cu``)    |
+| float32 | 10..18  | cuda   | whole-circuit program (``csrc/sweep.cu``, one unit)  |
 | float32 | 19      | cuda   | segmented program (``csrc/segment.cu``)              |
 | float32 | 20..30  | cuda   | grid-sweep program (``csrc/grid_sweep.cu``)          |
 | float32 | 22..26  | cuda   | sweep program (``csrc/sweep.cu``), when the grid     |

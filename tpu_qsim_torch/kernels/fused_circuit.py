@@ -10,18 +10,17 @@ resolved out-of-block bits through per-step ``ext`` scalars; both are TPU
 layout. Here a block's gates become a flat int32 table of ops (one header per
 op) plus a float32 table of coefficients composed on the host in complex128,
 which the compiled kernels (``csrc/ops.cuh``, included by ``grid_sweep.cu``,
-``whole_circuit.cu``, ``segment.cu`` and ``sweep.cu``) interpret for any
+``segment.cu``, ``sweep.cu`` and ``dense_pass.cu``) interpret for any
 circuit.
 
 :class:`WholeCircuitProgram` is the counterpart of ``build_pallas_run`` /
-``build_pallas_run_gates``: the whole circuit in one launch of
-``csrc/whole_circuit.cu``, on a state held in the distributed shared memory
-of one thread-block cluster (10-18 qubits).
+``build_pallas_run_gates``: the whole circuit (10-18 qubits) in one launch
+of ``csrc/sweep.cu``'s low-sweep kernel over the whole state as one unit,
+in stages of tile passes planned by ``sweeps.plan_stages``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -422,78 +421,75 @@ def check_kernel_inputs(
 
 
 # ---------------------------------------------------------------------------
-# Whole-circuit kernel (csrc/whole_circuit.cu)
+# Whole-circuit route: csrc/sweep.cu over the whole state as one unit
 # ---------------------------------------------------------------------------
 
 MIN_WHOLE_CIRCUIT_QUBITS = 10   # as the JAX package's MIN_PALLAS_QUBITS
-MAX_WHOLE_CIRCUIT_QUBITS = 18   # 16 CTAs x 2^14 slots; the JAX policy ceiling too
-MAX_CLUSTER_BITS = 4            # 16 CTAs, the card's non-portable maximum
-# qubits -> (log2 of the cluster's CTAs, threads per CTA), chosen on the H100
-# with ``python -m tpu_qsim_torch.kernels.tune_small`` (PERF.md)
+MAX_WHOLE_CIRCUIT_QUBITS = 18   # the JAX package's policy ceiling
+# sweep.cu's wide instance (a table with a tiled core) takes at most 512
+# threads of 16 amplitudes
+WIDE_TILE_BITS = 13
+# qubits -> (tile bits T, CTAs of the launch's one group), chosen on the H100
+# with ``python -m tpu_qsim_torch.kernels.tune_small`` (PERF.md): one CTA a
+# tile; a tile of 2^11 slots (128 threads) from 13 qubits on, where more CTAs
+# beat fewer stages; at 18 qubits 2^12 ties it in 4 stages instead of 5
 GEOMETRY = {
-    10: (1, 512), 11: (2, 512), 12: (3, 512), 13: (4, 512), 14: (4, 256),
-    15: (4, 256), 16: (4, 512), 17: (4, 1024), 18: (4, 1024),
+    10: (10, 1), 11: (11, 1), 12: (12, 1), 13: (11, 4), 14: (11, 8),
+    15: (11, 16), 16: (11, 32), 17: (11, 64), 18: (12, 64),
 }
-
-# (device, n, cluster bits, threads) -> clusters the card holds at once
-_placeable: dict[tuple, int] = {}
-
-
-def placeable_clusters(
-    device: torch.device, n: int, cluster_bits: int, threads: int,
-) -> int:
-    """How many clusters of ``2^cluster_bits`` CTAs for an ``n``-qubit
-    state the card can hold at once (0: it cannot place one), from
-    ``cudaOccupancyMaxActiveClusters`` after the kernel's attributes are
-    set. Asked once per process and geometry."""
-    from . import _build
-
-    key = (torch.device(device), n, cluster_bits, threads)
-    if key not in _placeable:
-        lib = _build.library("whole_circuit")
-        clusters = ctypes.c_int(0)
-        with torch.cuda.device(key[0]):
-            err = lib.whole_circuit_prepare(
-                n, cluster_bits, threads, ctypes.byref(clusters)
-            )
-        _build.check("whole_circuit", lib, err, "whole_circuit_prepare")
-        _placeable[key] = clusters.value
-    return _placeable[key]
 
 
 def whole_circuit(
     state: torch.Tensor,
     ints: torch.Tensor,
     coef: torch.Tensor,
-    cluster_bits: int,
+    tile_bits: int,
     threads: int,
+    ctas: int,
     max_core: int = MAX_DENSE_QUBITS,
 ) -> torch.Tensor:
-    """Launch the whole-circuit kernel on ``state`` (in place).
+    """Launch the whole-circuit kernel on ``state`` (in place): one launch of
+    ``csrc/sweep.cu``'s low-sweep kernel over the whole state as one unit.
 
     ``ints``/``coef`` are the device copies of the circuit's
-    :class:`OpTable` over ``BlockLayout(n, n, ())``, ``max_core`` its widest
-    dense core (the kernel instance for narrow cores is launched when it is
-    at most 4). Raises when the card
-    cannot place one cluster of ``2^cluster_bits`` CTAs. Launches on the
-    current stream without synchronizing and raises on a refused launch.
+    ``sweeps.sweep_table`` over ``BlockLayout(n, n, ())`` with tiles of
+    ``2^tile_bits`` slots, ``max_core`` its widest dense core (the kernel
+    instance for narrow cores is launched when it is at most 4). Each CTA
+    has ``threads`` threads: 16 amplitudes of a tile each, or more where a
+    unit stage's tiled op needs them (2^max_core <= 4 x threads), the other
+    warps then idle in the tile stages. The launch takes ``ctas`` CTAs (a
+    power of two), fewer where the state has fewer tiles or the card keeps
+    fewer resident. Launches on the current stream without synchronizing
+    and raises on a refused launch.
     """
     from . import _build
+    from .gridsweeps import MIN_GRID_BLOCK_BITS, REG_BITS
+    from .sweeps import MAX_TILE_BITS, resident_ctas
 
     n = check_kernel_inputs(state, ints, coef)
-    if placeable_clusters(state.device, n, cluster_bits, threads) < 1:
-        raise RuntimeError(
-            f"the card cannot place a cluster of {1 << cluster_bits} CTAs x "
-            f"{8 << (n - cluster_bits)} B of shared memory"
+    tile_threads = 1 << (tile_bits - REG_BITS)
+    if not MIN_GRID_BLOCK_BITS <= tile_bits <= min(n, MAX_TILE_BITS):
+        raise ValueError(f"tile bits {tile_bits} outside {MIN_GRID_BLOCK_BITS}..{min(n, MAX_TILE_BITS)}")
+    if threads < tile_threads or threads & (threads - 1) or ctas < 1 or ctas & (ctas - 1):
+        raise ValueError(
+            f"{threads} threads x {ctas} CTAs: both powers of two, at least "
+            f"{tile_threads} threads for 2^{tile_bits}-slot tiles"
         )
-    lib = _build.library("whole_circuit")
+    spare = threads > tile_threads
+    resident = resident_ctas(state.device, threads, max_core > NARROW_CORE, spare)
+    group = min(ctas, 1 << (n - tile_bits), resident)
+    if group < 1:
+        raise RuntimeError("the card cannot keep one whole-circuit CTA resident")
+    lib = _build.library("sweep")
+    barrier = torch.empty(1, dtype=torch.int32, device=state.device)
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = lib.whole_circuit_launch(
-            state.data_ptr(), n, ints.data_ptr(), coef.data_ptr(),
-            cluster_bits, threads, max_core, stream,
+        err = lib.sweep_launch(
+            0, state.data_ptr(), 1 << n, ints.data_ptr(), coef.data_ptr(), n,
+            barrier.data_ptr(), 1, group.bit_length() - 1, threads, max_core,
+            int(spare), stream,
         )
-    _build.check("whole_circuit", lib, err, "whole_circuit launch")
+    _build.check("sweep", lib, err, "whole_circuit launch")
     LAUNCHES["whole_circuit"] += 1
     return state
 
@@ -501,41 +497,55 @@ def whole_circuit(
 class WholeCircuitProgram:
     """The whole circuit as one launch of the whole-circuit kernel.
 
-    The counterpart of ``build_pallas_run`` (10-18 qubits). ``run`` maps
-    (2, 2^n) float32 planes to planes: on a CUDA tensor it launches the
-    kernel once, in place; on a CPU tensor it runs the plain version,
-    :meth:`run_plain`. ``cluster_bits`` and ``threads`` default to the
-    card's table :data:`GEOMETRY`.
+    The counterpart of ``build_pallas_run`` (10-18 qubits), whose state
+    stays in VMEM for the whole circuit. Here the state (2-8 MB at 18
+    qubits) stays in L2: the merged gate list is cut into :attr:`stages`
+    by ``sweeps.plan_stages`` over the whole state as one unit, runs of ops
+    whose moving bits fit a ``2^tile_bits``-slot tile run in registers tile
+    by tile (one pass over the state), a dense core of ``TILE_CORE`` qubits
+    or more is a pass of the tiled op, and one group of :attr:`ctas` CTAs
+    meets at a barrier only between stages (``sweeps.sweep_table``,
+    ``csrc/sweep.cu``). ``run`` maps (2, 2^n) float32 planes to planes: on
+    a CUDA tensor it launches the kernel once, in place; on a CPU tensor it
+    runs the plain version, :meth:`run_plain`. ``tile_bits`` and ``ctas``
+    default to the card's table :data:`GEOMETRY`; a table with a tiled core
+    takes tiles of at most ``2^WIDE_TILE_BITS`` slots.
     """
 
     def __init__(
         self,
         circuit,
-        cluster_bits: int | None = None,
-        threads: int | None = None,
+        tile_bits: int | None = None,
+        ctas: int | None = None,
     ):
+        from .gridsweeps import MIN_GRID_BLOCK_BITS, REG_BITS
+        from .sweeps import MAX_TILE_BITS, moving_qubits, plan_stages, sweep_table
+
         n = circuit.num_qubits
         if not MIN_WHOLE_CIRCUIT_QUBITS <= n <= MAX_WHOLE_CIRCUIT_QUBITS:
             raise ValueError(
                 f"the whole-circuit kernel takes {MIN_WHOLE_CIRCUIT_QUBITS}.."
                 f"{MAX_WHOLE_CIRCUIT_QUBITS} qubits, got {n}"
             )
-        c = GEOMETRY[n][0] if cluster_bits is None else int(cluster_bits)
-        threads = GEOMETRY[n][1] if threads is None else int(threads)
-        if not (0 <= c <= MAX_CLUSTER_BITS and n - c <= MAX_BLOCK_BITS):
+        t = GEOMETRY[n][0] if tile_bits is None else int(tile_bits)
+        ctas = GEOMETRY[n][1] if ctas is None else int(ctas)
+        if not MIN_GRID_BLOCK_BITS <= t <= MAX_TILE_BITS or ctas < 1 or ctas & (ctas - 1):
             raise ValueError(
-                f"a cluster of 2^{c} CTAs cannot hold {n} qubits (at most "
-                f"2^{MAX_CLUSTER_BITS} CTAs of 2^{MAX_BLOCK_BITS} slots)"
+                f"tiles of 2^{MIN_GRID_BLOCK_BITS}..2^{MAX_TILE_BITS} slots and a "
+                f"power of two of CTAs, got 2^{t} and {ctas}"
             )
-        if not 32 <= threads <= 1024:
-            raise ValueError(f"threads must be in [32, 1024], got {threads}")
         self.num_qubits = n
-        self.cluster_bits = c
-        self.threads = threads
         self.gates = merge_1q_chains(as_pgates(circuit.gates))
+        widest = max((len(moving_qubits(g.u, g.qubits)) for g in self.gates), default=0)
+        self.tile_bits = min(t, n, WIDE_TILE_BITS if widest >= TILE_CORE else n)
         self.layout = BlockLayout(n, n, ())
-        self.table = build_op_table(self.gates, self.layout, max_bits=n)
-        check_tile(self.table.max_core, threads)
+        self.stages = plan_stages(self.gates, self.layout, self.tile_bits)
+        self.table = sweep_table(self.stages, self.layout, self.tile_bits)
+        core = self.table.max_core
+        self.threads = max(1 << (self.tile_bits - REG_BITS),
+                           (1 << core) // 4 if core >= TILE_CORE else 0)
+        check_tile(core, self.threads)
+        self.ctas = min(ctas, 1 << (n - self.tile_bits))
         self._device_tables: dict[torch.device, tuple] = {}
 
     def _tables_on(self, device: torch.device) -> tuple:
@@ -554,9 +564,8 @@ class WholeCircuitProgram:
             raise ValueError(f"no whole-circuit kernel for device {state.device}")
         state = state.contiguous()
         ints, coef = self._tables_on(state.device)
-        return whole_circuit(
-            state, ints, coef, self.cluster_bits, self.threads, self.table.max_core
-        )
+        return whole_circuit(state, ints, coef, self.tile_bits, self.threads,
+                             self.ctas, self.table.max_core)
 
     __call__ = run
 

@@ -287,24 +287,28 @@ def sweep_threads(geometry: SweepGeometry, max_core: int, kbits: int) -> int:
     return 1 << (sweep_tile_bits(geometry, max_core, kbits) - REG_BITS)
 
 
-# (device, threads, wide) -> CTAs of that kernel instance resident at once
+# (device, threads, wide, spare) -> CTAs of that kernel instance resident at once
 _resident: dict[tuple, int] = {}
 
 
-def resident_ctas(device: torch.device, threads: int, wide: bool) -> int:
+def resident_ctas(
+    device: torch.device, threads: int, wide: bool, spare: bool = False,
+) -> int:
     """How many CTAs of ``threads`` threads of the sweep kernel's instance
     for narrow cores (``wide`` False) or wide ones the card keeps resident at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs), the most
-    one cooperative sweep launch takes. Each instance is counted at its own
-    threads and shared memory. Asked once per process and instance."""
+    one cooperative sweep launch takes; with ``spare``, of the low wide
+    instance whose CTAs may have more threads than a tile (the whole-circuit
+    route). Each instance is counted at its own threads and shared memory.
+    Asked once per process and instance."""
     from . import _build
 
-    key = (torch.device(device), threads, bool(wide))
+    key = (torch.device(device), threads, bool(wide), bool(spare))
     if key not in _resident:
         lib = _build.library("sweep")
         ctas = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
-            err = lib.sweep_prepare(threads, int(wide), ctypes.byref(ctas))
+            err = lib.sweep_prepare(threads, int(wide), int(spare), ctypes.byref(ctas))
         _build.check("sweep", lib, err, "sweep_prepare")
         _resident[key] = ctas.value
     return _resident[key]
@@ -462,7 +466,7 @@ def _sweep(
         err = lib.sweep_launch(
             int(high), state.data_ptr(), 1 << layout.n, ints.data_ptr(),
             coef.data_ptr(), layout.kbits, barriers.data_ptr(), groups,
-            group_bits, threads, max_core, stream,
+            group_bits, threads, max_core, 0, stream,
         )
     _build.check("sweep", lib, err, f"{name} launch")
     LAUNCHES[name] += 1

@@ -5,8 +5,8 @@
 Rows (``ROWS``):
 
 * the main paths: ``random_circuit(n, 100, seed=42)`` at 28 qubits (grid
-  sweep), 18 (whole circuit) and 19 (segments), and the 26-qubit sweeps main
-  path (``random_circuit(26, 40, seed=42)``, a random 8-qubit unitary on
+  sweep), 10-18 (whole circuit) and 19 (segments), and the 26-qubit sweeps
+  main path (``random_circuit(26, 40, seed=42)``, a random 8-qubit unitary on
   qubits 10-17, ``random_circuit(26, 40, seed=43)``);
 * circuits with one wide dense gate, built the same way (a 6-qubit core at
   22 and 26 qubits);
@@ -18,9 +18,11 @@ Rows (``ROWS``):
 * a 12-qubit dense gate on qubits 0-11 (a Kronecker product of seeded
   random 1-qubit unitaries), built as above at 16 and 22 qubits: the run
   (whole-circuit or grid-sweep launches around one dense pass), and the
-  pass alone on a random state beside ``torch.matmul`` of the core on the
-  complex64 view (TF32 off). A checkout without the dense pass prints the
-  refusal instead.
+  pass alone on a random state at 16, 18 and 22 qubits beside
+  ``torch.matmul`` of the core on the complex64 view (TF32 off; its operand
+  made from the gate's matrix, so that checkouts whose kernel stores the
+  core otherwise compare alike). A checkout without the dense pass prints
+  the refusal instead.
 
 For each row: plan it, run it once from |0..0> (or a seeded random state)
 and print the engine, the kernels it launched and a fingerprint of the state
@@ -52,7 +54,7 @@ from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 ROWS = {
     "28q_random_grid": (28, 0, 0),
     "26q_sweeps_main": (26, 8, 10),
-    "18q_random_whole": (18, 0, 0),
+    **{f"{n}q_random_whole": (n, 0, 0) for n in range(10, 19)},
     "19q_random_segments": (19, 0, 0),
     "22q_dense6_on_8": (22, 6, 8),      # the grid refuses it: sweeps
     "26q_dense6_on_0": (26, 6, 0),      # grid sweep, the wide instance
@@ -61,7 +63,7 @@ ROWS = {
     "16q_dense12_on_0": (16, 12, 0),    # whole circuit + dense pass
     "22q_dense12_on_0": (22, 12, 0),    # grid sweep + dense pass
 }
-PASS_QUBITS = (16, 22)
+PASS_QUBITS = (16, 18, 22)
 PASS_CORE = 12
 ONE_OP_QUBITS = 26
 ONE_OP_WIDTHS = (6, 7, 8)
@@ -218,15 +220,22 @@ def time_dense_pass(card: str) -> list[dict]:
             psi = rng.standard_normal((2, 1 << n)).astype(np.float32)
             x = torch.from_numpy(psi / np.linalg.norm(psi)).cuda()
             u = step.u_on(x.device)
-            um = torch.complex(u[:, 0], u[:, 1]).view(1 << PASS_CORE, 1 << PASS_CORE)
+            # the core on the view (2^(n-12), 4096) of the state, whose column
+            # index bit j is qubit j: the gate's matrix (index MSB qubit 0)
+            # with its index bits reversed, transposed
+            rev = [int(f"{i:0{PASS_CORE}b}"[::-1], 2) for i in range(1 << PASS_CORE)]
+            um = torch.from_numpy(np.ascontiguousarray(
+                step.core[np.ix_(rev, rev)].T).astype(np.complex64)).cuda()
             z = torch.complex(x[0], x[1]).view(-1, 1 << PASS_CORE)
             got = dense_pass(x, u, step.tmask, step.cmask)
-            y = torch.matmul(z, um).reshape(-1)      # um is the operand transposed
+            y = torch.matmul(z, um).reshape(-1)
             err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - y)))
             ms = statistics.median(_times_ms(lambda: dense_pass(x, u, step.tmask), 7))
             mm_ms = statistics.median(_times_ms(lambda: torch.matmul(z, um), 7))
             rows.append({"row": f"{n}q_dense12_pass", "card": card, "ms": ms,
                          "matmul_ms": mm_ms, "max_abs_err_vs_matmul": err})
+            del u
+            step._u.clear()
             del x, z, um, got, y
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow

@@ -1,17 +1,24 @@
 """Time the whole-circuit and segment kernels across geometries on the card.
 
     python -m tpu_qsim_torch.kernels.tune_small [--gates 100] [--inner 20]
+        [--qubits N ...] [--op-cost]
 
-Whole-circuit kernel, for each n in 10..18: every cluster size 2^c the
-kernel takes (n - 14 <= c <= 4) at 256, 512 and 1024 threads per CTA.
-Segmented program at 19 qubits: every local_bits in 10..14 at 256, 512 and
-1024 threads. Each candidate plans ``random_circuit(n, gates, seed=42)``,
-checks one run against its plain torch version, then prints the median of 5
-CUDA-event timings of ``inner`` back-to-back runs (after a warm-up), divided
-by ``inner``, and the torch engine's time for the same circuit (the route
-these sizes took before the kernels). Candidates run forward and then
-backward, so a drift of the card's clocks shows as a difference between the
-two passes. Needs a CUDA card.
+Whole-circuit route, for each n in 10..18: every tile size 2^T the register
+program takes (9 <= T <= min(n, 14)), each with one CTA per tile, half and
+a quarter as many (a CTA then takes tiles in turn). Segmented program at 19
+qubits: every local_bits in 10..14 at 256, 512 and 1024 threads. Each
+candidate plans ``random_circuit(n, gates, seed=42)``, checks one run
+against its plain torch version, then prints its device time: the median of
+5 CUDA-event timings of ``inner`` replays of a CUDA graph of one run,
+divided by ``inner`` (eager launches of a kernel this short time the host),
+with the stages, the torch engine's time for the same circuit (the route
+these sizes took before the kernels) and the whole-circuit run's eager time.
+Candidates run forward and then backward, so a drift of the card's clocks
+shows as a difference between the two passes. With ``--op-cost`` it times
+instead the whole-circuit route at its geometry on ``random_circuit(n, g,
+seed=42)`` for g = 25 .. 400 gates and fits device time against merged ops
+(least squares): the slope is the cost of one op in its tile pass, the
+intercept the launch and the state's passes. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,13 +37,13 @@ from ..fusion import fuse_circuit
 from ..statevector import build_torch_run_fn
 from .fused_circuit import (
     MAX_BLOCK_BITS,
-    MAX_CLUSTER_BITS,
     MAX_WHOLE_CIRCUIT_QUBITS,
     MIN_WHOLE_CIRCUIT_QUBITS,
     WholeCircuitProgram,
-    placeable_clusters,
 )
+from .gridsweeps import MIN_GRID_BLOCK_BITS
 from .segmented import SegmentedProgram
+from .sweeps import MAX_TILE_BITS
 
 THREADS = (256, 512, 1024)
 
@@ -58,6 +65,20 @@ def median_ms(fn, inner: int, reps: int = 5) -> float:
     return statistics.median(out)
 
 
+def graph_ms(fn, inner: int, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: captured once into a CUDA graph
+    (after a call outside it), then :func:`median_ms` of replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay, inner, reps)
+
+
 def torch_engine_ms(circuit, inner: int) -> float:
     """The torch engine (fused groups, as the simulator builds it) on
     ``circuit``, per run."""
@@ -67,20 +88,45 @@ def torch_engine_ms(circuit, inner: int) -> float:
     return median_ms(lambda: fn(x), inner)
 
 
-def _candidates(n_seg: int):
-    for n in range(MIN_WHOLE_CIRCUIT_QUBITS, MAX_WHOLE_CIRCUIT_QUBITS + 1):
-        for c in range(max(0, n - MAX_BLOCK_BITS), MAX_CLUSTER_BITS + 1):
-            for t in THREADS:
-                yield ("whole_circuit", n, c, t)
-    for lb in range(10, MAX_BLOCK_BITS + 1):
-        for t in THREADS:
-            yield ("segmented", n_seg, lb, t)
+def _candidates(qubits, n_seg: int):
+    for n in qubits:
+        if n == n_seg:
+            for lb in range(10, MAX_BLOCK_BITS + 1):
+                for t in THREADS:
+                    yield ("segmented", n, lb, t)
+            continue
+        for bits in range(MIN_GRID_BLOCK_BITS, min(n, MAX_TILE_BITS) + 1):
+            for ctas in sorted({max(1, (1 << (n - bits)) >> j) for j in range(3)}):
+                yield ("whole_circuit", n, bits, ctas)
+
+
+def op_cost(qubits, inner: int) -> list[dict]:
+    """Device time of the whole-circuit route against circuit length at each
+    n, and the fitted cost per merged op."""
+    rows = []
+    for n in qubits:
+        ops, ms = [], []
+        for gates in (25, 50, 100, 200, 400):
+            prog = WholeCircuitProgram(random_circuit(n, gates, seed=42))
+            x = ap.initial_state(n, np.float32, device="cuda")
+            ops.append(len(prog.gates))
+            ms.append(graph_ms(lambda: prog.run(x), inner))
+            print(json.dumps({"n": n, "gates": gates, "ops": ops[-1],
+                              "stages": len(prog.stages), "ms": ms[-1]}), flush=True)
+        slope, intercept = np.polyfit(ops, ms, 1)
+        rows.append({"n": n, "ms_per_op": float(slope), "ms_at_0_ops": float(intercept)})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--gates", type=int, default=100)
     parser.add_argument("--inner", type=int, default=20)
+    parser.add_argument("--qubits", type=int, action="append", default=None,
+                        help="only these sizes (10..19)")
+    parser.add_argument("--op-cost", action="store_true",
+                        help="time the whole-circuit route against circuit length instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_small needs a CUDA card")
@@ -90,14 +136,17 @@ def main() -> None:
     ).stdout.strip()
     print(f"card: {card}", flush=True)
     n_seg = MAX_WHOLE_CIRCUIT_QUBITS + 1
-    cands = list(_candidates(n_seg))
-    circuits = {n: random_circuit(n, args.gates, seed=42)
-                for n in range(MIN_WHOLE_CIRCUIT_QUBITS, n_seg + 1)}
+    if args.op_cost:
+        op_cost(args.qubits or (10, 14, 18), args.inner)
+        return
+    qubits = args.qubits or range(MIN_WHOLE_CIRCUIT_QUBITS, n_seg + 1)
+    cands = list(_candidates(qubits, n_seg))
+    circuits = {n: random_circuit(n, args.gates, seed=42) for n in qubits}
     progs = {}
     for cand in cands:
         kind, n, g, t = cand
         if kind == "whole_circuit":
-            progs[cand] = WholeCircuitProgram(circuits[n], cluster_bits=g, threads=t)
+            progs[cand] = WholeCircuitProgram(circuits[n], tile_bits=g, ctas=t)
         else:
             progs[cand] = SegmentedProgram(circuits[n], local_bits=g, threads=t)
     engine_ms = {n: torch_engine_ms(c, args.inner) for n, c in circuits.items()}
@@ -117,14 +166,15 @@ def main() -> None:
                                   "threads": t, "error": str(e)}), flush=True)
                 continue
             err = float((state - plain[n]).abs().max())
-            ms = median_ms(lambda: prog.run(state), args.inner)
-            row = {"kind": kind, "n": n, "threads": t, "ms": ms,
-                   "torch_engine_ms": engine_ms[n], "max_abs_err": err}
+            ms = graph_ms(lambda: prog.run(state), args.inner)
+            row = {"kind": kind, "n": n, "ms": ms, "torch_engine_ms": engine_ms[n],
+                   "max_abs_err": err}
             if kind == "whole_circuit":
-                row.update(cluster_bits=g,
-                           clusters=placeable_clusters(state.device, n, g, t))
+                row.update(tile_bits=g, ctas=prog.ctas, threads=prog.threads,
+                           stages=[len(st.gates) for st in prog.stages],
+                           eager_ms=median_ms(lambda: prog.run(state), args.inner))
             else:
-                row.update(local_bits=g, segments=prog.num_segments)
+                row.update(threads=t, local_bits=g, segments=prog.num_segments)
             rows.append(row)
             print(json.dumps(row), flush=True)
     best = {}
