@@ -19,15 +19,19 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    counted; then the kernel against its plain version on the card
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5); GHZ and QFT|0> closed forms;
 5. 19 qubits, the segmented main path, counted, against the oracle
-   (max |d amp| <= 1e-6; one launch per segment, the last a scatter
-   segment); each segment kernel against its plain version on the same
-   input (max |d amp| <= 1e-7); GHZ and QFT|0> closed forms;
+   (max |d amp| <= 1e-6; one launch for all segments, counted once in
+   ``LAUNCHES``, whose tally in ``SEGMENT_KINDS`` shows that it ran both
+   kinds, the last segment a scatter segment); the same kernel launched on each segment alone against that
+   segment's plain version on the same input, and on all of them against
+   the run's plain version (max |d amp| <= 1e-7); GHZ and QFT|0> closed
+   forms;
 6. grid fallback: a 6-qubit dense gate at 22 qubits that the grid planner
-   refuses runs on the segmented engine and matches its plain version
-   (1e-6); ``random_circuit(24, 100, seed=42)`` through the segmented and
-   the grid-sweep programs agrees within 1e-6; an 8-qubit dense gate on
-   qubits 14-21 of 22 (grid and sweeps refuse it) runs on the segmented
-   engine, 6 low bits kept in place, against its plain version (1e-6);
+   refuses runs on the segmented engine in one launch and matches its plain
+   version (1e-6); ``random_circuit(24, 100, seed=42)`` through the
+   segmented program (more blocks than resident CTAs) and the grid-sweep
+   program agrees within 1e-6; an 8-qubit dense gate on qubits 14-21 of 22
+   (grid and sweeps refuse it) runs on the segmented engine, 6 low bits
+   kept in place, in one launch, against its plain version (1e-6);
 7. sweeps engine: ``random_circuit(22, 100, seed=42)`` through
    ``build_sweep_run`` against the oracle (1e-6); 26 qubits, the sweeps main
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
@@ -62,7 +66,8 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     and histogram, QFT|0> amplitudes;
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
     grid-sweep run, the whole-circuit route at 12, 16 and 18 qubits, the
-    segment kernels at 19 and the 26-qubit sweeps runs (each sweep, each
+    segment kernel at 19 (the run's one launch, and each segment launched
+    alone) and the 26-qubit sweeps runs (each sweep, each
     kernel's share, and the grid sweep on the same random circuit), beside
     the plain versions, the torch engine (the route below 20 qubits before
     these kernels) and the bound; and the cost of one 6- to 10-qubit dense
@@ -94,13 +99,13 @@ import tpu_qsim_torch as tq
 from tpu_qsim_torch import apply as ap
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
-from tpu_qsim_torch.kernels import LAUNCHES, _build, reset_launches
+from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, reset_launches
 from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass, pass_instance
 from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
-from tpu_qsim_torch.kernels.segmented import SegmentedProgram, segment
+from tpu_qsim_torch.kernels.segmented import SegmentedProgram, resident_ctas
 from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
 from tpu_qsim_torch.kernels.time_run import kron_gate
 from tpu_qsim_torch.statevector import build_torch_run_fn
@@ -213,6 +218,7 @@ def phase_main(n: int, engine: str, kernels: tuple[str, ...], circuit=None) -> d
     hist = sim.histogram(1000)
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in kernels}
+    kinds = dict(SEGMENT_KINDS)
     wall = time.perf_counter() - t0
     eng, prog = sim.compiled_run(c)
     check(sim.engine == engine and eng == engine, f"{n}q ran on {sim.engine}")
@@ -236,8 +242,8 @@ def phase_main(n: int, engine: str, kernels: tuple[str, ...], circuit=None) -> d
         f"fidelity={fid:.9f} (tol 1 - 1e-5)")
     check(err <= 1e-7, f"{n}q kernel vs plain max |d amp| {err} > 1e-7")
     check(1.0 - fid <= 1e-5, f"{n}q 1 - fidelity {1.0 - fid} > 1e-5")
-    return {"sim": sim, "prog": prog, "launches": launches, "max_abs_err": err,
-            "fidelity": fid}
+    return {"sim": sim, "prog": prog, "launches": launches, "segment_kinds": kinds,
+            "max_abs_err": err, "fidelity": fid}
 
 
 def phase_28q_main() -> dict:
@@ -335,36 +341,48 @@ def check_whole_stages(prog) -> list:
     return stages
 
 
+def check_one_launch(prog, launches: dict, kinds: dict, label: str) -> None:
+    """A run of ``prog``'s segments was one launch of the segment kernel
+    and no other kernel, and that launch ran every kind of segment the plan
+    holds."""
+    check(launches == {"segment": 1}, f"{label}: launches {launches}, not one")
+    want = {k: 1 for k in dict.fromkeys(s.kernel for s in prog.steps)}
+    check(kinds == want, f"{label}: the launch ran kinds {kinds}, the plan {want}")
+
+
 def phase_segmented() -> dict:
-    """19q: the segmented main path against the oracle, then each segment
-    kernel against its plain version on the same input."""
+    """19q: the segmented main path against the oracle, then the kernel on
+    each segment alone against the segment's plain version on the same
+    input, and on all segments against the run's plain version."""
     n = N_SEG
-    res = phase_main(n, "segmented", ("segment", "scatter_segment"))
+    res = phase_main(n, "segmented", ("segment",))
     prog = res["prog"]
     kinds = [s.kernel for s in prog.steps]
-    want = {k: kinds.count(k) for k in ("segment", "scatter_segment")}
-    check(res["launches"] == want, f"launches {res['launches']} for segments {kinds}")
+    check_one_launch(prog, res["launches"], res["segment_kinds"], f"{n}q main path")
+    check("scatter_segment" in kinds, f"no scatter segment in {kinds}")
     check(prog.restore == tuple(range(n)) or kinds[-1] == "scatter_segment",
           "a non-identity restore without a scatter segment")
     c = tq.random_circuit(n, 100, seed=42)
     err, fid = compare(res["sim"].state_planes, oracle_planes(c, res["sim"].device))
     log(f"phase {n}q_segmented_oracle: max_abs_err={err:.3e} (tol 1e-6) fidelity={fid:.9f} "
-        f"segments={kinds} local_bits={prog.local_bits} ops={[len(s.gates) for s in prog.steps]}")
+        f"segments={kinds} local_bits={prog.local_bits} ops={[len(s.gates) for s in prog.steps]} "
+        f"launches={res['launches']} segment_kinds={res['segment_kinds']}")
     check(err <= 1e-6, f"{n}q segmented max |d amp| {err} > 1e-6")
     step_err = {"segment": 0.0, "scatter_segment": 0.0}
-    x = random_planes(n, 5)
-    for i, (step, (ints, coef, maps)) in enumerate(zip(prog.steps, prog._tables_on(x.device))):
-        out = x.clone() if step.in_place else torch.empty_like(x)
-        segment(out if step.in_place else x, out, ints, coef, maps, prog.local_bits,
-                step.gather_src is not None, step.scatter_dst is not None, prog.threads,
-                step.table.max_core)
-        e, _ = compare(out, prog.step_plain(x, i))
+    x0 = x = random_planes(n, 5)
+    for i, step in enumerate(prog.steps):
+        want = prog.step_plain(x, i)
+        e, _ = compare(prog.launch(x.clone(), i, i + 1), want)
         step_err[step.kernel] = max(step_err[step.kernel], e)
-        x = out
-    log(f"phase {n}q_segment_vs_plain: max_abs_err={step_err} (tol 1e-7)")
+        x = want
+    run_err, _ = compare(prog.launch(x0.clone()), x)
+    log(f"phase {n}q_segment_vs_plain: max_abs_err={step_err} (each segment alone) "
+        f"run_max_abs_err={run_err:.3e} (tol 1e-7)")
     check(max(step_err.values()) <= 1e-7, f"segment kernels vs plain {step_err}")
+    check(run_err <= 1e-7, f"segments in one launch vs plain {run_err}")
     res["oracle_err"] = err
     res["step_err"] = step_err
+    res["run_err"] = run_err
     return res
 
 
@@ -388,14 +406,14 @@ def phase_grid_fallback() -> dict:
     sim = tq.StateVectorSimulator(n, seed=1)
     sim.run(c)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches, kinds = dict(LAUNCHES), dict(SEGMENT_KINDS)
     _, prog = sim.compiled_run(c)
     plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
     err, _ = compare(sim.state_planes, plain)
     log(f"phase {n}q_grid_fallback: wall_s={time.perf_counter() - t0:.3f} engine={sim.engine} "
         f"launches={launches} local_bits={prog.local_bits} max_abs_err={err:.3e} (tol 1e-6)")
     check(sim.engine == "segmented", f"{n}q fallback ran on {sim.engine}")
-    check(sum(launches.values()) == prog.num_segments, f"launches {launches}")
+    check_one_launch(prog, launches, kinds, f"{n}q grid fallback")
     check(err <= 1e-6, f"{n}q fallback vs plain {err} > 1e-6")
     del sim, plain
 
@@ -406,8 +424,12 @@ def phase_grid_fallback() -> dict:
     a = sprog.run(ap.initial_state(n, np.float32, device="cuda"))
     b = gprog.run(ap.initial_state(n, np.float32, device="cuda"))
     cross, fid = compare(a, b)
+    blocks = 1 << (n - sprog.local_bits)
+    resident = resident_ctas(a.device, sprog.local_bits, sprog.table.max_core > 4)
     log(f"phase {n}q_cross_engine: wall_s={time.perf_counter() - t0:.3f} segments={sprog.num_segments} "
-        f"sweeps={gprog.num_sweeps} max_abs_err={cross:.3e} (tol 1e-6) fidelity={fid:.9f}")
+        f"blocks={blocks} resident_ctas={resident} sweeps={gprog.num_sweeps} "
+        f"max_abs_err={cross:.3e} (tol 1e-6) fidelity={fid:.9f}")
+    check(blocks > resident, f"{n}q: {blocks} blocks, {resident} resident CTAs")
     check(cross <= 1e-6, f"{n}q segmented vs grid sweep {cross} > 1e-6")
     return {"fallback_err": err, "cross_err": cross}
 
@@ -424,7 +446,7 @@ def phase_fault1_segmented() -> dict:
     sim = tq.StateVectorSimulator(n, seed=1)
     sim.run(c)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches, kinds = dict(LAUNCHES), dict(SEGMENT_KINDS)
     _, prog = sim.compiled_run(c)
     plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
     err, fid = compare(sim.state_planes, plain)
@@ -433,7 +455,7 @@ def phase_fault1_segmented() -> dict:
         f"max_core={max(s.table.max_core for s in prog.steps)} max_abs_err={err:.3e} "
         f"(tol 1e-6) fidelity={fid:.9f}")
     check(sim.engine == "segmented", f"{n}q fault-1 circuit ran on {sim.engine}")
-    check(sum(launches.values()) == prog.num_segments, f"launches {launches}")
+    check_one_launch(prog, launches, kinds, f"{n}q fault-1 circuit")
     check(err <= 1e-6, f"{n}q fault-1 circuit vs plain {err} > 1e-6")
     return {"max_abs_err": err}
 
@@ -743,9 +765,9 @@ def phase_timing_whole_circuit() -> dict:
 
 
 def phase_timing_segmented(prog: SegmentedProgram) -> dict:
-    """The whole 19q run (device time, and eager through the Python
-    wrappers), then each kernel's share: its segments timed one by one on
-    fixed buffers, beside the same segments' plain version."""
+    """The whole 19q run, one launch (device time, and eager through the
+    Python wrapper), then each kernel's share: its segments launched one by
+    one on fixed buffers, beside the same segments' plain version."""
     n = prog.num_qubits
     c = tq.random_circuit(n, 100, seed=42)
     x = ap.initial_state(n, np.float32, device="cuda")
@@ -755,12 +777,8 @@ def phase_timing_segmented(prog: SegmentedProgram) -> dict:
     engine_ms = torch_engine_ms(c, inner=5)
     a, out = random_planes(n, 1), torch.empty((2, 1 << n), device="cuda")
     per = {"segment": [], "scatter_segment": []}
-    for i, (step, (ints, coef, maps)) in enumerate(zip(prog.steps, prog._tables_on(a.device))):
-        dst = a if step.in_place else out
-        ms = graph_ms(lambda: segment(a, dst, ints, coef, maps, prog.local_bits,
-                                      step.gather_src is not None,
-                                      step.scatter_dst is not None, prog.threads,
-                                      step.table.max_core), inner=50)
+    for i, step in enumerate(prog.steps):
+        ms = graph_ms(lambda: prog.launch(a, i, i + 1, other=out), inner=50)
         pms = median_ms(lambda: prog.step_plain(a, i), inner=5)
         b = bound(2 * 2 * 4 * (1 << n), step.table.flops_per_amp * (1 << n))
         per[step.kernel].append((ms, pms, b["bytes_ms"], b["flops_ms"]))
@@ -774,11 +792,13 @@ def phase_timing_segmented(prog: SegmentedProgram) -> dict:
                       "per_launch_ms": [r[0] for r in rows]}
     b = bound(prog.bytes_moved(), prog.flops())
     blocks = 1 << (n - prog.local_bits)
-    log(f"phase timing_segmented: n={n} segments={prog.num_segments} ms={run_ms:.5f} "
+    ctas = min(blocks, resident_ctas(a.device, prog.local_bits, prog.table.max_core > 4))
+    log(f"phase timing_segmented: n={n} segments={prog.num_segments} ms={run_ms:.5f} (one launch) "
         f"eager_ms={eager_ms:.5f} plain_ms={plain_run_ms:.4f} torch_engine_ms={engine_ms:.4f} "
         f"bound_ms={b['bound_ms']:.5f} bytes_ms={b['bytes_ms']:.5f} flops_ms={b['flops_ms']:.5f} "
-        f"blocks={blocks} of 2^{prog.local_bits} x {prog.threads} threads, SMs <= {min(blocks, SMS)} of {SMS} "
-        f"per_kernel={json.dumps(kernels)}")
+        f"blocks={blocks} of 2^{prog.local_bits} on {ctas} CTAs x {prog.threads} threads, "
+        f"SMs <= {min(ctas, SMS)} of {SMS}, register-table entries="
+        f"{[int(s.table.ints[0]) for s in prog.steps]} per_kernel={json.dumps(kernels)}")
     return {"run_ms": run_ms, "eager_ms": eager_ms, "plain_run_ms": plain_run_ms,
             "torch_engine_ms": engine_ms, "kernels": kernels, **b}
 
@@ -968,7 +988,7 @@ def main() -> int:
             "route": "cuda",
             "source": "tpu_qsim_torch/kernels/csrc/segment.cu",
             "replaces": f"tpu_qsim/kernels/segmented.py:{line}",
-            "launches": seg["launches"][name],
+            "launches": seg["segment_kinds"][name],
             "max_abs_err": seg["step_err"][name],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
@@ -976,6 +996,9 @@ def main() -> int:
             "bound_by": k["bound_by"],
             "library_ms": None,
             "run_ms": t_seg["run_ms"],
+            "run_launches": seg["launches"]["segment"],
+            "run_bound_ms": t_seg["bound_ms"],
+            "run_max_abs_err": seg["run_err"],
             "eager_run_ms": t_seg["eager_ms"],
             "torch_engine_ms": t_seg["torch_engine_ms"],
             "oracle_max_abs_err": seg["oracle_err"],

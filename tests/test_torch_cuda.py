@@ -24,7 +24,7 @@ import torch
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
-from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
+from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
 from tpu_qsim_torch.kernels import segmented as seg
@@ -146,6 +146,8 @@ def test_whole_circuit_wide_dense_core(cuda_device, n, k):
 
 @pytest.mark.parametrize("n", [19, 22])
 def test_segments_match_plain(cuda_device, n):
+    # the whole plan in one launch, and each segment alone (the same kernel
+    # over one segment), against the plain version
     prog = seg.SegmentedProgram(tq.random_circuit(n, 100, seed=42))
     kinds = [s.kernel for s in prog.steps]
     assert kinds[-1] == "scatter_segment" and prog.restore != tuple(range(n))
@@ -153,8 +155,30 @@ def test_segments_match_plain(cuda_device, n):
     reset_launches()
     got = prog.run(x.clone())
     torch.cuda.synchronize()
-    assert LAUNCHES["segment"] == kinds.count("segment")
-    assert LAUNCHES["scatter_segment"] == 1
+    assert dict(LAUNCHES) == {"segment": 1}
+    assert dict(SEGMENT_KINDS) == {"segment": 1, "scatter_segment": 1}
+    want = prog.run_plain(x)
+    assert float((got - want).abs().max()) <= 1e-7
+    for i, kind in enumerate(kinds):
+        reset_launches()
+        got = prog.launch(x.clone(), i, i + 1)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == {"segment": 1} and dict(SEGMENT_KINDS) == {kind: 1}
+        want = prog.step_plain(x, i)
+        assert float((got - want).abs().max()) <= 1e-7, (i, kind)
+        x = want
+
+
+def test_segments_loop_over_more_blocks_than_resident_ctas(cuda_device):
+    # 24 qubits in 2^14-slot blocks (default_local_bits): 1024 blocks of
+    # 1024 threads, more than the card keeps resident, so each CTA takes
+    # several blocks of every segment
+    n = 24
+    prog = seg.SegmentedProgram(tq.random_circuit(n, 100, seed=42))
+    resident = seg.resident_ctas(cuda_device, prog.local_bits, prog.table.max_core > 4)
+    assert 1 << (n - prog.local_bits) > resident
+    x = _random_planes(n, 4, cuda_device)
+    got = prog.run(x.clone())
     want = prog.run_plain(x)
     assert float((got - want).abs().max()) <= 1e-6
 
@@ -165,8 +189,7 @@ def test_simulator_routes_by_size(cuda_device):
         sim = tq.StateVectorSimulator(n).run(tq.ghz_circuit(n))
         want = "whole_circuit" if n <= 18 else "segmented"
         assert sim.engine == want
-        assert sum(LAUNCHES.values()) >= 1 and set(LAUNCHES) <= {
-            "whole_circuit", "segment", "scatter_segment"}
+        assert sum(LAUNCHES.values()) >= 1 and set(LAUNCHES) <= {"whole_circuit", "segment"}
         p = sim.probabilities()
         assert abs(float(p[0]) - 0.5) < 1e-6 and abs(float(p[-1]) - 0.5) < 1e-6
     sim = tq.StateVectorSimulator(9).run(tq.ghz_circuit(9))
@@ -178,7 +201,8 @@ def test_grid_fallback_routes_to_segments(cuda_device):
     reset_launches()
     sim = tq.StateVectorSimulator(22).run(c)
     torch.cuda.synchronize()
-    assert sim.engine == "segmented" and LAUNCHES["segment"] >= 1
+    assert sim.engine == "segmented" and dict(LAUNCHES) == {"segment": 1}
+    assert dict(SEGMENT_KINDS) == {"segment": 1, "scatter_segment": 1}
     _, prog = sim.compiled_run(c)
     want = prog.run_plain(tq.apply.initial_state(22, np.float32, device=cuda_device))
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
@@ -192,14 +216,14 @@ def test_new_wrappers_reject_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             fc.whole_circuit(bad, ints, coef, wprog.tile_bits, wprog.threads, wprog.ctas)
     sprog = seg.SegmentedProgram(tq.random_circuit(19, 60, seed=1))
-    ints, coef, maps = sprog._tables_on(cuda_device)[-1]
     y = _random_planes(19, 0, cuda_device)
-    out = torch.empty_like(y)
-    for bad in (y.double(), y.cpu(), y[:, : 1 << 18]):
+    for bad in (y.double(), y[:, : 1 << 18], y.t().contiguous()):
         with pytest.raises(ValueError):
-            seg.segment(bad, out, ints, coef, maps, sprog.local_bits, True, True)
-    with pytest.raises(ValueError, match="in place"):
-        seg.segment(y, y, ints, coef, maps, sprog.local_bits, True, True)
+            sprog.launch(bad)
+    with pytest.raises(ValueError, match="other"):
+        sprog.launch(y, other=y)
+    with pytest.raises(ValueError, match="segments"):
+        sprog.launch(y, 0, sprog.num_segments + 1)
 
 
 @pytest.mark.parametrize("kernel", ["grid_sweep", "whole_circuit", "segment", "sweep"])
@@ -233,12 +257,8 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
                              max_core or prog.table.max_core)
         else:
             prog = seg.SegmentedProgram(c)
-            step, (ints, coef, maps) = prog.steps[0], prog._tables_on(cuda_device)[0]
-            dst = y if step.in_place else torch.empty_like(y)
-            seg.segment(y, dst, ints, coef, maps, prog.local_bits,
-                        step.gather_src is not None, step.scatter_dst is not None,
-                        prog.threads, max_core or step.table.max_core)
-            y = dst
+            assert prog.table.max_core <= 4
+            y = prog.launch(y, max_core=max_core)
         out.append(y)
     torch.cuda.synchronize()
     assert float((out[0] - out[1]).abs().max()) <= 1e-7

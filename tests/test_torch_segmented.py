@@ -8,10 +8,13 @@
 * ``SegmentedProgram.run_plain`` agrees with the JAX segmented engine in
   Pallas interpret mode at 12 qubits within 5e-5, the tolerance of
   ``tests/test_segmented.py``.
-* The gather and scatter maps and the op tables, executed by a numpy mirror
-  of ``csrc/segment.cu`` (lookup tables included), agree with the complex128
-  oracle within 1e-6. The CUDA kernels run only on the card
-  (tests/test_torch_cuda.py).
+* The program's run table (each segment's register table and host-built
+  index maps), executed by a numpy mirror of ``csrc/segment.cu`` (a range
+  of segments, two buffers, each block through
+  ``test_torch_gridsweeps.emulate_block``), agrees with the complex128
+  oracle within 1e-6 at blocks of 2^10 to 2^14 slots, with a 9-qubit gate
+  in a 14-bit block, and with the JAX segmented engine. The CUDA kernel
+  runs only on the card (tests/test_torch_cuda.py).
 """
 
 import jax
@@ -27,11 +30,12 @@ from tpu_qsim.kernels.segmented import build_segmented_run
 import tpu_qsim_torch as tq
 from tpu_qsim_torch import schedule as tsched
 from tpu_qsim_torch.convert import circuit_from_jax
-from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
+from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, reset_launches
+from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import segmented as seg
 
 from conftest import random_state
-from test_torch_whole_circuit import emulate_ops
+from test_torch_gridsweeps import emulate_block
 
 N = 13
 
@@ -177,50 +181,60 @@ def test_program_matches_jax_segmented(seed):
     ora = jq.CPUReferenceSimulator(n)
     ora.run(c)
     np.testing.assert_allclose(got, ora.get_state(), atol=5e-5)
+    psi0 = np.zeros(1 << n, np.complex128)
+    psi0[0] = 1.0
+    np.testing.assert_allclose(emulate_segments(psi0, prog), want, atol=5e-5)
 
 
 # ---------------------------------------------------------------------------
-# maps and op tables, executed by a numpy mirror of csrc/segment.cu
+# the run table, executed by a numpy mirror of csrc/segment.cu
 # ---------------------------------------------------------------------------
 
 
-def _lut_map(bits, n: int, lb: int, b: int) -> np.ndarray:
-    """segment.cu's index map for block b: the block's share plus the two
-    lookup tables (bits 0-7 and 8-13 of the slot index)."""
-    def map_bits(x, start, count):
-        y = np.zeros_like(x)
-        for i in range(count):
-            y |= ((x >> i) & 1) << int(bits[start + i])
-        return y
-
-    nlo, nhi = min(lb, 8), max(lb - 8, 0)
-    lo = map_bits(np.arange(256) & ((1 << nlo) - 1), 0, nlo)
-    hi = map_bits(np.arange(64) & ((1 << nhi) - 1), 8, nhi)
-    block = int(map_bits(np.array([b]), lb, n - lb)[0])
-    ls = np.arange(1 << lb)
-    return block | lo[ls & 255] | hi[ls >> 8]
+def map_index(words: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """segment.cu's map of indices ``x``: the OR of one lookup per byte."""
+    t = words.view(np.uint32).astype(np.int64)
+    return (t[x & 255] | t[256 + ((x >> 8) & 255)] | t[512 + ((x >> 16) & 255)]
+            | t[768 + (x >> 24)])
 
 
-def emulate_segments(psi: np.ndarray, prog: seg.SegmentedProgram) -> np.ndarray:
-    """Run the program's launches as segment.cu does, block by block."""
-    n, lb = prog.num_qubits, prog.local_bits
+def emulate_segments(psi: np.ndarray, prog: seg.SegmentedProgram, first: int = 0,
+                     last: int | None = None) -> np.ndarray:
+    """``psi`` after segments ``[first, last)`` run as one launch of
+    segment.cu, read from the program's run table alone: for each segment
+    its descriptor, then each block gathered through the gather map, its
+    register table applied (:func:`emulate_block`) and stored through the
+    store map, into the other buffer when the segment relabels (every slot
+    of it written)."""
+    ints, coef = prog.table.ints, prog.table.coef
+    n_seg, n, lb, max_core = (int(v) for v in ints[:4])
+    assert (n_seg, n, lb) == (prog.num_segments, prog.num_qubits, prog.local_bits)
+    assert max_core == prog.table.max_core
+    last = n_seg if last is None else last
     cur = psi.astype(np.complex128).copy()
-    for step in prog.steps:
-        maps = seg.segment_maps(step, n)
-        out = cur if step.in_place else np.full_like(cur, np.nan)
+    ls = np.arange(1 << lb, dtype=np.int64)
+    for s in range(first, last):
+        flags, t_off, c_off, g_off, s_off = (
+            int(v) for v in ints[seg.RUN_HEADER + s * seg.SEG_WORDS:][:5])
+        assert c_off % 2 == 0               # 16-byte aligned for the tiled op
+        sub = fc.OpTable(ints[t_off:g_off], coef[c_off:], 0.0, 0)
+        assert (int(sub.ints[1]), int(sub.ints[2])) == (lb, 0)
+        assert int(sub.ints[fc.HEADER_MAX_CORE]) <= max_core
+        gather = ints[g_off:g_off + seg.MAP_WORDS]
+        store = ints[s_off:s_off + seg.MAP_WORDS]
+        out = np.full_like(cur, np.nan) if flags & seg.F_RELABEL else cur
         for b in range(1 << (n - lb)):
-            ident = (b << lb) | np.arange(1 << lb)
-            src = ident if step.gather_src is None else _lut_map(maps, n, lb, b)
-            block = cur[src].copy()
-            emulate_ops(block, step.table)
-            dst = ident if step.scatter_dst is None else _lut_map(maps[seg.MAP_WORDS:], n, lb, b)
-            out[dst] = block
+            new = (b << lb) | ls
+            src = map_index(gather, new)
+            re, im = cur[src].real.copy(), cur[src].imag.copy()
+            emulate_block(re, im, sub, 0)
+            out[map_index(store, new)] = re + 1j * im
         assert not np.isnan(out).any()
         cur = out
     return cur
 
 
-@pytest.mark.parametrize("n,local_bits", [(12, 10), (13, 11), (13, 12)])
+@pytest.mark.parametrize("n,local_bits", [(12, 10), (13, 11), (13, 12), (14, 13), (15, 14)])
 @pytest.mark.parametrize("name", ["random", "qft", "mixed"])
 def test_maps_emulation_matches_oracle(name, n, local_bits):
     c = {
@@ -229,6 +243,7 @@ def test_maps_emulation_matches_oracle(name, n, local_bits):
         "mixed": lambda: circuit_from_jax(_mixed_circuit(n)),
     }[name]()
     prog = seg.SegmentedProgram(c, local_bits=local_bits)
+    assert prog.local_bits >= local_bits and prog.threads == 1 << (prog.local_bits - 4)
     psi = random_state(n, np.random.default_rng(local_bits))
     got = emulate_segments(psi, prog)
     ref = tq.CPUReferenceSimulator(n)
@@ -245,9 +260,70 @@ def test_lut_map_is_the_relabeling():
     n, lb = 13, 11
     rng = np.random.default_rng(0)
     src = tuple(int(s) for s in rng.permutation(n))
-    full = np.concatenate([_lut_map(src, n, lb, b) for b in range(1 << (n - lb))])
+    words = seg.map_words(src)
+    assert words.dtype == np.int32 and words.size == seg.MAP_WORDS
+    full = map_index(words, np.arange(1 << n, dtype=np.int64))
     psi = random_state(n, rng)
     np.testing.assert_array_equal(psi[full], _numpy_permute(psi, src))
+    # linear in the bits: a block's share plus its slots' map is the map
+    b = 3
+    ls = np.arange(1 << lb, dtype=np.int64)
+    np.testing.assert_array_equal(
+        map_index(words, np.array([b << lb])) | map_index(words, ls), full[(b << lb) | ls])
+    ident = np.arange(1 << 26, dtype=np.int64)[::4099]
+    np.testing.assert_array_equal(map_index(seg.map_words(None), ident), ident)
+    # the program's table holds each segment's words at its descriptor
+    prog = seg.SegmentedProgram(tq.random_circuit(N, 100, seed=5), local_bits=10)
+    ints = prog.table.ints
+    for i, step in enumerate(prog.steps):
+        flags, t_off, _, g_off, s_off = ints[seg.RUN_HEADER + i * seg.SEG_WORDS:][:5]
+        assert flags == (0 if step.in_place else seg.F_RELABEL)
+        np.testing.assert_array_equal(ints[t_off:g_off], step.table.ints)
+        np.testing.assert_array_equal(ints[g_off:s_off], seg.map_words(step.gather_src))
+        np.testing.assert_array_equal(ints[s_off:s_off + seg.MAP_WORDS],
+                                      seg.map_words(step.scatter_dst))
+
+
+def test_nine_qubit_gate_in_a_fourteen_bit_block():
+    # a 9-qubit gate leaves 14 - 9 = 5 low bits in place, the fewest a plan
+    # keeps; its core is a tiled op in shared memory, on 1024 threads
+    from tpu_qsim_torch.gates import GATE_ARITY, register_gate
+
+    n = 15
+    rng = np.random.default_rng(9)
+    m = rng.standard_normal((512, 512)) + 1j * rng.standard_normal((512, 512))
+    if "torch_seg_dense9" not in GATE_ARITY:
+        register_gate("torch_seg_dense9", np.linalg.qr(m)[0])
+    c = tq.random_circuit(n, 30, seed=9).add("torch_seg_dense9", *range(6, 15))
+    for g in tq.random_circuit(n, 30, seed=10).gates:
+        c.add(g.name, *g.qubits, param=g.param)
+    prog = seg.SegmentedProgram(c)
+    assert (prog.local_bits, prog.swap_min, prog.threads) == (14, 5, 1024)
+    assert prog.table.max_core == 9
+    psi = random_state(n, np.random.default_rng(4))
+    ref = tq.CPUReferenceSimulator(n)
+    ref.set_state(psi)
+    ref.run(c)
+    np.testing.assert_allclose(emulate_segments(psi, prog), ref.state, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("first,last", [(0, 1), (1, 3), (2, 4), (0, 4)])
+def test_segment_range_matches_its_plain_version(first, last):
+    # a launch of segments [first, last): the mirror and the wrapper's plain
+    # version on the CPU against the segments' plain versions one by one
+    prog = seg.SegmentedProgram(tq.random_circuit(N, 100, seed=5), local_bits=10)
+    assert prog.num_segments >= 4
+    psi = random_state(N, np.random.default_rng(first * 10 + last))
+    x = torch.from_numpy(np.stack([psi.real, psi.imag]).astype(np.float32))
+    want = x
+    for i in range(first, last):
+        want = prog.step_plain(want, i)
+    want = tq.apply.to_complex(want)
+    np.testing.assert_allclose(emulate_segments(psi, prog, first, last), want, atol=1e-6, rtol=0)
+    reset_launches()
+    got = tq.apply.to_complex(prog.launch(x, first, last))
+    assert not LAUNCHES and not SEGMENT_KINDS
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +346,28 @@ def test_program_steps_and_restore():
     assert all(s.scatter_dst is None for s in prog.steps[:-1])
     assert prog.bytes_moved() == prog.num_segments * 16 * (1 << N)
     assert prog.flops() == sum(s.table.flops_per_amp for s in prog.steps) * (1 << N)
+
+
+@pytest.mark.parametrize("n,bits", [(14, 12), (19, 12), (20, 13), (21, 14), (26, 14)])
+def test_default_block_leaves_128_blocks(n, bits):
+    # the largest block (2^12 to 2^14 slots) that leaves 2^7 blocks; a
+    # 6-qubit gate on the top qubits, which the grid refuses, takes the
+    # default from 21 qubits on instead of the 2^13 its width needs
+    assert seg.default_local_bits(n) == bits
+    assert bits == seg.DEFAULT_LOCAL_BITS or n - bits >= seg.MIN_BLOCKS_BITS
+    if n >= 20:
+        from tpu_qsim_torch.gates import GATE_ARITY, register_gate
+
+        rng = np.random.default_rng(1)
+        m = rng.standard_normal((64, 64)) + 1j * rng.standard_normal((64, 64))
+        if "torch_seg_dense6" not in GATE_ARITY:
+            register_gate("torch_seg_dense6", np.linalg.qr(m)[0])
+        c = tq.Circuit(n)
+        for q in range(n):
+            c.h(q)
+        c.add("torch_seg_dense6", *range(n - 6, n))
+        prog = seg.SegmentedProgram(c)
+        assert (prog.local_bits, prog.swap_min) == (bits, 7)
 
 
 def test_program_widens_block_for_wide_gates():
@@ -312,13 +410,19 @@ def test_cpu_program_runs_plain_version_without_launching():
     prog = seg.SegmentedProgram(tq.random_circuit(N, 60, seed=3), local_bits=10)
     x = tq.apply.initial_state(N, np.float32, device="cpu")
     np.testing.assert_array_equal(prog.run(x).numpy(), prog.run_plain(x).numpy())
-    assert LAUNCHES["segment"] == LAUNCHES["scatter_segment"] == 0
-    ints, coef, maps = prog._tables_on(torch.device("cpu"))[-1]
+    np.testing.assert_array_equal(prog.launch(x).numpy(), prog.run_plain(x).numpy())
+    assert not LAUNCHES and not SEGMENT_KINDS
+    with pytest.raises(ValueError, match="no segment kernel"):
+        prog.run(x.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
-        seg.segment(x, torch.empty_like(x), ints, coef, maps, 10, True, True)
+        prog.launch(x.to("meta"))
+    with pytest.raises(ValueError, match="segments"):
+        prog.launch(x, 2, 1)
     with pytest.raises(ValueError, match="float32"):
         prog.run(x.double())
     with pytest.raises(ValueError, match="local_bits"):
         seg.SegmentedProgram(tq.random_circuit(20, 10, seed=3), local_bits=15)
+    with pytest.raises(ValueError, match="local_bits=8"):
+        seg.SegmentedProgram(tq.Circuit(12).h(0), local_bits=8)
     with pytest.raises(ValueError, match="n <= 26"):
         seg.SegmentedProgram(tq.Circuit(27).h(0))

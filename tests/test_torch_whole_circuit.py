@@ -11,8 +11,6 @@
   the numpy mirror of ``csrc/sweep.cu`` (``test_torch_sweeps.emulate_sweep``),
   agrees with the complex128 oracle within 1e-6 at three tile sizes and CTA
   counts; ``random_circuit(18, 100, seed=42)`` plans into at most 4 stages.
-* :func:`emulate_ops` mirrors ``ops.cuh`` on one CTA's block (the segment
-  kernel's): narrow ops on their work items, tiled cores tile by tile.
   The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
 
@@ -31,7 +29,7 @@ from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 
 from conftest import random_state
-from test_torch_sweeps import emulate_sweep, tiled_bases
+from test_torch_sweeps import emulate_sweep
 
 TOL = 2e-6
 
@@ -130,52 +128,8 @@ def test_wide_inline_unitary(n, k, qubits):
 
 
 # ---------------------------------------------------------------------------
-# the op table, executed by a numpy mirror of csrc/whole_circuit.cu
+# the program's table, executed by the numpy mirror of csrc/sweep.cu
 # ---------------------------------------------------------------------------
-
-
-def emulate_ops(block: np.ndarray, table: fc.OpTable, threads: int = 512) -> None:
-    """Apply an op table in place to a block of amplitudes one CTA holds in
-    shared memory, as ``ops.cuh`` does (``segment.cu``'s blocks): a diagonal
-    on every slot, a narrow core on each group of its slots, a tiled core
-    (``TILE_CORE`` qubits and more, column-major at an even coefficient
-    offset) on the groups of :func:`tiled_bases`."""
-    ints, coef = table.ints, table.coef
-    n_ops, kbits = int(ints[0]), int(ints[1]) + int(ints[2])
-    assert block.size == 1 << kbits
-    w = coef[:, 0].astype(np.complex128) + 1j * coef[:, 1]
-    for o in range(n_ops):
-        op = ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][: fc.OP_HEADER]
-        assert op[5] == op[6] == 0          # no out-of-block controls
-        m, off = int(op[1]), int(op[2])
-        codes = [int(x) for x in op[8:8 + m]]
-        assert max(codes) < kbits
-        if op[0] == fc.KIND_DIAG:
-            ls = np.arange(1 << kbits, dtype=np.int64)
-            idx = np.zeros_like(ls)
-            for code in codes:
-                idx = (idx << 1) | ((ls >> code) & 1)
-            block *= w[off + idx]
-            continue
-        offs = [
-            sum(1 << codes[i] for i in range(m) if (j >> (m - 1 - i)) & 1)
-            for j in range(1 << m)
-        ]
-        u = w[off:off + (1 << 2 * m)].reshape(1 << m, 1 << m)
-        if m >= fc.TILE_CORE:               # column-major, 16-byte aligned
-            assert off % 2 == 0
-            u = u.T
-            (base,) = tiled_bases(op, kbits, 1, threads)
-        else:
-            pos = [int(x) for x in op[24:24 + m]]
-            assert pos == sorted(codes)
-            base = np.arange(1 << (kbits - m), dtype=np.int64)
-            for p in pos:                  # insert a 0 at each target
-                base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
-            base = base[(base & int(op[3])) == int(op[4])]
-        y = u @ np.stack([block[base | d] for d in offs])
-        for j, d in enumerate(offs):
-            block[base | d] = y[j]
 
 
 def emulate_whole_circuit(psi: np.ndarray, prog: fc.WholeCircuitProgram) -> np.ndarray:

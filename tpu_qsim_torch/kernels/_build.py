@@ -66,11 +66,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P],
     },
     "segment": {
-        "segment_prepare": [],
-        # in, out, dim, n, table, coef, maps, gather, local_bits, threads,
+        # local_bits, wide, int* ctas
+        "segment_prepare": [_I, _I, _P],
+        # a, b, dim, table, coef, barrier, first, last, local_bits, ctas,
         # max_core, stream
-        "segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-        "scatter_segment_launch": [_P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "segment_launch": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "sweep": {
         # threads, wide, spare, int* ctas

@@ -1,7 +1,8 @@
 // The register block program: how one CTA applies a register table
 // (tpu_qsim_torch/kernels/gridsweeps.py::register_table) to one block of
 // 2^k amplitude slots. grid_sweep.cu runs it once per step of a sweep;
-// sweep.cu once per tile of a unit's tile stage. One copy serves both.
+// sweep.cu once per tile of a unit's tile stage; segment.cu once per block
+// of a segment. One copy serves all three.
 //
 // Replaces the body of tpu_qsim/kernels/gridsweeps.py::_build_grid_sweep's
 // kernel (emit_ops on a VMEM block).
@@ -13,7 +14,8 @@
 // block bits the warp. So:
 //   - the first load (the caller's) and the last store go straight between
 //     memory and registers, 2^R independent accesses in flight per thread
-//     and plane;
+//     and plane (the store to the block's own slots, or through the
+//     caller's map);
 //   - a diagonal op runs in registers whatever its qubits (each thread knows
 //     its slots' bits, and out-of-block bits come from the block's share of
 //     the global index);
@@ -359,6 +361,22 @@ __device__ __forceinline__ void prefetch_block(float* pr, float* pi,
   cp_async_commit();
 }
 
+// Where run_block's last store puts block slot l: at(l). The map is linear
+// in l's bits, so a thread computes at() of its first slot and bits() (the
+// map without the block's own share) of each register bit once. BlockStore
+// is the block's own slots, in place; segment.cu stores through an index map.
+struct BlockStore {
+  int blk, a;
+  const int* active;
+  unsigned cta_g;
+  __device__ __forceinline__ unsigned bits(unsigned l) const {
+    return global_index(l, blk, a, active, 0u);
+  }
+  __device__ __forceinline__ unsigned at(unsigned l) const {
+    return global_index(l, blk, a, active, cta_g);
+  }
+};
+
 // A register table's header words, read once by the caller (per launch in
 // the grid sweep, per stage in the sweeps) rather than per block.
 struct BlockShape {
@@ -376,13 +394,14 @@ struct BlockShape {
 // straight from the planes. (sr, si) hold the block for remaps and
 // shared-memory ops; it must be free when the program starts, and every
 // thread may still read it when the program returns. The last store goes
-// from registers (or shared memory, after a shared-memory op) to the planes,
+// from registers (or shared memory, after a shared-memory op) to the planes
+// at store.at(l) (BlockStore: the block's own slots, the overload below),
 // as streaming stores where STREAM (the block is not read again soon).
 // Cores in shared-memory ops are at most MAXM qubits wide. With SPARE the
 // CTA may have more threads than the block's 2^(blk + a - R): the warps past
 // them hold no values and only share the barriers and the shared-memory ops
 // (load_first must skip them too).
-template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst>
+template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst, class Store>
 __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           float* __restrict__ im,
                                           const int* __restrict__ table,
@@ -390,11 +409,11 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           const float2* __restrict__ coef,
                                           unsigned cta_g, float* sr, float* si,
                                           float2* scratch,
-                                          LoadFirst&& load_first) {
-  const int n_ops = shape.n_ops, blk = shape.blk, a = shape.a;
+                                          LoadFirst&& load_first,
+                                          const Store& store) {
+  const int n_ops = shape.n_ops;
   const int kbits = shape.kbits;
   const unsigned size = shape.size;
-  const int* active = table + 16;
   const int* desc = table + SWEEP_HEADER + n_ops * OP_HEADER;
   const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
   const int* regs = table + HEADER_REGS;  // the current register bits
@@ -435,7 +454,9 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
       if (o == n_ops) {
         if (!holds) return;
         unsigned gm[R];
-        const unsigned gt = x.global(gm, blk, a, active, cta_g);
+#pragma unroll
+        for (int b = 0; b < R; ++b) gm[b] = store.bits(x.rm[b]);
+        const unsigned gt = store.at(x.tbase);
 #pragma unroll
         for (int v = 0; v < (1 << R); ++v) {
           const unsigned g = gt | reg_off(v, gm);
@@ -469,7 +490,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
     if (o == n_ops) {
 #pragma unroll 4
       for (unsigned l = threadIdx.x; l < size; l += blockDim.x) {
-        const unsigned g = global_index(l, blk, a, active, cta_g);
+        const unsigned g = store.at(l);
         if constexpr (STREAM) {
           __stcs(re + g, sr[l]);
           __stcs(im + g, si[l]);
@@ -481,6 +502,21 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
       return;
     }
   }
+}
+
+// run_block storing to the block's own slots, in place.
+template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst>
+__device__ __forceinline__ void run_block(float* __restrict__ re,
+                                          float* __restrict__ im,
+                                          const int* __restrict__ table,
+                                          const BlockShape& shape,
+                                          const float2* __restrict__ coef,
+                                          unsigned cta_g, float* sr, float* si,
+                                          float2* scratch,
+                                          LoadFirst&& load_first) {
+  run_block<MAXM, STREAM, SPARE>(re, im, table, shape, coef, cta_g, sr, si,
+                                 scratch, load_first,
+                                 BlockStore{shape.blk, shape.a, table + 16, cta_g});
 }
 
 }  // namespace qsim

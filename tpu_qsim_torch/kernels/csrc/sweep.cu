@@ -73,38 +73,13 @@
 #include <cuda_runtime.h>
 
 #include "block_program.cuh"
+#include "grid_sync.cuh"
 
 namespace {
 
 using namespace qsim;
 
 constexpr int MAX_ACTIVE = 4;  // the high sweep's active top bits
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Barrier of the `members` CTAs of one group. The counter only grows: the
-// k-th barrier waits for k * members arrivals. A barrier that has not
-// completed after 2^36 cycles (about 40 s) traps, so a fault shows as a
-// failed launch and not as a hung card.
-__device__ __forceinline__ void group_sync(unsigned* counter, unsigned members,
-                                           unsigned& target) {
-  __syncthreads();
-  target += members;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    const long long start = clock64();
-    while (load_acquire(counter) < target) {
-      if (clock64() - start > (1LL << 36)) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // The wide instance takes at most WIDE_THREADS threads, so that ptxas may
 // give the tiled op 128 registers a thread (4 groups a thread).

@@ -9,9 +9,15 @@ Rows (``ROWS``):
   main path (``random_circuit(26, 40, seed=42)``, a random 8-qubit unitary on
   qubits 10-17, ``random_circuit(26, 40, seed=43)``);
 * circuits with one wide dense gate, built the same way (a 6-qubit core at
-  22 and 26 qubits);
+  22 and 26 qubits; an 8-qubit core on qubits 14-21 of 22 and a 6-qubit
+  core on qubits 18-23 of 24, which only the segmented engine takes);
 * ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid-sweep
-  programs, each forced;
+  programs, each forced, and ``random_circuit(24, 100, seed=42)`` through
+  the segmented program, forced (traffic the dispatcher sends to the grid
+  sweep: it times the segments' kernel on more blocks than CTAs);
+* the segmented engine's fixed costs at 19 qubits: programs of one segment
+  each, in place with 0 ops (``h(0) h(0)``, merged away) and with 1 op
+  (``h(0)``), and one that gathers and scatters for its 1 op (``h(18)``);
 * one k-qubit dense op at 26 qubits (k = 6, 7, 8) alone in a low sweep
   (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, blk 8, 5 active
   bits: 512 threads), less the same sweep holding one 1-qubit op instead;
@@ -56,12 +62,24 @@ ROWS = {
     "26q_sweeps_main": (26, 8, 10),
     **{f"{n}q_random_whole": (n, 0, 0) for n in range(10, 19)},
     "19q_random_segments": (19, 0, 0),
+    "19q_segment_0_ops": (19, 0, 0),
+    "19q_segment_1_op": (19, 0, 0),
+    "19q_segment_relabel_1_op": (19, 0, 0),
+    "22q_dense8_on_14": (22, 8, 14),    # grid and sweeps refuse it: segments
+    "24q_dense6_on_18": (24, 6, 18),    # grid and sweeps refuse it: segments
+    "24q_random_on_segments": (24, 0, 0),
     "22q_dense6_on_8": (22, 6, 8),      # the grid refuses it: sweeps
     "26q_dense6_on_0": (26, 6, 0),      # grid sweep, the wide instance
     "26q_random_on_sweeps": (26, 0, 0),
     "26q_random_on_grid": (26, 0, 0),
     "16q_dense12_on_0": (16, 12, 0),    # whole circuit + dense pass
     "22q_dense12_on_0": (22, 12, 0),    # grid sweep + dense pass
+}
+# the one-segment rows' gates
+SEGMENT_GATES = {
+    "19q_segment_0_ops": (("h", 0), ("h", 0)),
+    "19q_segment_1_op": (("h", 0),),
+    "19q_segment_relabel_1_op": (("h", 18),),
 }
 PASS_QUBITS = (16, 18, 22)
 PASS_CORE = 12
@@ -143,12 +161,19 @@ def _probe(planes: torch.Tensor) -> list[float]:
 def time_row(name: str, card: str) -> dict:
     n, k, lo = ROWS[name]
     c = wide_circuit(n, k, lo) if k else random_circuit(n, 100, seed=42)
-    if name.endswith(("_on_sweeps", "_on_grid")):
+    if name in SEGMENT_GATES:
+        c = Circuit(n)
+        for gate, q in SEGMENT_GATES[name]:
+            c.add(gate, q)
+    if name.endswith(("_on_sweeps", "_on_grid", "_on_segments")) or name in SEGMENT_GATES:
         from tpu_qsim_torch.kernels.gridsweeps import GridSweepProgram
+        from tpu_qsim_torch.kernels.segmented import SegmentedProgram
         from tpu_qsim_torch.kernels.sweeps import SweepProgram
 
-        engine = "sweeps" if name.endswith("_on_sweeps") else "grid_sweep"
-        prog = (SweepProgram if engine == "sweeps" else GridSweepProgram)(c)
+        engine = ("sweeps" if name.endswith("_on_sweeps") else
+                  "grid_sweep" if name.endswith("_on_grid") else "segmented")
+        prog = {"sweeps": SweepProgram, "grid_sweep": GridSweepProgram,
+                "segmented": SegmentedProgram}[engine](c)
         state = torch.zeros((2, 1 << n), dtype=torch.float32, device="cuda")
         state[0, 0] = 1.0
         reset_launches()

@@ -5,14 +5,20 @@
 
 Whole-circuit route, for each n in 10..18: every tile size 2^T the register
 program takes (9 <= T <= min(n, 14)), each with one CTA per tile, half and
-a quarter as many (a CTA then takes tiles in turn). Segmented program at 19
-qubits: every local_bits in 10..14 at 256, 512 and 1024 threads. Each
-candidate plans ``random_circuit(n, gates, seed=42)``, checks one run
-against its plain torch version, then prints its device time: the median of
-5 CUDA-event timings of ``inner`` replays of a CUDA graph of one run,
-divided by ``inner`` (eager launches of a kernel this short time the host),
-with the stages, the torch engine's time for the same circuit (the route
-these sizes took before the kernels) and the whole-circuit run's eager time.
+a quarter as many (a CTA then takes tiles in turn). Segmented program at
+19, 22 and 24 qubits (or any of 19..26 given with ``--qubits``): every
+local_bits in 10..14 (a CTA of 2^(local_bits - 4) threads; a block a plan
+widens for its widest gate is timed once). Each candidate plans
+``random_circuit(n, gates, seed=42)``; above 19 qubits instead a circuit
+the grid and the sweeps refuse, so one the segments really get there:
+``random_circuit(n, 40, seed=42)``, a dense gate on the top 6 qubits,
+``random_circuit(n, 40, seed=43)``. Each candidate checks one run
+against its plain torch version, then prints its device time: the median
+of 5 CUDA-event timings of ``inner`` replays of a CUDA graph of one run,
+divided by ``inner`` (eager launches of a kernel this short time the
+host), with the stages or segments, the torch engine's time for the same
+circuit (the route these sizes took before the kernels) and the run's
+eager time.
 Candidates run forward and then backward, so a drift of the card's clocks
 shows as a difference between the two passes. With ``--op-cost`` it times
 instead the whole-circuit route at its geometry on ``random_circuit(n, g,
@@ -44,8 +50,11 @@ from .fused_circuit import (
 from .gridsweeps import MIN_GRID_BLOCK_BITS
 from .segmented import SegmentedProgram
 from .sweeps import MAX_TILE_BITS
+from .time_run import wide_circuit
 
-THREADS = (256, 512, 1024)
+SEGMENT_QUBITS = (19, 22, 24)
+
+
 
 
 def median_ms(fn, inner: int, reps: int = 5) -> float:
@@ -88,12 +97,11 @@ def torch_engine_ms(circuit, inner: int) -> float:
     return median_ms(lambda: fn(x), inner)
 
 
-def _candidates(qubits, n_seg: int):
+def _candidates(qubits):
     for n in qubits:
-        if n == n_seg:
+        if n > MAX_WHOLE_CIRCUIT_QUBITS:
             for lb in range(10, MAX_BLOCK_BITS + 1):
-                for t in THREADS:
-                    yield ("segmented", n, lb, t)
+                yield ("segmented", n, lb, None)
             continue
         for bits in range(MIN_GRID_BLOCK_BITS, min(n, MAX_TILE_BITS) + 1):
             for ctas in sorted({max(1, (1 << (n - bits)) >> j) for j in range(3)}):
@@ -124,7 +132,7 @@ def main() -> None:
     parser.add_argument("--gates", type=int, default=100)
     parser.add_argument("--inner", type=int, default=20)
     parser.add_argument("--qubits", type=int, action="append", default=None,
-                        help="only these sizes (10..19)")
+                        help="only these sizes (10..26)")
     parser.add_argument("--op-cost", action="store_true",
                         help="time the whole-circuit route against circuit length instead")
     args = parser.parse_args()
@@ -135,20 +143,24 @@ def main() -> None:
         capture_output=True, text=True, timeout=10, check=True,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    n_seg = MAX_WHOLE_CIRCUIT_QUBITS + 1
     if args.op_cost:
         op_cost(args.qubits or (10, 14, 18), args.inner)
         return
-    qubits = args.qubits or range(MIN_WHOLE_CIRCUIT_QUBITS, n_seg + 1)
-    cands = list(_candidates(qubits, n_seg))
-    circuits = {n: random_circuit(n, args.gates, seed=42) for n in qubits}
+    qubits = args.qubits or (*range(MIN_WHOLE_CIRCUIT_QUBITS, MAX_WHOLE_CIRCUIT_QUBITS + 1),
+                             *SEGMENT_QUBITS)
+    # above 19 qubits the segments get only circuits the grid refuses
+    circuits = {n: wide_circuit(n, 6, n - 6) if n > MAX_WHOLE_CIRCUIT_QUBITS + 1
+                else random_circuit(n, args.gates, seed=42) for n in qubits}
     progs = {}
-    for cand in cands:
+    for cand in _candidates(qubits):
         kind, n, g, t = cand
         if kind == "whole_circuit":
             progs[cand] = WholeCircuitProgram(circuits[n], tile_bits=g, ctas=t)
         else:
-            progs[cand] = SegmentedProgram(circuits[n], local_bits=g, threads=t)
+            prog = SegmentedProgram(circuits[n], local_bits=g)
+            if prog.local_bits == g:         # a widened block is its own candidate
+                progs[cand] = prog
+    cands = list(progs)
     engine_ms = {n: torch_engine_ms(c, args.inner) for n, c in circuits.items()}
     plain = {}
     rows = []
@@ -174,7 +186,9 @@ def main() -> None:
                            stages=[len(st.gates) for st in prog.stages],
                            eager_ms=median_ms(lambda: prog.run(state), args.inner))
             else:
-                row.update(threads=t, local_bits=g, segments=prog.num_segments)
+                row.update(threads=prog.threads, local_bits=g,
+                           segments=[int(st.table.ints[0]) for st in prog.steps],
+                           eager_ms=median_ms(lambda: prog.run(state), args.inner))
             rows.append(row)
             print(json.dumps(row), flush=True)
     best = {}
