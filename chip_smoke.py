@@ -77,9 +77,35 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     against the matmul (1e-7). Below 20 qubits a
     kernel's time is its device time, from CUDA-graph replays of its
     launches (many per event pair); the eager time through the Python
-    wrappers is printed beside it.
+    wrappers is printed beside it;
+12. certify at 29 and 30 qubits on the grid-sweep kernel (launches counted):
+    the QFT and diagonal-layer closed forms (< 5e-6 and <= 1e-4 x 2^(-n/2))
+    and the permutation check (< 5e-6), with the peak device memory of each
+    size and the QFT run timed; the cross-engine check at 28 (grid sweep
+    against the torch engine, < 5e-6);
+13. noisy: ``NoisySimulator(24)`` on ``random_circuit(24, 40, seed=42)``
+    with every channel at p = 0 against ``StateVectorSimulator(24)``
+    (1e-5); with a global depolarizing channel and amplitude damping on
+    qubits 0-3 at 1e-3, the norm within 1e-4, timed; the ensemble of
+    ``BatchedSimulator(10, 1024)`` against ``DensityMatrixSimulator(10)``'s
+    rho, ``insertion="all"``: |mean_b p_b(x) - rho_xx| <= 5 std_b / sqrt(B)
+    + 1e-6 for every x; ``BatchedSimulator(20, 128)`` on
+    ``random_circuit(20, 10, seed=42)`` timed;
+14. density matrix: ``DensityMatrixSimulator(14)`` on
+    ``random_circuit(14, 40, seed=42)`` with depolarizing and amplitude
+    damping (trace within 1e-4, valid, purity < 1), timed; the noiseless
+    rho's fidelity with ``StateVectorSimulator(14)`` >= 1 - 1e-5; 8-qubit
+    rho on the card against the CPU (1e-5);
+15. variational: ``build_expectation_fn(hardware_efficient_ansatz(20, 4),
+    tfim_hamiltonian(20))``: the autograd gradient against the parameter
+    shift on 4 rotations (1e-3), a batch of 8 parameter vectors against 8
+    single calls (1e-5), value and gradient timed; ``vqe_minimize`` on
+    ``tfim_hamiltonian(10)`` for 50 steps descends (the exact ground energy
+    printed beside it).
 
-Every check raises on failure. The last two lines are the kernels JSON and
+Phases 12-15 run on the torch engine (certify on the grid-sweep kernel), on
+the card; each prints its ms (CUDA events, median of 5 after a warm-up) and
+peak device memory. Every check raises on failure. The last two lines are the kernels JSON and
 the device JSON; the exit code is 0 only if every phase passed.
 """
 
@@ -97,6 +123,7 @@ import torch
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch import apply as ap
+from tpu_qsim_torch import certify
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, reset_launches
@@ -917,6 +944,277 @@ def phase_timing_dense_op() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The noisy, density-matrix and variational paths, and certification at
+# 29-30 qubits (torch engine; certification on the grid-sweep kernel)
+# ---------------------------------------------------------------------------
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def fresh_peak() -> float:
+    """Reset the peak device memory; returns the GiB that earlier phases
+    still hold, which the peak includes."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def phase_certify() -> dict:
+    """The four checks of ``certify``: the closed forms at 29 and 30 qubits
+    and the cross-engine check at 28, each on the grid-sweep kernel (its
+    launches counted, no other kernel), with the peak device memory of
+    each size; the QFT check's engine run timed at 29 and 30."""
+    out = {"launches": {}}
+    for n in (29, 30):
+        held = fresh_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        vals = {
+            "qft": certify.qft_analytic_max_diff(n),
+            "diag": certify.diag_layer_analytic_max_diff(n),
+            "perm": certify.permutation_analytic_max_dev(n),
+        }
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = peak_gib()
+        scaled = 1e-4 * 2.0 ** (-n / 2)
+        prog = GridSweepProgram(tq.qft_circuit(n))
+        x = ap.initial_state(n, np.float32, 1, "cuda")
+        check(x.is_cuda, "certify state not on the card")
+        ms = median_ms(lambda: prog.run(x))
+        del x
+        b = bound(prog.bytes_moved(), prog.flops())
+        log(f"phase {n}q_certify: wall_s={wall:.3f} qft={vals['qft']:.3e} diag={vals['diag']:.3e} "
+            f"perm={vals['perm']:.3e} (tol 5e-6; qft, diag also <= {scaled:.3e}) "
+            f"launches={launches} peak_gib={peak:.3f} held_gib={held:.3f} qft_run_ms={ms:.4f} "
+            f"qft_sweeps={prog.num_sweeps} qft_bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+        check(launches.get("grid_sweep", 0) > 0 and set(launches) == {"grid_sweep"},
+              f"{n}q certify launches {launches}")
+        check(max(vals.values()) < 5e-6, f"{n}q certify {vals}")
+        check(vals["qft"] <= scaled and vals["diag"] <= scaled, f"{n}q certify beyond {scaled}")
+        out[n] = {**vals, "peak_gib": peak, "held_gib": held, "qft_run_ms": ms,
+                  "qft_bound_ms": b["bound_ms"], "wall_s": wall}
+        out["launches"][n] = launches.get("grid_sweep", 0)
+    held = fresh_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    cross = certify.cross_engine_max_diff(tq.random_circuit(N_MAIN, 100, seed=42))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"phase {N_MAIN}q_certify_cross_engine: wall_s={time.perf_counter() - t0:.3f} "
+        f"max_abs_diff={cross:.3e} (tol 5e-6) launches={launches} peak_gib={peak_gib():.3f} held_gib={held:.3f}")
+    check(launches.get("grid_sweep", 0) > 0, f"cross-engine launches {launches}")
+    check(cross < 5e-6, f"{N_MAIN}q cross-engine {cross}")
+    out["cross_28"] = cross
+    return out
+
+
+def noisy_10q_circuit() -> "tq.Circuit":
+    """An H layer, then ``random_circuit(10, 60, seed=5)``: every trajectory
+    spreads over the basis states, so no p_b(x) sits in a rare-event tail
+    that the 5-sigma bound's sample std would understate."""
+    c = tq.Circuit(10)
+    for q in range(10):
+        c.h(q)
+    for g in tq.random_circuit(10, 60, seed=5).gates:
+        c.append(g)
+    return c
+
+
+def phase_noisy() -> dict:
+    """Trajectories: ``NoisySimulator(24)`` with every channel at p = 0
+    against ``StateVectorSimulator(24)``; with a global depolarizing channel
+    and amplitude damping on qubits 0-3 (norm kept), timed; the ensemble of
+    ``BatchedSimulator(10, 1024)`` against ``DensityMatrixSimulator(10)``'s
+    exact rho (5 sigma); ``BatchedSimulator(20, 128)`` timed."""
+    n = 24
+    c = tq.random_circuit(n, 40, seed=42)
+    zero = tq.NoiseModel().add_depolarizing(0.0).add_amplitude_damping(0.0, list(range(4)))
+    t0 = time.perf_counter()
+    noisy = tq.NoisySimulator(n, zero, seed=1).run(c)
+    ideal = tq.StateVectorSimulator(n).run(c)
+    check(noisy.state_planes.is_cuda and ideal.state_planes.is_cuda, "24q noisy not on the card")
+    err, _ = compare(noisy.state_planes, ideal.state_planes)
+    log(f"phase {n}q_noisy_p0: wall_s={time.perf_counter() - t0:.3f} max_abs_err={err:.3e} "
+        f"(tol 1e-5) against {ideal.engine}")
+    check(err <= 1e-5, f"24q noisy at p = 0 vs ideal {err}")
+    del noisy, ideal
+
+    model = tq.NoiseModel().add_depolarizing(1e-3).add_amplitude_damping(1e-3, list(range(4)))
+    sim = tq.NoisySimulator(n, model, seed=2)
+    held = fresh_peak()
+
+    def trajectory():
+        sim.reset()
+        sim.run(c)
+
+    ms = median_ms(trajectory)
+    norm = sim.total_probability()
+    peak = peak_gib()
+    _, n_draws = sim._compiled_run(c)
+    log(f"phase {n}q_noisy: ms={ms:.3f} (median of 5) channel_applications={n_draws} "
+        f"norm={norm:.7f} (tol 1e-4) peak_gib={peak:.3f} held_gib={held:.3f}")
+    check(sim.state_planes.is_cuda, "trajectory not on the card")
+    check(abs(norm - 1.0) <= 1e-4, f"24q trajectory norm {norm}")
+    res = {"noisy_24q": {"ms": ms, "peak_gib": peak, "held_gib": held,
+                         "p0_max_abs_err": err, "norm": norm}}
+    del sim
+
+    c10 = noisy_10q_circuit()
+    model10 = tq.NoiseModel().add_depolarizing(0.01)
+    batch = 1024
+    t0 = time.perf_counter()
+    ens = tq.BatchedSimulator(10, batch, model10, seed=3, insertion="all").run(c10)
+    dm = tq.DensityMatrixSimulator(10, model10, insertion="all").run(c10)
+    check(ens.state_planes.is_cuda and dm.state_planes.is_cuda, "10q ensemble not on the card")
+    p = ens.trajectory_probabilities().double()
+    rho = dm.probabilities().double()
+    excess = (p.mean(0) - rho).abs() - (5 * p.std(0) / math.sqrt(batch) + 1e-6)
+    worst = float(excess.max())
+    log(f"phase 10q_batched_vs_density: wall_s={time.perf_counter() - t0:.3f} "
+        f"max(|mean - rho_xx| - (5 std/sqrt(B) + 1e-6))={worst:.3e} (tol <= 0) "
+        f"max_abs_diff={float((p.mean(0) - rho).abs().max()):.3e} trace={dm.trace():.7f}")
+    check(worst <= 0.0, f"10q ensemble beyond 5 sigma of rho: {worst}")
+    res["batched_vs_density_10q"] = worst
+    del ens, dm, p
+
+    nb, batch = 20, 128
+    cb = tq.random_circuit(nb, 10, seed=42)
+    held = fresh_peak()
+    bsim = tq.BatchedSimulator(nb, batch, model, seed=4)
+
+    def batched():
+        bsim.reset()
+        bsim.run(cb)
+
+    ms_b = median_ms(batched)
+    peak_b = peak_gib()
+    tp = bsim.total_probability()
+    log(f"phase {nb}q_batched: batch={batch} state_gib={bsim.total_memory_bytes / 2 ** 30:.3f} "
+        f"ms={ms_b:.3f} (median of 5) peak_gib={peak_b:.3f} held_gib={held:.3f} "
+        f"total_probability={tp:.7f}")
+    check(bsim.state_planes.is_cuda, "batch not on the card")
+    check(abs(tp - 1.0) <= 1e-4, f"20q batch total probability {tp}")
+    res["batched_20q"] = {"ms": ms_b, "peak_gib": peak_b, "held_gib": held}
+    return res
+
+
+def phase_density() -> dict:
+    """``DensityMatrixSimulator(14)`` with depolarizing and amplitude damping
+    (trace, validity, purity), timed with its peak memory; the noiseless 14q
+    rho against ``StateVectorSimulator(14)``; 8q rho on the card against the
+    port's rho on the CPU."""
+    n = 14
+    c = tq.random_circuit(n, 40, seed=42)
+    model = tq.NoiseModel().add_depolarizing(1e-3).add_amplitude_damping(1e-3)
+    held = fresh_peak()
+    dm = tq.DensityMatrixSimulator(n, model)
+
+    def run():
+        dm.reset()
+        dm.run(c)
+
+    ms = median_ms(run)
+    peak = peak_gib()
+    tr, pu, valid = dm.trace(), dm.purity(), dm.is_valid()
+    log(f"phase {n}q_density: ms={ms:.3f} (median of 5) trace={tr:.7f} (tol 1e-4) "
+        f"purity={pu:.6f} valid={valid} peak_gib={peak:.3f} held_gib={held:.3f} "
+        f"rho_gib={dm.memory_bytes / 2 ** 30:.3f}")
+    check(dm.state_planes.is_cuda, "rho not on the card")
+    check(abs(tr - 1.0) <= 1e-4 and valid and pu < 1.0, f"14q rho trace {tr} purity {pu}")
+    del dm
+    clean = tq.DensityMatrixSimulator(n).run(c)
+    sv = tq.StateVectorSimulator(n).run(c)
+    fid = clean.fidelity_with(sv)
+    log(f"phase {n}q_density_noiseless: fidelity={fid:.9f} (tol 1 - 1e-5) against {sv.engine}")
+    check(1.0 - fid <= 1e-5, f"14q noiseless rho fidelity {fid}")
+    del clean, sv
+
+    c8 = tq.random_circuit(8, 12, seed=7).cry(0, 7, 0.3)
+    card = tq.DensityMatrixSimulator(8, model).run(c8)
+    cpu = tq.DensityMatrixSimulator(8, model, device="cpu").run(c8)
+    err8 = float((card.state_planes.cpu() - cpu.state_planes).abs().max())
+    log(f"phase 8q_density_card_vs_cpu: max_abs_err={err8:.3e} (tol 1e-5)")
+    check(card.state_planes.is_cuda, "8q rho not on the card")
+    check(err8 <= 1e-5, f"8q rho card vs CPU {err8}")
+    return {"ms": ms, "peak_gib": peak, "held_gib": held, "trace": tr, "purity": pu, "fidelity": fid, "card_vs_cpu": err8}
+
+
+def tfim_ground_energy(n: int) -> float:
+    """Exact ground energy of ``tfim_hamiltonian(n)`` from its dense matrix."""
+    paulis = {"I": np.eye(2), "X": np.array([[0, 1], [1, 0]]), "Z": np.diag([1, -1])}
+    h = np.zeros((1 << n, 1 << n))
+    for coeff, word in tq.tfim_hamiltonian(n):
+        m = np.ones((1, 1))
+        for ch in word:          # leftmost character is the highest qubit
+            m = np.kron(m, paulis[ch])
+        h += coeff * m
+    return float(np.linalg.eigvalsh(h)[0])
+
+
+def phase_variational() -> dict:
+    """``build_expectation_fn`` at 20 qubits: the autograd gradient against
+    the parameter shift on 4 rotations (1e-3), a batch of 8 parameter vectors
+    against 8 single calls (1e-5), expectation + gradient timed;
+    ``vqe_minimize`` on ``tfim_hamiltonian(10)`` for 50 steps."""
+    n = 20
+    c = tq.hardware_efficient_ansatz(n, 4)
+    f = tq.build_expectation_fn(c, tq.tfim_hamiltonian(n))
+    params = torch.tensor(c.params(), device="cuda", requires_grad=True)
+    held = fresh_peak()
+
+    def value_and_grad():
+        params.grad = None
+        e = f(params)
+        e.backward()
+        return e
+
+    e = value_and_grad()
+    check(e.is_cuda and params.grad.is_cuda, "expectation not on the card")
+    grad = params.grad.clone()
+    shift_err = 0.0
+    with torch.no_grad():
+        for i in (0, 1, 77, len(c.params()) - 1):
+            s = torch.zeros_like(params)
+            s[i] = math.pi / 2
+            ps = float((f(params + s) - f(params - s)) / 2)
+            shift_err = max(shift_err, abs(ps - float(grad[i])))
+        batch = torch.stack([params + 0.1 * k for k in range(8)])
+        together = f(batch)
+        singles = torch.stack([f(row) for row in batch])
+        batch_err = float((together - singles).abs().max())
+    ms = median_ms(value_and_grad)
+    peak = peak_gib()
+    log(f"phase {n}q_expectation: energy={float(e.detach()):.6f} params={len(c.params())} "
+        f"terms={len(tq.tfim_hamiltonian(n))} param_shift_max_diff={shift_err:.3e} (tol 1e-3) "
+        f"batch8_max_diff={batch_err:.3e} (tol 1e-5) value_and_grad_ms={ms:.3f} (median of 5) "
+        f"peak_gib={peak:.3f} held_gib={held:.3f}")
+    check(shift_err <= 1e-3, f"gradient vs parameter shift {shift_err}")
+    check(together.is_cuda, "batched expectation not on the card")
+    check(batch_err <= 1e-5, f"batch of 8 vs single calls {batch_err}")
+
+    t0 = time.perf_counter()
+    energy, best, hist = tq.vqe_minimize(tq.tfim_hamiltonian(10), 10, steps=50)
+    wall = time.perf_counter() - t0
+    exact = tfim_ground_energy(10)
+    log(f"phase 10q_vqe: wall_s={wall:.3f} steps=50 start={hist[0]:.6f} final={hist[-1]:.6f} "
+        f"best={energy:.6f} exact_ground={exact:.6f}")
+    check(best.is_cuda, "VQE parameters not on the card")
+    check(hist[-1] < hist[0], f"VQE did not descend: {hist[0]} -> {hist[-1]}")
+    return {"value_and_grad_ms": ms, "peak_gib": peak, "held_gib": held,
+            "param_shift_max_diff": shift_err,
+            "batch8_max_diff": batch_err, "vqe_start": hist[0], "vqe_final": hist[-1],
+            "vqe_exact": exact, "vqe_wall_s": wall}
+
+
+START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -946,6 +1244,13 @@ def main() -> int:
     t_whole = phase_timing_whole_circuit()
     t_seg = phase_timing_segmented(seg["prog"])
     t_sweeps = phase_timing_sweeps(sweeps["prog"], cross)
+    paths = {}
+    for name, phase in (("certify", phase_certify), ("noisy", phase_noisy),
+                        ("density", phase_density), ("variational", phase_variational)):
+        t0 = time.perf_counter()
+        paths[name] = phase()
+        paths[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase {name}: {paths[name]['phase_s']:.1f} s")
     kernels = [{
         "name": "grid_sweep",
         "route": "cuda",
@@ -959,6 +1264,7 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": None,
         "fidelity": main_res["fidelity"],
+        "certify_launches": paths["certify"]["launches"],
         "ghz_max_abs_err": closed["ghz_max_abs_err"],
         "qft_max_mag_err": closed["qft_max_mag_err"],
     }, {
@@ -1052,6 +1358,8 @@ def main() -> int:
     })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
+    log(f"paths: {json.dumps(paths, default=float)}")
+    log(f"run: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ program, dense cores of 7 and 8 qubits on each kernel too, the sweeps at
 tiles of 2^12 to 2^14 slots, the whole-circuit route (the sweep kernel over
 the whole state) at two geometries, and each instance of the dense pass's
 3xTF32 product; the simulator's routing (the split at a 12-qubit core
-included) and each wrapper's refusals are checked as well.
+included) and each wrapper's refusals are checked as well. The noisy,
+batched, density-matrix and variational paths (the torch engine) and
+certify (the grid-sweep kernel) run on the card against the CPU.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -15,7 +17,8 @@ it runs there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance 1e-6 on max |d amp|: kernel and plain version are two float32
-evaluations of the same gate list in different summation orders.
+evaluations of the same gate list in different summation orders (1e-5 for
+the torch-engine paths' card against CPU, 1e-4 for a 20-term gradient).
 """
 
 import numpy as np
@@ -518,3 +521,103 @@ def test_whole_circuit_core_wider_than_its_tile_threads(cuda_device, k):
     got = prog.run(x.clone())
     torch.cuda.synchronize()
     assert float((got - prog.run_plain(x)).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# noisy, batched, density-matrix and variational paths: card against CPU
+# ---------------------------------------------------------------------------
+
+
+def _noise_model():
+    return tq.NoiseModel().add_depolarizing(0.05).add_amplitude_damping(0.1, [0, 3]).add_bit_flip(0.02, 5)
+
+
+@pytest.mark.parametrize("insertion", ["all", "gate_qubits"])
+def test_trajectory_step_card_matches_cpu(cuda_device, insertion):
+    from tpu_qsim_torch.noisy import build_trajectory_step
+
+    n, batch = 12, 16
+    c = tq.random_circuit(n, 30, seed=3)
+    on_card, n_draws = build_trajectory_step(c, _noise_model(), np.float32, insertion, cuda_device)
+    on_cpu, _ = build_trajectory_step(c, _noise_model(), np.float32, insertion, "cpu")
+    u = torch.rand(batch, n_draws, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    x = tq.apply.initial_state(n, np.float32, 0, "cpu").expand(batch, 2, 1 << n)
+    got = on_card(x.to(cuda_device), u.to(cuda_device))
+    want = on_cpu(x, u)
+    assert got.is_cuda and float((got.cpu() - want).abs().max()) <= 1e-5
+    single = on_card(x[0].to(cuda_device), u[0].to(cuda_device))
+    assert float((single - got[0]).abs().max()) <= 1e-6
+
+
+def test_trajectory_simulators_run_on_the_card(cuda_device, tmp_path):
+    n = 10
+    c = tq.random_circuit(n, 40, seed=2)
+    noisy = tq.NoisySimulator(n, _noise_model(), seed=1).run(c)
+    assert noisy.state_planes.is_cuda and noisy.is_normalized(1e-4)
+    batched = tq.BatchedSimulator(n, 64, _noise_model(), seed=1).run(c)
+    assert batched.state_planes.is_cuda and batched.state_planes.shape == (64, 2, 1 << n)
+    assert batched.total_probability() == pytest.approx(1.0, abs=1e-4)
+    assert batched.sample(5).shape == (64, 5) and batched.measure_qubit(3).shape == (64,)
+    batched.save_state(str(tmp_path / "batch.npz"))
+    cpu = tq.BatchedSimulator(n, 64, device="cpu")
+    cpu.load_state(str(tmp_path / "batch.npz"))
+    np.testing.assert_allclose(batched.reduced_density_matrix([1, 4]),
+                               cpu.reduced_density_matrix([1, 4]), atol=1e-5)
+    assert batched.expectation_pauli("ZXI") == pytest.approx(cpu.expectation_pauli("ZXI"), abs=1e-5)
+
+
+@pytest.mark.parametrize("insertion", ["all", "gate_qubits"])
+def test_density_matrix_card_matches_cpu(cuda_device, insertion):
+    n = 8
+    c = tq.random_circuit(n, 30, seed=5).cry(0, 7, 0.4).toffoli(1, 2, 6)
+    card = tq.DensityMatrixSimulator(n, _noise_model(), insertion=insertion).run(c)
+    cpu = tq.DensityMatrixSimulator(n, _noise_model(), insertion=insertion, device="cpu").run(c)
+    assert card.state_planes.is_cuda
+    assert float((card.state_planes.cpu() - cpu.state_planes).abs().max()) <= 1e-5
+    assert card.purity() == pytest.approx(cpu.purity(), abs=1e-5)
+    np.testing.assert_allclose(card.reduced_density_matrix([0, 5]),
+                               cpu.reduced_density_matrix([0, 5]), atol=1e-5)
+    pure = tq.StateVectorSimulator(n).run(c)
+    assert card.fidelity_with(pure) == pytest.approx(
+        cpu.fidelity_with(pure.state_planes.cpu()), abs=1e-5)
+
+
+def test_expectation_and_gradient_card_matches_cpu(cuda_device):
+    n = 10
+    c = tq.hardware_efficient_ansatz(n, 2, seed=1)
+    h = tq.tfim_hamiltonian(n)
+    params = torch.tensor(c.params())
+    grads = []
+    for device in (cuda_device, "cpu"):
+        f = tq.build_expectation_fn(c, h, device=device)
+        p = params.clone().to(device).requires_grad_(True)
+        e = f(p)
+        e.backward()
+        grads.append((float(e.detach()), p.grad.cpu()))
+    assert grads[0][0] == pytest.approx(grads[1][0], abs=1e-4)
+    assert float((grads[0][1] - grads[1][1]).abs().max()) <= 1e-4
+    batch = tq.build_expectation_fn(c, h)(torch.stack([params, params + 0.1]))
+    assert batch.is_cuda and batch.shape == (2,)
+
+
+def test_certify_runs_the_grid_kernel(cuda_device):
+    from tpu_qsim_torch import certify
+
+    n = 22
+    reset_launches()
+    qft = certify.qft_analytic_max_diff(n)
+    diag = certify.diag_layer_analytic_max_diff(n)
+    perm = certify.permutation_analytic_max_dev(n)
+    cross = certify.cross_engine_max_diff(tq.random_circuit(n, 60, seed=4))
+    torch.cuda.synchronize()
+    assert LAUNCHES["grid_sweep"] >= 4
+    assert max(qft, diag, perm, cross) < 5e-6
+
+
+def test_new_entry_points_default_to_the_card(cuda_device, monkeypatch):
+    assert tq.DensityMatrixSimulator(2).state_planes.is_cuda
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tq.NoisySimulator(4), lambda: tq.BatchedSimulator(4, 2),
+                 lambda: tq.DensityMatrixSimulator(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

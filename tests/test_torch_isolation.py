@@ -33,6 +33,7 @@ def test_port_has_the_slice_modules():
     for mod in (
         "gates", "circuit", "config", "commute", "cpu_reference", "fusion",
         "apply", "base", "statevector", "convert", "schedule",
+        "gates_torch", "certify", "noise", "noisy", "density", "algorithms",
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
         "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",

@@ -7,7 +7,10 @@ qubits on an NVIDIA H100 through hand-written CUDA kernels
 (``kernels/csrc/``: whole-circuit at 10-18 qubits, segment and
 scatter-segment at 19, grid-sweep at 20-30, and the low- and high-sweep
 kernels where the grid planner refuses a circuit of 22-26 qubits) and
-everything else through a torch engine.
+everything else through a torch engine. The noisy, batched-trajectory and
+density-matrix simulators, parameterized runs with ``torch.autograd``
+gradients, certification and the algorithms run on the torch engine (the
+JAX package runs them on XLA), certification through the grid-sweep kernel.
 Entry points run on the card (``device=None``) unless the caller passes
 ``device="cpu"``. This package imports neither JAX nor ``tpu_qsim``.
 """
@@ -21,9 +24,29 @@ from .circuit import (
     qft_circuit,
     random_circuit,
 )
+from .algorithms import (
+    amplitude_estimation_circuit,
+    classical_shadow,
+    estimate_amplitude,
+    estimate_phase,
+    grover_circuit,
+    heisenberg_hamiltonian,
+    maxcut_expectation,
+    phase_estimation_circuit,
+    qaoa_maxcut_circuit,
+    qaoa_maxcut_objective,
+    shadow_expectation_pauli,
+    shadow_reduced_density_matrix,
+    tfim_hamiltonian,
+    trotter_circuit,
+    vqe_minimize,
+)
 from .config import DEFAULT_CONFIG, SimConfig
 from .cpu_reference import CPUReferenceSimulator
-from .statevector import StateVectorSimulator
+from .density import DensityMatrixSimulator
+from .noise import NoiseChannel, NoiseModel, NoiseType
+from .noisy import BatchedSimulator, NoisySimulator
+from .statevector import StateVectorSimulator, build_expectation_fn
 
 __all__ = [
     "Circuit",
@@ -37,6 +60,28 @@ __all__ = [
     "DEFAULT_CONFIG",
     "CPUReferenceSimulator",
     "StateVectorSimulator",
+    "build_expectation_fn",
+    "NoiseModel",
+    "NoiseChannel",
+    "NoiseType",
+    "NoisySimulator",
+    "BatchedSimulator",
+    "DensityMatrixSimulator",
+    "grover_circuit",
+    "qaoa_maxcut_circuit",
+    "qaoa_maxcut_objective",
+    "maxcut_expectation",
+    "phase_estimation_circuit",
+    "estimate_phase",
+    "amplitude_estimation_circuit",
+    "estimate_amplitude",
+    "trotter_circuit",
+    "classical_shadow",
+    "shadow_expectation_pauli",
+    "shadow_reduced_density_matrix",
+    "tfim_hamiltonian",
+    "heisenberg_hamiltonian",
+    "vqe_minimize",
     "simulate",
 ]
 

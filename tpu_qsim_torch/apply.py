@@ -11,6 +11,14 @@ A k-qubit gate reshapes the flat state into at most ``2k+2`` merged segments
 permute and applies a ``(2^k, 2^k) @ (2^k, rest)`` matmul. Diagonal gates are
 a broadcast multiply. This engine is the route below 20 qubits and in float64,
 as XLA is in the JAX package, and the plain version of the grid-sweep kernel.
+
+The gate functions also take a batch of states, ``(B, 2, 2^n)`` (trajectory
+batches, parameter sweeps): one matrix for every state folds the batch into
+the matmul's columns; a ``(B, 2^k, 2^k)`` stack of matrices (or a ``(B, 2^k)``
+stack of diagonals) gives each state its own in one batched matmul. Matrices
+may be numpy constants or torch tensors; a tensor is used as it is (it may
+require a gradient), so a caller that applies a matrix many times moves it to
+the device once.
 """
 
 from __future__ import annotations
@@ -83,7 +91,24 @@ def initial_state(
 
 
 def _const(m, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(m, torch.Tensor):
+        return m.to(device=like.device, dtype=like.dtype)
     return torch.as_tensor(np.asarray(m), dtype=like.dtype).to(like.device)
+
+
+def device_matrix(m, rdtype, device) -> torch.Tensor | None:
+    """A host constant (or None) as a tensor on ``device``, made once by a
+    planner so that applying it later copies nothing from the host."""
+    if m is None:
+        return None
+    return torch.as_tensor(np.asarray(m), dtype=torch_dtype(rdtype)).to(device)
+
+
+def exact_matmuls(t: torch.Tensor) -> None:
+    """Keep the card's float32 matmuls off TF32: the reference contracts at
+    Precision.HIGHEST, and TF32 keeps ~3 digits."""
+    if t.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 # ---------------------------------------------------------------------------
@@ -119,39 +144,48 @@ def apply_unitary(
     ui: np.ndarray | torch.Tensor | None,
     qubits: tuple[int, ...],
 ) -> torch.Tensor:
-    """Apply a dense k-qubit unitary U = ur + i*ui to (2, 2^n) planes.
+    """Apply a dense k-qubit matrix U = ur + i*ui to (2, 2^n) planes, or to
+    each state of a (B, 2, 2^n) batch.
 
     ``qubits[0]`` is the matrix-index MSB. One permute in, one matmul over
-    both planes, one permute out. Real U (ui None) costs a single matmul.
+    both planes, one permute out. Real U (ui None) costs a single matmul. A
+    (B, 2^k, 2^k) U applies its b-th matrix to the b-th state.
     """
-    if state.is_cuda:
-        # the reference contracts at Precision.HIGHEST; TF32 keeps ~3 digits
-        torch.backends.cuda.matmul.allow_tf32 = False
+    exact_matmuls(state)
+    lead = state.shape[:-2]
+    nb = len(lead)
     n = num_qubits_of(state)
     k = len(qubits)
     shape, axmap = _segments(n, qubits)
-    x = state.reshape([2] + shape)
-    taxes = [1 + axmap[q] for q in qubits]           # axes in matrix-bit order
-    rest = [a for a in range(x.dim()) if a != 0 and a not in taxes]
-    # plane axis right after the targets: columns are plane * R + rest
-    perm = taxes + [0] + rest
+    x = state.reshape(list(lead) + [2] + shape)
+    mr = _const(ur, state)
+    per_state = mr.dim() == 3
+    taxes = [nb + 1 + axmap[q] for q in qubits]      # axes in matrix-bit order
+    rest = [a for a in range(nb + 1, x.dim()) if a not in taxes]
+    # plane axis right after the targets: columns are plane * R + rest (a
+    # batch under one matrix joins the rest; under its own, it leads)
+    if per_state:
+        perm = [0] + taxes + [nb] + rest
+    else:
+        perm = taxes + [nb] + list(range(nb)) + rest
     xt = x.permute(perm)
     tshape = xt.shape
-    xt = xt.reshape(1 << k, -1)                      # (2^k, 2R), [re | im] cols
+    xt = xt.reshape(lead[0], 1 << k, -1) if per_state else xt.reshape(1 << k, -1)
 
-    yr = _const(ur, state) @ xt
+    yr = mr @ xt                                     # [re | im] columns
     if ui is None:
         y = yr
     else:
-        half = xt.shape[1] // 2
+        half = xt.shape[-1] // 2
         yi = _const(ui, state) @ xt
         del xt
         y = torch.cat(
-            [yr[:, :half] - yi[:, half:], yr[:, half:] + yi[:, :half]], dim=1
+            [yr[..., :half] - yi[..., half:], yr[..., half:] + yi[..., :half]],
+            dim=-1,
         )
         del yr, yi
     inv = np.argsort(perm).tolist()
-    return y.reshape(tshape).permute(inv).reshape(2, 1 << n)
+    return y.reshape(tshape).permute(inv).reshape(state.shape)
 
 
 def apply_diagonal(
@@ -160,31 +194,44 @@ def apply_diagonal(
     di: np.ndarray | torch.Tensor | None,
     qubits: tuple[int, ...],
 ) -> torch.Tensor:
-    """Apply a diagonal k-qubit unitary given its (2^k,) diagonal d = dr+i*di.
+    """Apply a diagonal k-qubit matrix given its (2^k,) diagonal d = dr+i*di
+    to (2, 2^n) planes, or to each state of a (B, 2, 2^n) batch (a (B, 2^k)
+    diagonal gives each state its own).
 
     Broadcast multiply on the segment reshape: no permute, no matmul.
     """
+    lead = state.shape[:-2]
+    nb = len(lead)
     n = num_qubits_of(state)
     k = len(qubits)
     shape, axmap = _segments(n, qubits)
-    x = state.reshape([2] + shape)
+    x = state.reshape(list(lead) + [2] + shape)
 
     # axis j of the (2,)*k diag tensor belongs to qubits[j]; place each on
-    # its segment axis
+    # its segment axis (a per-state diagonal keeps its batch axis in front)
+    dt_r = _const(dr, state)
+    per_state = dt_r.dim() == 2
     bshape = [1] * x.dim()
+    if per_state:
+        bshape[0] = lead[0]
     for q in qubits:
-        bshape[1 + axmap[q]] = 2
+        bshape[nb + 1 + axmap[q]] = 2
     order = sorted(range(k), key=lambda j: axmap[qubits[j]])
-    dt_r = _const(dr, state).reshape((2,) * k).permute(order).reshape(bshape)
+    if per_state:
+        order = [0] + [1 + o for o in order]
+
+    def placed(d: torch.Tensor) -> torch.Tensor:
+        return d.reshape(d.shape[:-1] + (2,) * k).permute(order).reshape(bshape)
+
+    dt_r = placed(dt_r)
     if di is None:
         y = x * dt_r
     else:
-        dt_i = _const(di, state).reshape((2,) * k).permute(order).reshape(bshape)
-        re, im = x[0], x[1]
-        y = torch.stack(
-            [re * dt_r[0] - im * dt_i[0], im * dt_r[0] + re * dt_i[0]]
-        )
-    return y.reshape(2, 1 << n)
+        dt_i = placed(_const(di, state))
+        re, im = x.select(nb, 0), x.select(nb, 1)
+        dr0, di0 = dt_r.select(nb, 0), dt_i.select(nb, 0)
+        y = torch.stack([re * dr0 - im * di0, im * dr0 + re * di0], dim=nb)
+    return y.reshape(state.shape)
 
 
 def permute_qubits(state: torch.Tensor, src: tuple[int, ...]) -> torch.Tensor:

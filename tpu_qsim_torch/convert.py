@@ -1,7 +1,8 @@
 """Carry a simulation across from the JAX package.
 
-Both packages keep the same ``(2, 2^n)`` planes layout and the same circuit
-IR, so moving a state or a circuit is a copy. Nothing here imports the JAX
+Both packages keep the same ``(2, 2^n)`` planes layout, the same circuit IR
+and the same noise channels, so moving a state, a circuit or a noise model is
+a copy. Nothing here imports the JAX
 package: a state arrives as a numpy array and a circuit by duck typing.
 """
 
@@ -13,6 +14,7 @@ import torch
 from . import apply as ap
 from .circuit import Circuit, Gate
 from .gates import multi_controlled_z_name
+from .noise import NoiseModel, NoiseType
 
 
 def state_from_jax(planes: np.ndarray, device=None) -> torch.Tensor:
@@ -42,3 +44,13 @@ def circuit_from_jax(obj) -> Circuit:
         param = None if g.param is None else float(g.param)
         c.append(Gate(name, qubits, param, payload))
     return c
+
+
+def noise_model_from_jax(obj) -> NoiseModel:
+    """A port :class:`NoiseModel` with the channels of ``obj``: any object
+    with ``.channels`` of ``(type, qubits, probability)`` channels whose
+    ``type.value`` names a :class:`NoiseType`."""
+    model = NoiseModel()
+    for c in obj.channels:
+        model.add(NoiseType(c.type.value), float(c.probability), c.qubits or None)
+    return model

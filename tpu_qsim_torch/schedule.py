@@ -204,6 +204,17 @@ def plan_segments(
                 if cost == 0:
                     break  # can't do better; earliest 0-cost gate wins
         if best is None:
+            if not pending:
+                # an empty segment took no ready gate, so flushing changes
+                # nothing and the loop would spin: name the first that fails
+                g = sched.gates[sched.ready()[0]]
+                raise ValueError(
+                    f"gate {g.name} on qubits {g.qubits} fits no empty "
+                    f"segment: it needs {len(g.qubits)} local slots, with "
+                    f"local_bits - swap_min = {local_bits - swap_min} to "
+                    f"relocate into (local_bits {local_bits}, swap_min "
+                    f"{swap_min}, stage_min {stage_min})"
+                )
             flush()
             continue
         g = sched.gates[best]
