@@ -103,9 +103,30 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     ``tfim_hamiltonian(10)`` for 50 steps descends (the exact ground energy
     printed beside it).
 
+16. sharded: 4 ranks on the one card (gloo: NCCL refuses two ranks on one
+    device), spawned and joined under a deadline: ``random_circuit(28, 100,
+    seed=42)`` through ``ShardedStateVectorSimulator(28, engine="sweeps")``
+    ("auto" picks "collective" there), the grid-sweep kernel on every rank's
+    26-qubit shard, exactly the plan's ``all_to_all`` calls, each shard
+    against its slice of ``StateVectorSimulator(28).run`` (1e-6), timed (the
+    run after a barrier, its exchanges, its local work by CUDA events, each
+    rank's segment programs alone, each rank's peak); ``random_circuit(20,
+    100, seed=42)`` with the whole-circuit kernel on 18-qubit shards (one
+    launch a segment) and on the replicated "gspmd" engine ("auto" there),
+    both against the oracle (1e-6); GHZ-28's total probability, <Z_27>,
+    <Z_27 Z_26>, a 1000-shot histogram (the same on every rank) and
+    ``measure_qubit`` on a device and a local qubit; ``ShardedBatchedSimulator
+    (20, 128)`` over dp = 4 against ``BatchedSimulator(20, 128)`` with the
+    same seed (1e-6), and dp 2 x tp 2 at 16 qubits;
+17. demo: ``python -m tpu_qsim_torch`` exits 0 with the Bell state's |00>
+    and |11> at P = 0.5000;
+18. profiler: a 20-qubit run inside ``utils.profiler_trace``; the trace
+    holds the grid sweep's kernel events.
+
 Phases 12-15 run on the torch engine (certify on the grid-sweep kernel), on
 the card; each prints its ms (CUDA events, median of 5 after a warm-up) and
-peak device memory. Every check raises on failure. The last two lines are the kernels JSON and
+peak device memory. Phase 16 writes its rendezvous files, and phase 18 its
+trace, under ``.smoke_run/``. Every check raises on failure. The last two lines are the kernels JSON and
 the device JSON; the exit code is 0 only if every phase passed.
 """
 
@@ -113,17 +134,21 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch import apply as ap
-from tpu_qsim_torch import certify
+from tpu_qsim_torch import certify, utils
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, reset_launches
@@ -135,6 +160,8 @@ from tpu_qsim_torch.kernels.gridsweeps import (
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, resident_ctas
 from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
 from tpu_qsim_torch.kernels.time_run import kron_gate
+from tpu_qsim_torch.parallel import ShardedBatchedSimulator, ShardedStateVectorSimulator, make_mesh
+from tpu_qsim_torch.ranks import run_ranks
 from tpu_qsim_torch.statevector import build_torch_run_fn
 
 N_MAIN = 28
@@ -1212,6 +1239,247 @@ def phase_variational() -> dict:
             "vqe_exact": exact, "vqe_wall_s": wall}
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RUN_DIR = os.path.join(ROOT, ".smoke_run")   # rendezvous files, the trace
+SHARD_RANKS = 4
+N_SHARD = 28        # 26 local qubits a rank: the grid sweep on every shard
+N_SHARD_WHOLE = 20  # 18 local qubits a rank: the whole-circuit kernel
+SHARD_TIMEOUT_S = 400
+
+
+def _all_max(x: float) -> float:
+    t = torch.tensor([float(x)], dtype=torch.float64, device="cuda")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def _slice_err(shard: torch.Tensor, full: torch.Tensor, rank: int) -> float:
+    """max |d amp| between a rank's shard and its slice of a full state."""
+    lo = rank * shard.shape[1]
+    return compare(shard, full[:, lo:lo + shard.shape[1]])[0]
+
+
+def _synced() -> float:
+    torch.cuda.synchronize()
+    dist.barrier()
+    return time.perf_counter()
+
+
+def rank_sharded(rank: int, world: int) -> dict:
+    """One rank of the sharded phase; every rank of the gloo group runs it
+    on the one card, the maxima of its errors taken across ranks."""
+    res = {}
+    mesh = make_mesh(("tp",))
+
+    # 1. the main sharded path: 28 qubits, the grid sweep on every shard
+    c = tq.random_circuit(N_SHARD, 100, seed=42)
+    res["auto_engine"] = ShardedStateVectorSimulator(N_SHARD, mesh).engine
+    check(res["auto_engine"] == "collective", f"auto at {N_SHARD}q picked {res['auto_engine']}")
+    sim = ShardedStateVectorSimulator(N_SHARD, mesh, engine="sweeps", seed=42)
+    t0 = _synced()
+    reset_launches()
+    sim.run(c)
+    res["first_run_ms"] = 1e3 * (_synced() - t0)
+    res["launches"] = dict(LAUNCHES)
+    _, prog = sim.compiled_run(c)
+    res["engines"], res["exchanges"] = prog.engines, prog.exchanges
+    res["planned_exchanges"] = prog.planned_exchanges
+    check(res["launches"].get("grid_sweep", 0) > 0, f"rank {rank}: no grid sweep {res['launches']}")
+    check(set(prog.engines) == {"grid_sweep"}, f"shard engines {prog.engines}")
+    check(prog.exchanges == prog.planned_exchanges,
+          f"{prog.exchanges} all_to_all calls for a plan of {prog.planned_exchanges}")
+    ref = tq.StateVectorSimulator(N_SHARD).run(c).state_planes
+    res["max_abs_err"] = _all_max(_slice_err(sim.state_planes, ref, rank))
+    del ref
+    torch.cuda.empty_cache()
+    check(res["max_abs_err"] <= 1e-6, f"{N_SHARD}q sharded vs one card {res['max_abs_err']}")
+    sim.reset()
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _synced()
+    prog.run(sim.state_planes, times)
+    res["run_ms"] = 1e3 * (_synced() - t0)
+    res["exchange_ms"], res["local_ms"] = times["exchange_ms"], times["local_ms"]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # each rank's segment programs alone on the card (the others wait)
+    for r in range(world):
+        _synced()
+        if r == rank:
+            x = sim.state_planes.clone()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _, step in prog.steps:
+                x = step(x)
+            end.record()
+            torch.cuda.synchronize()
+            res["local_alone_ms"] = start.elapsed_time(end)
+            del x
+    del sim, prog
+    torch.cuda.empty_cache()
+
+    # 2. 18 local qubits: the whole-circuit kernel, one launch a segment;
+    # 3. the replicated ("gspmd") engine, which "auto" picks at 20 qubits
+    c20 = tq.random_circuit(N_SHARD_WHOLE, 100, seed=42)
+    oracle = oracle_planes(c20, "cuda")
+    s20 = ShardedStateVectorSimulator(N_SHARD_WHOLE, mesh, engine="sweeps")
+    reset_launches()
+    s20.run(c20)
+    torch.cuda.synchronize()
+    res["whole_launches"] = LAUNCHES["whole_circuit"]
+    _, p20 = s20.compiled_run(c20)
+    check(set(p20.engines) == {"whole_circuit"} and res["whole_launches"] == len(p20.engines),
+          f"20q shards: {p20.engines}, {dict(LAUNCHES)}")
+    res["whole_max_abs_err"] = _all_max(_slice_err(s20.state_planes, oracle, rank))
+    check(res["whole_max_abs_err"] <= 1e-6, f"20q sharded vs oracle {res['whole_max_abs_err']}")
+    g20 = ShardedStateVectorSimulator(N_SHARD_WHOLE, mesh)
+    check(g20.engine == "gspmd", f"auto at 20q picked {g20.engine}")
+    reset_launches()
+    g20.run(c20)
+    torch.cuda.synchronize()
+    res["gspmd_launches"] = dict(LAUNCHES)
+    res["gspmd_max_abs_err"] = _all_max(_slice_err(g20.state_planes, oracle, rank))
+    check(res["gspmd_max_abs_err"] <= 1e-6, f"20q gspmd vs oracle {res['gspmd_max_abs_err']}")
+    del s20, g20, oracle
+
+    # 4. readouts on a sharded GHZ-28
+    last = (1 << N_SHARD) - 1
+    ghz = ShardedStateVectorSimulator(N_SHARD, mesh, engine="sweeps", seed=7)
+    ghz.run(tq.ghz_circuit(N_SHARD))
+    res["ghz_total_probability"] = ghz.total_probability()
+    res["ghz_z_top"] = ghz.expectation_pauli("Z" + "I" * (N_SHARD - 1))
+    res["ghz_zz_device"] = ghz.expectation_pauli("ZZ" + "I" * (N_SHARD - 2))
+    hist = ghz.histogram(1000)
+    hists = [None] * world
+    dist.all_gather_object(hists, hist)
+    res["ghz_histogram"] = hist
+    res["ghz_measure"] = [ghz.measure_qubit(N_SHARD - 1), ghz.measure_qubit(3)]
+    check(abs(res["ghz_total_probability"] - 1.0) <= 1e-5, f"GHZ total {res['ghz_total_probability']}")
+    check(abs(res["ghz_z_top"]) <= 1e-5 and abs(res["ghz_zz_device"] - 1.0) <= 1e-5,
+          f"GHZ <Z_27> {res['ghz_z_top']}, <Z_27 Z_26> {res['ghz_zz_device']}")
+    check(set(hist) <= {0, last} and sum(hist.values()) == 1000, f"GHZ histogram {hist}")
+    check(all(h == hist for h in hists), f"histograms differ across ranks: {hists}")
+    check(res["ghz_measure"][0] == res["ghz_measure"][1], f"GHZ outcomes {res['ghz_measure']}")
+    del ghz
+    torch.cuda.empty_cache()
+
+    # 5. trajectories: dp = 4 against the unsharded batch, then dp 2 x tp 2
+    dp = make_mesh(("dp",))
+    dp_tp = make_mesh(("dp", "tp"), (2, 2))
+    model = tq.NoiseModel().add_depolarizing(1e-3).add_amplitude_damping(1e-3, list(range(4)))
+    cb = tq.random_circuit(20, 10, seed=42)
+    sb = ShardedBatchedSimulator(20, 128, model, dp, seed=4)
+    t0 = _synced()
+    sb.run(cb)
+    res["batched_ms"] = 1e3 * (_synced() - t0)
+    ref = tq.BatchedSimulator(20, 128, model, seed=4).run(cb).state_planes
+    rows = ref[rank * sb.local_batch:(rank + 1) * sb.local_batch]
+    res["batched_max_abs_err"] = _all_max(float((sb.state_planes - rows).abs().max()))
+    check(res["batched_max_abs_err"] <= 1e-6, f"sharded batch vs batch {res['batched_max_abs_err']}")
+    del sb, ref, rows
+    s2 = ShardedBatchedSimulator(16, 8, tq.NoiseModel().add_bit_flip(0.05), dp_tp,
+                                 tp_axis="tp", seed=1).run(tq.random_circuit(16, 30, seed=4))
+    res["dp_tp_total_probability"] = s2.total_probability()
+    res["dp_tp_counts"] = sum(s2.histogram(50).values())
+    check(abs(res["dp_tp_total_probability"] - 1.0) <= 1e-5,
+          f"dp x tp total {res['dp_tp_total_probability']}")
+    check(res["dp_tp_counts"] == 8 * 50, f"dp x tp histogram holds {res['dp_tp_counts']}")
+    return res
+
+
+def phase_sharded() -> dict:
+    """Four gloo ranks on the one card (``rank_sharded``), joined under a
+    deadline."""
+    log(f"phase sharded: {SHARD_RANKS} ranks on one card over gloo (NCCL refuses two "
+        "ranks on one device; gloo stages every CUDA tensor through host memory)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.makedirs(RUN_DIR, exist_ok=True)
+    store = tempfile.mkdtemp(dir=RUN_DIR)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(rank_sharded, SHARD_RANKS, backend="gloo", store_dir=store,
+                          timeout=SHARD_TIMEOUT_S, group_timeout=120.0)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    out = {
+        "ranks": SHARD_RANKS,
+        "launches": sum(r["launches"].get("grid_sweep", 0) for r in ranks),
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "max_abs_err": r0["max_abs_err"],
+        "exchanges": r0["exchanges"],
+        "run_ms": max(r["run_ms"] for r in ranks),
+        "exchange_ms": max(r["exchange_ms"] for r in ranks),
+        "local_ms": [r["local_ms"] for r in ranks],
+        "local_alone_ms": [r["local_alone_ms"] for r in ranks],
+        "first_run_ms": max(r["first_run_ms"] for r in ranks),
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "whole_launches": sum(r["whole_launches"] for r in ranks),
+        "whole_max_abs_err": r0["whole_max_abs_err"],
+        "gspmd_max_abs_err": r0["gspmd_max_abs_err"],
+        "gspmd_launches": r0["gspmd_launches"],
+        "batched_ms": max(r["batched_ms"] for r in ranks),
+        "batched_max_abs_err": r0["batched_max_abs_err"],
+        "phase_s": wall,
+    }
+    log(f"phase {N_SHARD}q_sharded: ranks={SHARD_RANKS} engine=sweeps auto={r0['auto_engine']} "
+        f"shard_engines={r0['engines']} exchanges={r0['exchanges']} (plan "
+        f"{r0['planned_exchanges']}) launches_by_rank={out['launches_by_rank']} "
+        f"max_abs_err={out['max_abs_err']:.3e} (tol 1e-6, vs one card) "
+        f"first_run_ms={out['first_run_ms']:.3f} run_ms={out['run_ms']:.3f} "
+        f"exchange_ms={out['exchange_ms']:.3f} (gloo through the host) "
+        f"local_ms_by_rank={[round(x, 3) for x in out['local_ms']]} (4 contexts time-sliced) "
+        f"local_alone_ms_by_rank={[round(x, 3) for x in out['local_alone_ms']]} "
+        f"peak_gib_by_rank={[round(x, 3) for x in out['peak_gib']]}")
+    log(f"phase {N_SHARD_WHOLE}q_sharded: whole_circuit launches={out['whole_launches']} "
+        f"max_abs_err={out['whole_max_abs_err']:.3e} (tol 1e-6, vs oracle); gspmd "
+        f"launches={out['gspmd_launches']} max_abs_err={out['gspmd_max_abs_err']:.3e} (tol 1e-6)")
+    log(f"phase {N_SHARD}q_sharded_readouts: total_probability={r0['ghz_total_probability']:.7f} "
+        f"<Z_27>={r0['ghz_z_top']:.3e} <Z_27 Z_26>={r0['ghz_zz_device']:.7f} "
+        f"histogram={r0['ghz_histogram']} measure(27, 3)={r0['ghz_measure']}")
+    log(f"phase 20q_sharded_batched: dp={SHARD_RANKS} batch=128 ms={out['batched_ms']:.3f} "
+        f"max_abs_err={out['batched_max_abs_err']:.3e} (tol 1e-6, vs BatchedSimulator); "
+        f"16q dp2 x tp2 total_probability={r0['dp_tp_total_probability']:.7f} "
+        f"histogram_counts={r0['dp_tp_counts']}")
+    log(f"phase sharded: {wall:.1f} s")
+    return out
+
+
+def phase_demo() -> dict:
+    """``python -m tpu_qsim_torch`` on the card: exit 0, the Bell state's
+    |00> and |11> at P = 0.5000."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_qsim_torch"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"demo exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    bell = [line for line in proc.stdout.splitlines() if "amp =" in line]
+    good = [line for line in bell if ("|00>" in line or "|11>" in line) and "P = 0.5000" in line]
+    log(f"phase demo: wall_s={wall:.3f} rc=0 bell={[line.strip() for line in bell]}")
+    check(len(good) == 2, f"demo Bell lines: {bell}")
+    return {"wall_s": wall}
+
+
+def phase_profiler() -> dict:
+    """A 20-qubit run inside ``utils.profiler_trace``: the trace holds the
+    grid sweep's kernel events."""
+    trace_dir = os.path.join(RUN_DIR, "profile")
+    c = tq.random_circuit(20, 100, seed=42)
+    sim = tq.StateVectorSimulator(20).run(c)
+    sim.reset()
+    with utils.profiler_trace(trace_dir):
+        sim.run(c)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    grid = [e for e in events
+            if e.get("cat") == "kernel" and "grid_sweep_kernel" in e.get("name", "")]
+    log(f"phase profiler: kernel_events={sum(e.get('cat') == 'kernel' for e in events)} "
+        f"grid_sweep_events={len(grid)} grid_sweep_us={sum(e.get('dur', 0) for e in grid):.1f}")
+    check(grid, "the trace holds no grid_sweep_kernel event")
+    return {"grid_sweep_events": len(grid)}
+
+
 START = time.perf_counter()
 
 
@@ -1251,6 +1519,9 @@ def main() -> int:
         paths[name] = phase()
         paths[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {paths[name]['phase_s']:.1f} s")
+    sharded = phase_sharded()
+    paths["demo"] = phase_demo()
+    paths["profiler"] = phase_profiler()
     kernels = [{
         "name": "grid_sweep",
         "route": "cuda",
@@ -1267,6 +1538,12 @@ def main() -> int:
         "certify_launches": paths["certify"]["launches"],
         "ghz_max_abs_err": closed["ghz_max_abs_err"],
         "qft_max_mag_err": closed["qft_max_mag_err"],
+        "sharded_launches": sharded["launches"],
+        "sharded_max_abs_err": sharded["max_abs_err"],
+        "sharded_run_ms": sharded["run_ms"],
+        "sharded_exchange_ms": sharded["exchange_ms"],
+        "exchanges": sharded["exchanges"],
+        "ranks": sharded["ranks"],
     }, {
         "name": "whole_circuit",
         "route": "cuda",
@@ -1286,6 +1563,8 @@ def main() -> int:
         "fidelity": whole["fidelity"],
         "ghz_max_abs_err": whole_closed["ghz_max_abs_err"],
         "qft_max_mag_err": whole_closed["qft_max_mag_err"],
+        "sharded_launches": sharded["whole_launches"],
+        "sharded_max_abs_err": sharded["whole_max_abs_err"],
     }]
     for name, line in (("segment", 162), ("scatter_segment", 307)):
         k = t_seg["kernels"][name]
@@ -1359,6 +1638,7 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
     log(f"paths: {json.dumps(paths, default=float)}")
+    log(f"sharded: {json.dumps(sharded, default=float)}")
     log(f"run: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,10 @@ the whole state) at two geometries, and each instance of the dense pass's
 3xTF32 product; the simulator's routing (the split at a 12-qubit core
 included) and each wrapper's refusals are checked as well. The noisy,
 batched, density-matrix and variational paths (the torch engine) and
-certify (the grid-sweep kernel) run on the card against the CPU.
+certify (the grid-sweep kernel) run on the card against the CPU. Two gloo
+ranks on the card run a sharded circuit with the grid-sweep (21 qubits) and
+the whole-circuit kernel (19) on each shard against the single-card run,
+and the demo (``python -m tpu_qsim_torch``) runs on the card: 96 cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -621,3 +624,34 @@ def test_new_entry_points_default_to_the_card(cuda_device, monkeypatch):
                  lambda: tq.DensityMatrixSimulator(2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.parametrize("n,engine", [(21, "grid_sweep"), (19, "whole_circuit")])
+def test_sharded_run_on_two_ranks_matches_one_card(cuda_device, tmp_path, n, engine):
+    # two gloo ranks on the one card (NCCL refuses two ranks on one device),
+    # each shard of n - 1 qubits on the kernel its size routes to
+    from torch_rank_cases import cuda_sharded_case
+    from tpu_qsim_torch.ranks import run_ranks
+
+    results = run_ranks(cuda_sharded_case, 2, (n,), backend="gloo",
+                        store_dir=str(tmp_path), timeout=300)
+    for r in results:
+        assert set(r["engines"]) == {engine}
+        launches = r["launches"].get(engine, 0)
+        if engine == "whole_circuit":
+            assert launches == len(r["engines"])   # one launch a segment
+        else:
+            assert launches > 0
+        assert r["exchanges"] == r["planned"] > 0
+        assert r["max_abs_err"] <= 1e-6
+
+
+def test_demo_runs_on_the_card(cuda_device):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-m", "tpu_qsim_torch"], capture_output=True,
+                          text=True, timeout=180, cwd=Path(__file__).resolve().parent.parent)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "|00>  amp = +0.7071+0.0000j   P = 0.5000" in proc.stdout

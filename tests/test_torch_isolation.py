@@ -37,6 +37,7 @@ def test_port_has_the_slice_modules():
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
         "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
+        "shardmap_engine", "parallel", "ranks", "utils", "qasm", "stabilizer", "__main__",
     ):
         assert f"tpu_qsim_torch.{mod}" in names
 

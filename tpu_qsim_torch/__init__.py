@@ -11,6 +11,10 @@ everything else through a torch engine. The noisy, batched-trajectory and
 density-matrix simulators, parameterized runs with ``torch.autograd``
 gradients, certification and the algorithms run on the torch engine (the
 JAX package runs them on XLA), certification through the grid-sweep kernel.
+The sharded simulators (:mod:`tpu_qsim_torch.parallel`) split a state or a
+trajectory batch over the ranks of a ``torch.distributed`` process group and
+run each shard's work on the same kernels; ``qasm``, ``stabilizer`` and
+``utils`` are host-side copies, and ``python -m tpu_qsim_torch`` is the demo.
 Entry points run on the card (``device=None``) unless the caller passes
 ``device="cpu"``. This package imports neither JAX nor ``tpu_qsim``.
 """
@@ -46,6 +50,9 @@ from .cpu_reference import CPUReferenceSimulator
 from .density import DensityMatrixSimulator
 from .noise import NoiseChannel, NoiseModel, NoiseType
 from .noisy import BatchedSimulator, NoisySimulator
+from .parallel import ShardedBatchedSimulator, ShardedStateVectorSimulator, make_mesh
+from .qasm import from_qasm, from_qasm_file, to_qasm
+from .stabilizer import CliffordCircuit, StabilizerSimulator
 from .statevector import StateVectorSimulator, build_expectation_fn
 
 __all__ = [
@@ -67,6 +74,14 @@ __all__ = [
     "NoisySimulator",
     "BatchedSimulator",
     "DensityMatrixSimulator",
+    "ShardedStateVectorSimulator",
+    "ShardedBatchedSimulator",
+    "make_mesh",
+    "from_qasm",
+    "from_qasm_file",
+    "to_qasm",
+    "StabilizerSimulator",
+    "CliffordCircuit",
     "grover_circuit",
     "qaoa_maxcut_circuit",
     "qaoa_maxcut_objective",

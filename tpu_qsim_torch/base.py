@@ -42,7 +42,7 @@ class BaseSimulator:
         self.device = ap.resolve_device(device)
         self._rdtype = config.real_dtype
         self.set_seed(seed)
-        self._state = ap.initial_state(self.num_qubits, self._rdtype, 0, self.device)
+        self._state = self._initial_state(0)
 
     # -- generator ------------------------------------------------------------
 
@@ -57,9 +57,12 @@ class BaseSimulator:
     def reset(self, basis_index: int = 0) -> None:
         if not (0 <= basis_index < self.dim):
             raise ValueError(f"basis index {basis_index} out of range")
-        self._state = ap.initial_state(
-            self.num_qubits, self._rdtype, basis_index, self.device
-        )
+        self._state = self._initial_state(basis_index)
+
+    def _initial_state(self, basis_index: int) -> torch.Tensor:
+        """The planes of |basis_index> this simulator holds (a sharded
+        simulator holds its slice)."""
+        return ap.initial_state(self.num_qubits, self._rdtype, basis_index, self.device)
 
     @property
     def state_planes(self) -> torch.Tensor:

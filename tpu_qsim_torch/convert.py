@@ -3,7 +3,10 @@
 Both packages keep the same ``(2, 2^n)`` planes layout, the same circuit IR
 and the same noise channels, so moving a state, a circuit or a noise model is
 a copy. Nothing here imports the JAX
-package: a state arrives as a numpy array and a circuit by duck typing.
+package: a state arrives as a numpy array and a circuit by duck typing. A
+sharded JAX simulator's state crosses as its gathered amplitudes
+(``jax_sim.get_state()``) through a port simulator's ``set_state``, which
+keeps each rank's slice on a sharded one.
 """
 
 from __future__ import annotations

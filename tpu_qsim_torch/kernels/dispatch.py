@@ -55,6 +55,13 @@ def engine_for(num_qubits: int, rdtype, device: torch.device) -> str:
     grid planner has seen it."""
     if np.dtype(rdtype) != np.float32 or torch.device(device).type != "cuda":
         return "torch"
+    return engine_for_size(num_qubits)
+
+
+def engine_for_size(num_qubits: int) -> str:
+    """The kernel row of the table for float32 planes of ``num_qubits``
+    qubits, whatever the device (the sharded executor plans its shards'
+    programs with it, and a CPU shard runs their plain versions)."""
     if MIN_WHOLE_CIRCUIT_QUBITS <= num_qubits <= MAX_WHOLE_CIRCUIT_QUBITS:
         return "whole_circuit"
     if num_qubits == MAX_WHOLE_CIRCUIT_QUBITS + 1:
@@ -139,12 +146,19 @@ def plan_run(
 ) -> tuple[str, Callable | None]:
     """(engine, program) for ``circuit``; the program is None for the torch
     engine, which the simulator builds from its own fusion settings."""
+    engine = engine_for(circuit.num_qubits, rdtype, device)
+    if engine == "torch":
+        return "torch", None
+    return plan_kernels(circuit, engine)
+
+
+def plan_kernels(circuit: Circuit, engine: str) -> tuple[str, Callable | None]:
+    """(engine, program) for ``circuit`` on the kernel row ``engine`` of the
+    table, split at its cores wider than ``MAX_DENSE_QUBITS``; the program
+    is None where the row gives way to the torch engine."""
     from .dense_pass import DensePass
 
     n = circuit.num_qubits
-    engine = engine_for(n, rdtype, device)
-    if engine == "torch":
-        return "torch", None
     parts = split_at_wide_cores(circuit)
     if parts is None:
         return _plan_piece(circuit, engine)

@@ -177,6 +177,23 @@ def build_trajectory_step(
     return step, n_draws
 
 
+def collapse_batch(
+    states: torch.Tensor, qubit: int, u: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Measure ``qubit`` in each state of a (B, 2, 2^n) batch with its
+    uniform of ``u`` (B,) by the Born rule: (collapsed states, (B,) bool
+    outcomes)."""
+    b, n = states.shape[0], ap.num_qubits_of(states)
+    v = states.reshape(b, 2, 1 << (n - qubit - 1), 2, 1 << qubit)
+    p1 = torch.sum(v[:, :, :, 1] ** 2, dim=(1, 2, 3)).clamp(0.0, 1.0)
+    outcome = u < p1
+    p_out = torch.where(outcome, p1, 1.0 - p1)
+    keep = torch.stack([~outcome, outcome], dim=1).to(v.dtype)
+    scale = torch.rsqrt(torch.clamp(p_out, min=torch.finfo(v.dtype).tiny))
+    v = v * (keep * scale[:, None])[:, None, None, :, None]
+    return v.reshape(states.shape), outcome
+
+
 class _TrajectoryRuns:
     """Run cache shared by the trajectory simulators: one planned step per
     (circuit, noise model, insertion)."""
@@ -289,14 +306,20 @@ class BatchedSimulator(_TrajectoryRuns, BaseSimulator):
     def state_planes(self) -> torch.Tensor:
         return self._states
 
+    def _all_states(self) -> torch.Tensor:
+        """Every trajectory's planes, for the readouts (a sharded batch
+        gathers them)."""
+        return self._states
+
     def get_state(self) -> np.ndarray:
         """(batch, 2^n) complex trajectory amplitudes."""
-        flat = self._states.cpu().numpy()
+        flat = self._all_states().cpu().numpy()
         return flat[:, 0] + 1j * flat[:, 1]
 
     def trajectory_probabilities(self) -> torch.Tensor:
         """(batch, 2^n) per-trajectory probabilities."""
-        return self._states[:, 0] ** 2 + self._states[:, 1] ** 2
+        s = self._all_states()
+        return s[:, 0] ** 2 + s[:, 1] ** 2
 
     def probabilities(self) -> torch.Tensor:
         """Batch-averaged probabilities, on the device."""
@@ -332,17 +355,8 @@ class BatchedSimulator(_TrajectoryRuns, BaseSimulator):
         trajectory draws its own Born-rule outcome on the device and
         collapses; returns the (batch,) int32 outcomes."""
         self._check_qubit(qubit)
-        v = self._states.reshape(
-            self.batch_size, 2, 1 << (self.num_qubits - qubit - 1), 2, 1 << qubit
-        )
-        p1 = torch.sum(v[:, :, :, 1] ** 2, dim=(1, 2, 3)).clamp(0.0, 1.0)
         u = self._uniforms((self.batch_size,), generator)
-        outcome = u < p1
-        p_out = torch.where(outcome, p1, 1.0 - p1)
-        keep = torch.stack([~outcome, outcome], dim=1).to(v.dtype)
-        scale = torch.rsqrt(torch.clamp(p_out, min=torch.finfo(v.dtype).tiny))
-        v = v * (keep * scale[:, None])[:, None, None, :, None]
-        self._states = v.reshape(self._states.shape)
+        self._states, outcome = collapse_batch(self._states, qubit, u)
         return outcome.to(torch.int32).cpu().numpy()
 
     def qubit_probability(self, qubit: int) -> float:
@@ -356,13 +370,13 @@ class BatchedSimulator(_TrajectoryRuns, BaseSimulator):
         rho_ens = mean_t |psi_t><psi_t| (the MCWF estimate of the channel's
         rho), in one matmul pair with the batch folded into the columns."""
         qs = self._validated_subset(qubits)
-        return host_complex(*reduced_planes(self._states, qs))
+        return host_complex(*reduced_planes(self._all_states(), qs))
 
     def fidelity_with(self, other) -> float:
         """Mean trajectory fidelity against a pure state: the average of
         |<psi_t|phi>|^2 over the batch = <phi| rho_ens |phi>."""
         phi = self._peer_planes(other, (2, self.dim))
-        s = self._states
+        s = self._all_states()
         re = torch.sum(s[:, 0] * phi[0] + s[:, 1] * phi[1], dim=1)
         im = torch.sum(s[:, 0] * phi[1] - s[:, 1] * phi[0], dim=1)
         return float(torch.mean(re * re + im * im))
@@ -373,7 +387,7 @@ class BatchedSimulator(_TrajectoryRuns, BaseSimulator):
         ops = parse_pauli(pauli, self.num_qubits)
         if not ops:
             return 1.0
-        return float(torch.mean(pauli_expectation(self._states, ops)))
+        return float(torch.mean(pauli_expectation(self._all_states(), ops)))
 
     @property
     def total_memory_bytes(self) -> int:

@@ -233,6 +233,13 @@ class StateVectorSimulator(BaseSimulator):
     def apply_matrix(self, matrix: Any, qubits: tuple[int, ...] | list[int]) -> None:
         """Apply an arbitrary k-qubit unitary. ``qubits[0]`` is the
         matrix-index MSB. Unitarity is checked on host (atol 1e-6)."""
+        u, qubits = self._checked_unitary(matrix, qubits)
+        ur, ui = ap.split_matrix(u, self._rdtype)
+        self._state = ap.apply_unitary(self._state, ur, ui, qubits)
+
+    def _checked_unitary(self, matrix: Any, qubits) -> tuple[np.ndarray, tuple[int, ...]]:
+        """``apply_matrix``'s arguments checked: a complex128 unitary of
+        2^k x 2^k and k distinct qubits in range."""
         qubits = tuple(int(q) for q in qubits)
         for q in qubits:
             self._check_qubit(q)
@@ -246,8 +253,7 @@ class StateVectorSimulator(BaseSimulator):
             )
         if not np.allclose(u.conj().T @ u, np.eye(1 << k), atol=1e-6):
             raise ValueError("matrix is not unitary")
-        ur, ui = ap.split_matrix(u, self._rdtype)
-        self._state = ap.apply_unitary(self._state, ur, ui, qubits)
+        return u, qubits
 
     # -- parameterized execution (variational workloads) ---------------------
 
