@@ -5,7 +5,8 @@
 
 Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
-1. build ``grid_sweep.cu``, ``segment.cu``, ``sweep.cu`` (also the
+1. build the host planner ``native/fusion.cpp`` with g++, then
+   ``grid_sweep.cu``, ``segment.cu``, ``sweep.cu`` (also the
    whole-circuit route's kernel) and ``dense_pass.cu``, one nvcc each, all at
    once (under 60 s in all), with ptxas's registers and spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
@@ -62,6 +63,21 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
+9b. native host planner: ``random_circuit(n, G, seed=42)`` at (n, G) =
+    (12, 100), (19, 100), (28, 100), (28, 1000) planned by the native and
+    the plain (Python) planners, grid sweeps and fusion groups identical,
+    host ms of each; the first ``run`` of ``random_circuit(28, 100)``,
+    ``(12, 100)`` and ``(28, 1000)`` (plan + launch) against the cached
+    run; the 28-qubit main path planned natively, its program the plain
+    planners', against its plain version (1e-7) and phase 9's state (1e-7);
+    the histogram of 10^6 shots of that state (``np.unique``) against the
+    samples' counts, with its ms and the host memory it takes;
+9c. fixtures: every case of ``validation/fixtures``' Cirq and Qiskit packs
+    (67 cases, 4-10 qubits, built by ``tpu_qsim_torch.fixture_corpus``) in float32 on the card at its own width (the
+    torch engine below 10 qubits, the whole-circuit kernel at 10) and
+    padded with idle qubits to 12 (the whole-circuit kernel), against both
+    packs (1e-6 up to a global phase; Cirq's through the bit-reversal
+    adapter);
 10. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
     and histogram, QFT|0> amplitudes;
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
@@ -126,21 +142,26 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 Phases 12-15 run on the torch engine (certify on the grid-sweep kernel), on
 the card; each prints its ms (CUDA events, median of 5 after a warm-up) and
 peak device memory. Phase 16 writes its rendezvous files, and phase 18 its
-trace, under ``.smoke_run/``. Every check raises on failure. The last two lines are the kernels JSON and
+trace, under ``.smoke_run/``. Before its last lines the run checks that no
+module of JAX, Flax or ``tpu_qsim`` was ever imported. Every check raises
+on failure. The last two lines are the kernels JSON and
 the device JSON; the exit code is 0 only if every phase passed.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import resource
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import tracemalloc
 
 import numpy as np
 import torch
@@ -148,12 +169,13 @@ import torch.distributed as dist
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch import apply as ap
-from tpu_qsim_torch import certify, utils
+from tpu_qsim_torch import certify, fixture_corpus, fusion, native, utils
+from tpu_qsim_torch.base import counts_to_histogram
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
-from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, reset_launches
+from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches
 from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass, pass_instance
-from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram
+from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, as_pgates, merge_1q_chains
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
@@ -209,6 +231,9 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 
 
 def phase_build() -> dict:
+    native.library()       # the host planner, g++ (phase native reads its time)
+    built = native.build_log
+    log(f"build: native/fusion.cpp {f'built in {built[0]:.2f} s' if built else 'reused'}")
     t0 = time.perf_counter()
     names = tuple(_build.SIGNATURES)
     _build.build_all(names)
@@ -309,6 +334,202 @@ def phase_28q_main() -> dict:
         f"gates_per_sweep={[len(g) for g in prog.sweep_gates]}")
     res["launches"] = res["launches"]["grid_sweep"]
     return res
+
+
+NATIVE_PLANS = ((12, 100), (19, 100), (28, 100), (28, 1000))
+FIRST_RUNS = ((N_MAIN, 100), (12, 100), (N_MAIN, 1000))
+HISTOGRAM_SHOTS = 1_000_000
+
+
+class plain_planners:
+    """Within the block, the port plans with its Python planners (the plain
+    versions of the native library's): fusion groups and the grid planner's
+    frontier scheduling."""
+
+    def __enter__(self):
+        self._saved = (fusion.plan_groups, gridsweeps._frontier_sweeps)
+        fusion.plan_groups = fusion._plan_groups_python
+        gridsweeps._frontier_sweeps = gridsweeps._frontier_sweeps_python
+
+    def __exit__(self, *exc):
+        fusion.plan_groups, gridsweeps._frontier_sweeps = self._saved
+
+
+def host_cpu() -> str:
+    """The host CPU from the first entry of /proc/cpuinfo: its model name
+    (which some virtualized hosts report as "unknown"), vendor, family and
+    model numbers, clock, and the CPUs this process sees."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{info.get('cpu MHz', '?')} MHz, {os.cpu_count()} CPUs)")
+
+
+def host_ms(fn, reps: int = 3) -> tuple[float, object]:
+    """(median host ms of ``reps`` calls, the last call's result)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def gate_lists(sweeps_gates) -> list:
+    """Each sweep's gates as (qubits, matrix bytes), in emission order."""
+    return [[(tuple(g.qubits), g.u.tobytes()) for g in gates] for gates in sweeps_gates]
+
+
+def synced_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_native(main_res: dict) -> dict:
+    """The native host planner (``tpu_qsim_torch/native``): its build, the
+    native and plain planners' plans and times, the first run of a circuit
+    (plan + launch) against the cached run, the 28-qubit main path planned
+    natively and by the plain planners on the grid-sweep kernel, and the
+    histogram of 10^6 shots of that state (``np.unique``, O(shots))."""
+    t_phase = time.perf_counter()
+    out = {"host_cpu": host_cpu(), "library": native.library_path().name,
+           "build_s": native.build_log[0] if native.build_log else None}
+    log(f"phase native: host_cpu={out['host_cpu']!r} library={out['library']} "
+        f"g++_s={out['build_s']}")
+
+    out["plans"] = {}
+    for n, g in NATIVE_PLANS:
+        c = tq.random_circuit(n, g, seed=42)
+        grid_ms, grid = host_ms(lambda: gridsweeps.plan_grid_sweeps(c))
+        groups_ms, groups = host_ms(lambda: fusion.plan_groups(c))
+        merge_ms, _ = host_ms(lambda: merge_1q_chains(as_pgates(c.gates)))
+        with plain_planners():
+            grid_plain_ms, grid_plain = host_ms(lambda: gridsweeps.plan_grid_sweeps(c))
+            groups_plain_ms, groups_plain = host_ms(lambda: fusion.plan_groups(c))
+        check(gate_lists(s.gates for s in grid) == gate_lists(s.gates for s in grid_plain)
+              and [s.active for s in grid] == [s.active for s in grid_plain],
+              f"{n}q/{g}: native and plain grid plans differ")
+        check(groups == groups_plain, f"{n}q/{g}: native and plain fusion groups differ")
+        row = {"sweeps": len(grid), "groups": len(groups),
+               "grid_ms": grid_ms, "grid_plain_ms": grid_plain_ms, "merge_1q_ms": merge_ms,
+               "groups_ms": groups_ms, "groups_plain_ms": groups_plain_ms}
+        out["plans"][f"{n}q_{g}"] = row
+        log(f"phase native: plan random_circuit({n}, {g}, seed=42) identical: "
+            f"sweeps={row['sweeps']} grid_ms={grid_ms:.3f} grid_plain_ms={grid_plain_ms:.3f} "
+            f"(both: merge_1q_chains {merge_ms:.3f}) "
+            f"groups={row['groups']} groups_ms={groups_ms:.3f} "
+            f"groups_plain_ms={groups_plain_ms:.3f}")
+
+    out["first_run"] = {}
+    for n, g in FIRST_RUNS:
+        c = tq.random_circuit(n, g, seed=42)
+        sim = tq.StateVectorSimulator(n, seed=42)
+        first = synced_ms(lambda: sim.run(c))
+        cached = statistics.median([synced_ms(lambda: sim.run(c)) for _ in range(3)])
+        plan_ms, _ = host_ms(lambda: dispatch.plan_run(c, np.float32, sim.device), reps=1)
+        row = {"engine": sim.engine, "first_ms": first, "cached_ms": cached, "plan_ms": plan_ms}
+        out["first_run"][f"{n}q_{g}"] = row
+        log(f"phase native: first run {n}q/{g} engine={sim.engine} first_ms={first:.3f} "
+            f"cached_ms={cached:.3f} plan_ms={plan_ms:.3f}")
+        del sim
+
+    c = tq.random_circuit(N_MAIN, 100, seed=42)
+    reset_launches()
+    sim = tq.StateVectorSimulator(N_MAIN, seed=42).run(c)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["grid_sweep"]
+    prog = sim.compiled_run(c)[1]
+    check(sim.engine == "grid_sweep", f"28q native ran on {sim.engine}")
+    check(launches == main_res["launches"] == prog.num_sweeps,
+          f"28q native: {launches} launches, 28q_main {main_res['launches']}")
+    check([len(gs) for gs in prog.sweep_gates]
+          == [len(gs) for gs in main_res["prog"].sweep_gates], "28q native: another plan")
+    with plain_planners():
+        plain_prog = GridSweepProgram(c)
+    check(gate_lists(prog.sweep_gates) == gate_lists(plain_prog.sweep_gates),
+          "28q: the native and the plain planners' programs differ")
+    same = compare(sim.state_planes, main_res["sim"].state_planes)[0]
+    plain = prog.run_plain(ap.initial_state(N_MAIN, np.float32, device="cuda"))
+    err, fid = compare(sim.state_planes, plain)
+    del plain
+    out["main"] = {"launches": launches, "max_abs_err": err, "fidelity": fid,
+                   "max_abs_err_vs_28q_main": same}
+    log(f"phase native: 28q main path planned natively launches={launches} "
+        f"max_abs_err={err:.3e} (tol 1e-7; 28q_main {main_res['max_abs_err']:.3e}) "
+        f"fidelity={fid:.9f} vs 28q_main state max_abs_err={same:.3e}")
+    check(err <= 1e-7, f"28q native vs plain max |d amp| {err} > 1e-7")
+    check(same <= 1e-7, f"28q native vs the 28q_main state max |d amp| {same} > 1e-7")
+
+    samples = sim.sample(HISTOGRAM_SHOTS).cpu().numpy()
+    del sim
+    hist_ms, hist = host_ms(lambda: counts_to_histogram(samples))
+    check(hist == collections.Counter(samples.tolist()), "histogram != the samples' counts")
+    check(sum(hist.values()) == HISTOGRAM_SHOTS, "histogram does not hold every shot")
+    tracemalloc.start()
+    counts_to_histogram(samples)
+    traced = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    out["histogram"] = {"shots": HISTOGRAM_SHOTS, "bins": len(hist), "ms": hist_ms,
+                        "traced_peak_mib": traced / 2**20, "process_peak_rss_gib": rss_gib}
+    log(f"phase native: histogram shots={HISTOGRAM_SHOTS} bins={len(hist)} ms={hist_ms:.3f} "
+        f"traced_peak_mib={traced / 2**20:.1f} process_peak_rss_gib={rss_gib:.2f} "
+        f"(2^28 int64 bins would be 2 GiB)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase native: {out['phase_s']:.1f} s")
+    return out
+
+
+FIXTURES_PADDED = 12
+
+
+def phase_fixtures() -> dict:
+    """Every case of the Cirq and Qiskit fixture packs in float32 on the
+    card: at its own width and padded with idle qubits to 12 (the
+    whole-circuit kernel), each against both packs (1e-6, up to a global
+    phase; the Cirq pack through the bit-reversal adapter)."""
+    t0 = time.perf_counter()
+    packs = {pack: np.load(os.path.join(ROOT, "validation", "fixtures", f"{pack}_fixtures.npz"))
+             for pack in ("cirq", "qiskit")}
+    cases = fixture_corpus.corpus()
+    check(len(cases) == 67, f"{len(cases)} fixture cases")
+    worst = {"own": 0.0, "padded": 0.0}
+    engines: dict[str, int] = {}
+    reset_launches()
+    for name, n, gates in cases:
+        for width in ("own", "padded"):
+            c = tq.Circuit(n if width == "own" else FIXTURES_PADDED)
+            for gname, qubits, param in gates:
+                c.add(gname, *qubits, param=param)
+            sim = tq.StateVectorSimulator(c.num_qubits).run(c)
+            engines[sim.engine] = engines.get(sim.engine, 0) + 1
+            psi = sim.get_state()
+            if width == "padded":
+                check(sim.engine == "whole_circuit", f"{name} padded ran on {sim.engine}")
+                check(float(np.abs(psi[1 << n:]).max()) < 1e-6, f"{name}: idle qubits left |0>")
+                psi = psi[:1 << n]
+            psi = psi.astype(np.complex128)
+            for pack in ("cirq", "qiskit"):
+                got = utils.to_big_endian(psi, n) if pack == "cirq" else psi
+                err = utils.max_amplitude_error(got, packs[pack][name], up_to_phase=True)
+                worst[width] = max(worst[width], err)
+                check(err <= 1e-6, f"fixture {name} ({pack}, {width} width) max |d amp| {err}")
+    whole = LAUNCHES["whole_circuit"]
+    check(whole >= len(cases), f"{whole} whole-circuit launches for {len(cases)} padded cases")
+    wall = time.perf_counter() - t0
+    log(f"phase fixtures: wall_s={wall:.3f} cases={len(cases)} x 2 packs engines={engines} "
+        f"whole_circuit_launches={whole} max_abs_err own={worst['own']:.3e} "
+        f"padded={worst['padded']:.3e} (tol 1e-6)")
+    return {"cases": len(cases), "engines": engines, "max_abs_err": worst, "wall_s": wall}
 
 
 def phase_closed_forms(n: int, engine: str) -> dict:
@@ -1240,6 +1461,7 @@ def phase_variational() -> dict:
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+JAX_SIDE = ("jax", "jaxlib", "flax", "tpu_qsim")   # none is ever imported
 RUN_DIR = os.path.join(ROOT, ".smoke_run")   # rendezvous files, the trace
 SHARD_RANKS = 4
 N_SHARD = 28        # 26 local qubits a rank: the grid sweep on every shard
@@ -1507,6 +1729,8 @@ def main() -> int:
     wide = phase_wide_cores()
     passes = phase_dense_pass()
     main_res = phase_28q_main()
+    nat = phase_native(main_res)
+    fixtures = phase_fixtures()
     closed = phase_closed_forms(N_MAIN, "grid_sweep")
     timing = phase_timing(main_res["sim"], main_res["prog"])
     t_whole = phase_timing_whole_circuit()
@@ -1639,6 +1863,10 @@ def main() -> int:
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
     log(f"paths: {json.dumps(paths, default=float)}")
     log(f"sharded: {json.dumps(sharded, default=float)}")
+    log(f"native: {json.dumps(nat, default=float)}")
+    log(f"fixtures: {json.dumps(fixtures, default=float)}")
+    jax_side = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
+    check(not jax_side, f"the run imported {jax_side}")
     log(f"run: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,9 @@
 
 The machine with the CUDA card has no JAX, so one stray import would stop the
 port (and chip_smoke.py) before it printed anything. A child interpreter with
-those imports blocked imports every module of the port and chip_smoke.py;
-a static pass checks every import line of the port's sources.
+those imports blocked imports every module of the port and chip_smoke.py
+and builds the fixture corpus that chip_smoke.py builds at run time; a
+static pass checks every import line of the port's sources.
 """
 
 import pkgutil
@@ -38,6 +39,7 @@ def test_port_has_the_slice_modules():
         "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
         "shardmap_engine", "parallel", "ranks", "utils", "qasm", "stabilizer", "__main__",
+        "native", "fixture_corpus",
     ):
         assert f"tpu_qsim_torch.{mod}" in names
 
@@ -60,6 +62,8 @@ def test_imports_with_jax_blocked():
         sys.meta_path.insert(0, Blocker())
         for m in {modules!r}:
             importlib.import_module(m)
+        # built at run time by chip_smoke.py's fixtures phase
+        importlib.import_module("tpu_qsim_torch.fixture_corpus").corpus()
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not attempts, attempts
         assert not loaded, loaded

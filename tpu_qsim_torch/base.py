@@ -325,9 +325,10 @@ def inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def counts_to_histogram(samples: np.ndarray) -> dict[int, int]:
-    """Sample indices -> {index: count}."""
+    """Sample indices -> {index: count}: int64 samples, memory O(shots)
+    whatever the number of qubits."""
     vals, cnts = np.unique(samples, return_counts=True)
-    return {int(v): int(c) for v, c in zip(vals, cnts)}
+    return dict(zip(vals.tolist(), cnts.tolist()))
 
 
 def reduced_planes(state: torch.Tensor, qs: tuple) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,9 +12,10 @@ opens a new group, or joins an independent open group with room. Group
 unitaries are composed on the host in complex128 (error enters once per
 group, not once per gate).
 
-The JAX package can hand ``plan_groups`` to a C++ planner
-(``tpu_qsim/native``); the port keeps only the Python planner, which that
-package documents as the reference implementation with identical plans.
+``plan_groups`` runs the C++ planner of :mod:`tpu_qsim_torch.native`, as
+the JAX package's does when its library is built; the Python planner
+(``_plan_groups_python``) is its plain version, which only the tests call,
+and the two give identical plans.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .circuit import Circuit, Gate
 from . import gates as _gates
+from . import native
+from .circuit import Circuit, Gate
 from .gates import op_matrix
 
 
@@ -106,7 +108,16 @@ def plan_groups(circuit: Circuit, max_fused_qubits: int = 5) -> list[list[int]]:
     Scheduling invariant: for any two gates sharing a qubit, their group
     order (and in-group order) preserves program order; gates in different
     groups with disjoint support may be reordered freely (they commute).
+    Planned by the native library (``native/fusion.cpp::qsim_plan_groups``).
     """
+    return native.plan_groups_native(
+        circuit.num_qubits, [g.qubits for g in circuit.gates], max_fused_qubits
+    )
+
+
+def _plan_groups_python(circuit: Circuit, max_fused_qubits: int = 5) -> list[list[int]]:
+    """The plain version of :func:`plan_groups`, which the tests hold the
+    native planner against."""
     gates = circuit.gates
     groups: list[_OpenGroup] = []
     members: list[list[int]] = []

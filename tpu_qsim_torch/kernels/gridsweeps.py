@@ -11,12 +11,14 @@ applies the sweep's gates and writes back in place, so the whole state
 crosses device memory once per sweep, not once per gate.
 
 The planner (``plan_grid_sweeps``, ``_two_sweep_partition``,
-``_improve_plan``) is a copy of the JAX package's pure-Python planner and
-gives the same plans gate by gate. The TPU geometry (``rb_bits`` rows of 128
-lanes, ``default_geometry``/``geometry_candidates`` per-size tables, the
-per-kernel gate cap set by Mosaic compile time) does not carry over:
-``GridParams`` takes ``blk_bits`` and ``a_max`` directly, and the table-driven
-kernel compiles once, so a sweep has no gate cap.
+``_improve_plan``) is a copy of the JAX package's planner and gives the same
+plans gate by gate; as there, its frontier scheduling runs in the native
+library (:mod:`tpu_qsim_torch.native`), with the Python loop
+(``_frontier_sweeps_python``) kept as its plain version. The TPU geometry
+(``rb_bits`` rows of 128 lanes, ``default_geometry``/``geometry_candidates``
+per-size tables, the per-kernel gate cap set by Mosaic compile time) does
+not carry over: ``GridParams`` takes ``blk_bits`` and ``a_max`` directly,
+and the table-driven kernel compiles once, so a sweep has no gate cap.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import native
 from ..circuit import Circuit
 from ..gates import gate_matrix
 from . import LAUNCHES
@@ -209,10 +212,10 @@ def plan_grid_sweeps(
     gate fits a sweep iff its moving qubits >= blk_bits fit the sweep's
     active budget. Diagonal/controlled structure along high bits costs
     nothing (the kernel reads those bits from the global index), so e.g. a
-    CZ or a control anywhere always rides the current sweep.
+    CZ or a control anywhere always rides the current sweep. The frontier
+    scheduling runs in the native library
+    (``native/fusion.cpp::qsim_plan_grid_sweeps``).
     """
-    from ..commute import FrontierScheduler
-
     if isinstance(circuit, Circuit):
         raw, n = circuit.gates, circuit.num_qubits if n is None else n
     else:
@@ -223,6 +226,10 @@ def plan_grid_sweeps(
         # a fresh sweep must absorb >= 1 ready gate for the frontier loop
         # to make progress; 0 would spin forever
         raise ValueError(f"max_gates must be >= 1, got {max_gates}")
+    if n > native.MAX_MASK_QUBITS:
+        raise ValueError(
+            f"the grid planner's masks hold {native.MAX_MASK_QUBITS} qubits, got {n}"
+        )
     high = frozenset(range(params.blk_bits, n))
     a_max = min(params.a_max, n - params.blk_bits)
 
@@ -251,34 +258,66 @@ def plan_grid_sweeps(
 
     mv_cache = [moving_qubits(g.u, g.qubits) & high for g in gates]
 
+    sweeps = []
+    for members in _frontier_sweeps(gates, mv_cache, a_max, max_gates):
+        s = GridSweep()
+        for i in members:
+            s.gates.append(gates[i])
+            s.active |= mv_cache[i]
+        sweeps.append(s)
+    return _improve_plan(
+        sweeps, gates, mv_cache, a_max, max_gates, partition, balance
+    )
+
+
+def _frontier_sweeps(
+    gates: list[PGate], mv_cache: list[frozenset], a_max: int, max_gates: int
+) -> list[list[int]]:
+    """Gate indices of each sweep, in emission order, from the native
+    frontier scheduler: matrix-free, on each gate's qubits, commutation
+    classes and moving-qubit mask."""
+    return native.plan_grid_sweeps_native(
+        [g.qubits for g in gates],
+        [g.classes for g in gates],
+        [sum(1 << q for q in mv) for mv in mv_cache],
+        a_max,
+        max_gates,
+    )
+
+
+def _frontier_sweeps_python(
+    gates: list[PGate], mv_cache: list[frozenset], a_max: int, max_gates: int
+) -> list[list[int]]:
+    """The plain version of :func:`_frontier_sweeps`, which the tests hold
+    the native scheduler against: each pass takes the lowest ready gate
+    that fits the sweep's gate count and active bits, and a sweep closes
+    when no ready gate fits."""
+    from ..commute import FrontierScheduler
+
     sched = FrontierScheduler(gates)
-    sweeps: list[GridSweep] = []
-    cur = GridSweep()
+    sweeps: list[list[int]] = []
+    cur: list[int] = []
+    active: frozenset = frozenset()
     while not sched.done():
         progressed = True
         while progressed:
             progressed = False
             for i in sched.ready():
-                if (
-                    len(cur.gates) < max_gates
-                    and len(cur.active | mv_cache[i]) <= a_max
-                ):
+                if len(cur) < max_gates and len(active | mv_cache[i]) <= a_max:
                     sched.emit(i)
-                    cur.gates.append(gates[i])
-                    cur.active |= mv_cache[i]
+                    cur.append(i)
+                    active |= mv_cache[i]
                     progressed = True
                     break
         if sched.done():
             break
         # a fresh sweep always absorbs at least one ready gate (every gate
-        # passed the per-gate a_max validation above)
+        # passed plan_grid_sweeps' per-gate a_max validation)
         sweeps.append(cur)
-        cur = GridSweep()
-    if cur.gates:
+        cur, active = [], frozenset()
+    if cur:
         sweeps.append(cur)
-    return _improve_plan(
-        sweeps, gates, mv_cache, a_max, max_gates, partition, balance
-    )
+    return sweeps
 
 
 def _improve_plan(
