@@ -7,8 +7,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 
 1. build the host planner ``native/fusion.cpp`` with g++, then
    ``grid_sweep.cu``, ``segment.cu``, ``sweep.cu`` (also the
-   whole-circuit route's kernel) and ``dense_pass.cu``, one nvcc each, all at
-   once (under 60 s in all), with ptxas's registers and spills;
+   whole-circuit route's kernel), ``dense_pass.cu`` and
+   ``rotation_chain.cu``, one nvcc each, all at once (under 60 s in all),
+   with ptxas's registers and spills;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
 3. whole-circuit route: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
@@ -78,6 +79,20 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     padded with idle qubits to 12 (the whole-circuit kernel), against both
     packs (1e-6 up to a global phase; Cirq's through the bit-reversal
     adapter);
+9d. floor certificate (``tpu_qsim_torch.kernels.floor``) at 28 qubits: the
+    rotation-chain kernel against its plain version at K = 16, 64, 256 on
+    seeded random unit-norm planes (max |d amp| <= 1e-7, 1 - fidelity <=
+    1e-5); then ``--vpu`` counted (only ``rotation_chain``), its rate over
+    [16->64] and [64->256] (6 flops, 4 float32 instructions per amplitude
+    per step) beside the SM clock under load and the peak at that clock,
+    the SASS's FMUL and FFMA (equal, 16 amplitudes x 2 each per step copy,
+    no FADD), the plain version timed at K = 256 and the library call, one
+    ``torch.matmul`` of the K rotations folded into one (1e-7 against the
+    plain chain; 1/K of its arithmetic); ``--decompose`` (the
+    production plan, streaming only, each sweep alone; the full variant's
+    state against phase 9's, 1e-6) and ``--scale`` for the reg, lane and
+    extctrl flavors, each counted (only ``grid_sweep``); the census model's
+    floor per op class and per sweep at the measured rate;
 10. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
     and histogram, QFT|0> amplitudes;
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
@@ -175,6 +190,7 @@ from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches
 from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass, pass_instance
+from tpu_qsim_torch.kernels import floor
 from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, as_pgates, merge_1q_chains
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
@@ -530,6 +546,116 @@ def phase_fixtures() -> dict:
         f"whole_circuit_launches={whole} max_abs_err own={worst['own']:.3e} "
         f"padded={worst['padded']:.3e} (tol 1e-6)")
     return {"cases": len(cases), "engines": engines, "max_abs_err": worst, "wall_s": wall}
+
+
+FLOOR_SEED = 7
+
+
+def folded_rotation(angles) -> np.ndarray:
+    """The K rotations of a chain folded into one 2x2 float32 matrix
+    (products in float64 of the kernel's float32 (cos, sin) pairs): one
+    ``torch.matmul`` of it on the planes is the library call that computes
+    the chain's function, with 1/K of its arithmetic."""
+    m = np.eye(2)
+    for c, s in floor.chain_table(angles).astype(np.float64):
+        m = np.array([[c, -s], [s, c]]) @ m
+    return m.astype(np.float32)
+
+
+def phase_floor(main_res: dict) -> dict:
+    """The floor certificate's modes at 28 qubits (``kernels/floor.py``):
+    the rotation-chain kernel against its plain version at each K, the
+    ``--vpu`` run counted, ``--decompose`` (its full variant against the 28q
+    main path's state) and ``--scale`` for each flavor, counted, and the
+    census model's floor at the measured rate."""
+    t_phase = time.perf_counter()
+    out = {"max_abs_err": {}, "fidelity": {}}
+    x = floor.random_planes(N_MAIN, FLOOR_SEED, "cuda")
+    for k in floor.VPU_KS:
+        angles = floor.chain_angles(k)
+        want = floor.rotation_chain_plain(x, angles)
+        got = floor.rotation_chain(x.clone(), angles)
+        err, fid = compare(got, want)
+        del got, want
+        out["max_abs_err"][k], out["fidelity"][k] = err, fid
+        log(f"phase floor: rotation_chain K={k} vs plain max_abs_err={err:.3e} (tol 1e-7) "
+            f"fidelity={fid:.9f} (tol 1 - 1e-5)")
+        check(err <= 1e-7, f"rotation chain K={k} vs plain max |d amp| {err} > 1e-7")
+        check(1.0 - fid <= 1e-5, f"rotation chain K={k} 1 - fidelity {1.0 - fid} > 1e-5")
+    angles = floor.chain_angles(floor.VPU_KS[-1])
+    out["plain_ms"] = median_ms(lambda: floor.rotation_chain_plain(x, angles), reps=1)
+    log(f"phase floor: plain version K={floor.VPU_KS[-1]} ms={out['plain_ms']:.3f}")
+    # the library call: the chain folded into one rotation, one float32 GEMM
+    rot = torch.from_numpy(folded_rotation(angles)).to(x.device)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["library_ms"] = median_ms(lambda: torch.matmul(rot, x))
+        err = compare(torch.matmul(rot, x), floor.rotation_chain_plain(x, angles))[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    del x
+    out["library_max_abs_err"] = err
+    log(f"phase floor: library torch.matmul of the folded rotation K={floor.VPU_KS[-1]} "
+        f"ms={out['library_ms']:.4f} vs plain max_abs_err={err:.3e} (tol 1e-7; 1/K of the "
+        f"chain's arithmetic)")
+    check(err <= 1e-7, f"folded rotation vs plain chain max |d amp| {err} > 1e-7")
+
+    reset_launches()
+    vpu = floor.vpu(N_MAIN)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    out["launches"] = launches.get("rotation_chain", 0)
+    check(out["launches"] > 0 and set(launches) == {"rotation_chain"},
+          f"--vpu launches {launches}")
+    floor.print_vpu(vpu)
+    sass = vpu["sass"]
+    check(sass.get("FMUL", 0) == sass.get("FFMA", 0) > 0 and sass["FMUL"] % 32 == 0
+          and not sass.get("FADD"), f"rotation_chain SASS {sass}: not 2 FMUL + 2 FFMA a step")
+    check(all(0 < a < b for a, b in zip(vpu["ms"], vpu["ms"][1:])), f"--vpu ms {vpu['ms']}")
+    out["vpu"] = vpu
+    rate = vpu["rates"][-1]["tinstr_per_s"]
+
+    reset_launches()
+    dec = floor.decompose(N_MAIN)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    err = compare(dec.pop("state"), main_res["sim"].state_planes)[0]
+    log(f"phase floor: decompose gates_per_sweep={dec['gates_per_sweep']} "
+        f"full_ms={dec['full_ms']:.4f} zero_gate_ms={dec['zero_gate_ms']:.4f} "
+        f"sweep_ms={[round(t, 4) for t in dec['sweep_ms']]} "
+        f"sum_of_sweeps_ms={dec['sum_of_sweeps_ms']:.4f} bytes_ms={dec['bytes_ms']:.4f} "
+        f"exposed_ms={dec['exposed_ms']:.4f} exposed_us_per_gate={dec['exposed_us_per_gate']:.3f} "
+        f"launches={launches} full vs 28q_main max_abs_err={err:.3e} (tol 1e-6)")
+    check(launches.get("grid_sweep", 0) > 0 and set(launches) == {"grid_sweep"},
+          f"--decompose launches {launches}")
+    check(err <= 1e-6, f"decompose full variant vs the 28q main state {err} > 1e-6")
+    dec["max_abs_err_vs_main"] = err
+    out["decompose"] = dec
+
+    out["scale"] = {}
+    for flavor in floor.SCALE_FLAVORS:
+        reset_launches()
+        sc = floor.scale(N_MAIN, flavor)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        log(f"phase floor: scale {flavor} K={sc['ks']} ms={[round(t, 4) for t in sc['ms']]} "
+            f"us_per_op={[round(s['us_per_op'], 3) for s in sc['us_per_op']]} launches={launches}")
+        check(launches.get("grid_sweep", 0) > 0 and set(launches) == {"grid_sweep"},
+              f"--scale {flavor} launches {launches}")
+        out["scale"][flavor] = sc
+
+    po = floor.plan_only(N_MAIN, rate)
+    log(f"phase floor: census model ({po['model']}) at {po['tinstr_per_s']:.3f} T instructions/s "
+        f"({po['rate_source']}), selects at the full-half float32 rate: "
+        + ", ".join(f"{name} {c['floor_fast_sel_us']:.1f}-{c['floor_us']:.1f} us/op"
+                    for name, c in po["classes"].items())
+        + f"; 28q plan ops floor {po['plan_ops_fast_sel_ms']:.4f}-{po['plan_ops_ms']:.4f} ms "
+        f"(per sweep {[round(s['ops_ms'], 4) for s in po['plan']]}), bytes {po['plan_bytes_ms']:.4f} ms")
+    out["census"] = po
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase floor: {out['phase_s']:.1f} s")
+    return out
 
 
 def phase_closed_forms(n: int, engine: str) -> dict:
@@ -1730,6 +1856,7 @@ def main() -> int:
     passes = phase_dense_pass()
     main_res = phase_28q_main()
     nat = phase_native(main_res)
+    flo = phase_floor(main_res)
     fixtures = phase_fixtures()
     closed = phase_closed_forms(N_MAIN, "grid_sweep")
     timing = phase_timing(main_res["sim"], main_res["prog"])
@@ -1858,6 +1985,36 @@ def main() -> int:
         "fp32_bound_ms": main_pass["fp32_bound_ms"],
         "run_oracle_max_abs_err": main_pass["run_oracle_max_abs_err"],
         "by_qubits": passes,
+    })
+    vpu = flo["vpu"]
+    kernels.append({
+        "name": "rotation_chain",
+        "route": "cuda",
+        "source": "tpu_qsim_torch/kernels/csrc/rotation_chain.cu",
+        "replaces": "benchmarks/benchmark_floor.py:359",
+        "launches": flo["launches"],
+        "max_abs_err": max(flo["max_abs_err"].values()),
+        "ms": vpu["ms"][-1],
+        "plain_ms": flo["plain_ms"],
+        "bound_ms": vpu["bounds"][-1]["bound_ms"],
+        "bound_by": vpu["bounds"][-1]["bound_by"],
+        "library_ms": flo["library_ms"],
+        "library_call": "torch.matmul of the K rotations folded into one 2x2 (1/K of the arithmetic)",
+        "library_max_abs_err": flo["library_max_abs_err"],
+        "k": vpu["ks"][-1],
+        "ms_by_k": dict(zip(vpu["ks"], vpu["ms"])),
+        "tinstr_per_s": vpu["rates"][-1]["tinstr_per_s"],
+        "tflop_per_s": vpu["rates"][-1]["tflop_per_s"],
+        "rates": vpu["rates"],
+        "issue_bound_ms": vpu["bounds"][-1]["issue_ms"],
+        "sm_clock_mhz": vpu["sm_clock_mhz"],
+        "peak_tinstr_per_s_at_clock": vpu["peak_tinstr_per_s"],
+        "sass": vpu["sass"],
+        "fidelity": min(flo["fidelity"].values()),
+        "decompose": flo["decompose"],
+        "scale_us_per_op": {f: [s["us_per_op"] for s in sc["us_per_op"]]
+                            for f, sc in flo["scale"].items()},
+        "census_model_plan_ops_ms": [flo["census"]["plan_ops_fast_sel_ms"], flo["census"]["plan_ops_ms"]],
     })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")

@@ -11,7 +11,9 @@ batched, density-matrix and variational paths (the torch engine) and
 certify (the grid-sweep kernel) run on the card against the CPU. Two gloo
 ranks on the card run a sharded circuit with the grid-sweep (21 qubits) and
 the whole-circuit kernel (19) on each shard against the single-card run,
-and the demo (``python -m tpu_qsim_torch``) runs on the card: 96 cases.
+the demo (``python -m tpu_qsim_torch``) runs on the card, and the floor
+certificate's rotation-chain kernel runs against its plain version: 104
+cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -655,3 +657,29 @@ def test_demo_runs_on_the_card(cuda_device):
                           text=True, timeout=180, cwd=Path(__file__).resolve().parent.parent)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "|00>  amp = +0.7071+0.0000j   P = 0.5000" in proc.stdout
+
+
+@pytest.mark.parametrize("n,k", [(9, 16), (12, 0), (14, 5), (16, 16), (18, 17), (20, 64), (22, 256)])
+def test_rotation_chain_matches_plain(cuda_device, n, k):
+    # blocks of 2^9 (one warp, 2 active bits) to 2^12 (256 threads, 5); K
+    # of 5 and 17 run the remainder after the step loop's unrolled copies
+    from tpu_qsim_torch.kernels import floor
+
+    x = _random_planes(n, 3, cuda_device)
+    angles = floor.chain_angles(k)
+    want = floor.rotation_chain_plain(x, angles)
+    reset_launches()
+    got = floor.rotation_chain(x.clone(), angles)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"rotation_chain": 1}
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_rotation_chain_refuses(cuda_device):
+    from tpu_qsim_torch.kernels import floor
+
+    x = _random_planes(12, 3, cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        floor.rotation_chain(x, floor.chain_angles(floor.MAX_STEPS + 1))
+    with pytest.raises(ValueError, match="float32"):
+        floor.rotation_chain(x.double(), floor.chain_angles(4))

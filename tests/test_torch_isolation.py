@@ -1,4 +1,5 @@
-"""tpu_qsim_torch imports neither JAX nor the JAX package.
+"""tpu_qsim_torch imports neither JAX, nor the JAX package, nor its
+benchmarks.
 
 The machine with the CUDA card has no JAX, so one stray import would stop the
 port (and chip_smoke.py) before it printed anything. A child interpreter with
@@ -38,6 +39,7 @@ def test_port_has_the_slice_modules():
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
         "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
+        "kernels.floor",
         "shardmap_engine", "parallel", "ranks", "utils", "qasm", "stabilizer", "__main__",
         "native", "fixture_corpus",
     ):
@@ -49,7 +51,7 @@ def test_imports_with_jax_blocked():
     code = textwrap.dedent(
         f"""
         import importlib, sys
-        BLOCKED = ("jax", "jaxlib", "tpu_qsim")
+        BLOCKED = ("jax", "jaxlib", "tpu_qsim", "benchmarks")
         attempts = []
 
         class Blocker:
@@ -78,7 +80,7 @@ def test_imports_with_jax_blocked():
     assert proc.stdout.strip() == f"ok {len(modules)}"
 
 
-_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|tpu_qsim)(?:\.|\s|$)")
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|tpu_qsim|benchmarks)(?:\.|\s|$)")
 
 
 @pytest.mark.parametrize(

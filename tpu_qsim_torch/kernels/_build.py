@@ -83,6 +83,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # state, out, dim, u, k, tmask, cmask, cval, instance, stream
         "dense_pass_launch": [_P, _P, _LL, _P, _I, _U, _U, _U, _I, _P],
     },
+    "rotation_chain": {
+        # state, dim, (cos, sin) pairs, k, blk, active_mask, stream
+        "rotation_chain_launch": [_P, _LL, _P, _I, _I, _U, _P],
+    },
 }
 
 

@@ -512,6 +512,9 @@ class GridSweepProgram:
     the plain version, :meth:`run_plain`. ``params`` None takes the card's
     geometry: :data:`BLK_BITS` and :data:`A_MAX`, or :data:`WIDE_BLK_BITS`
     for a circuit with a dense core of ``TILE_CORE`` qubits or more.
+    ``plan``, as in the JAX package, runs the given sweeps instead of the
+    planner's (the circuit then gives only the qubit count); a sweep with
+    no gates only streams the state.
     """
 
     def __init__(
@@ -519,21 +522,29 @@ class GridSweepProgram:
         circuit: Circuit,
         params: GridParams | None = None,
         max_gates: int = NO_GATE_CAP,
+        plan: list[GridSweep] | None = None,
     ):
         n = circuit.num_qubits
         if params is None:
-            widest = max((len(moving_qubits(g.u, g.qubits)) for g in as_pgates(circuit.gates)),
-                         default=0)
+            gates = as_pgates(circuit.gates) if plan is None else [g for s in plan for g in s.gates]
+            widest = max((len(moving_qubits(g.u, g.qubits)) for g in gates), default=0)
             params = GridParams(WIDE_BLK_BITS if widest >= TILE_CORE else BLK_BITS)
         if n <= params.blk_bits:
             raise ValueError(f"n must exceed blk_bits={params.blk_bits}")
         self.num_qubits = n
         self.params = params
-        plan = plan_grid_sweeps(circuit, n, params, max_gates)
+        a_max = min(params.a_max, n - params.blk_bits)
+        if plan is None:
+            plan = plan_grid_sweeps(circuit, n, params, max_gates)
+        for s in plan:
+            if len(s.active) > a_max or not set(s.active) <= set(range(params.blk_bits, n)):
+                raise ValueError(
+                    f"a sweep's active bits {sorted(s.active)} must be at most "
+                    f"{a_max} of the high bits {params.blk_bits}..{n - 1}"
+                )
         self.num_sweeps = len(plan)
         self.active_sets = [sorted(s.active) for s in plan]
         self.sweep_gates = [list(s.gates) for s in plan]
-        a_max = min(params.a_max, n - params.blk_bits)
         self.layouts = [
             BlockLayout(n, params.blk_bits, _pad_active(s, n, params.blk_bits, a_max))
             for s in plan
