@@ -9,7 +9,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    ``grid_sweep.cu``, ``segment.cu``, ``sweep.cu`` (also the
    whole-circuit route's kernel), ``dense_pass.cu`` and
    ``rotation_chain.cu``, one nvcc each, all at once (under 60 s in all),
-   with ptxas's registers and spills;
+   with ptxas's registers and spills; then the SASS of every wide kernel
+   instance's tiled dense op (``ops.cuh::apply_dense_tiled``, from
+   ``cuobjdump -sass``): tensor-core products (HMMA) and no float32 FMA;
 2. 20 qubits: ``random_circuit(20, 100, seed=42)`` through the simulator's
    grid-sweep kernel against the complex128 host oracle (max |d amp| <= 1e-6);
 3. whole-circuit route: ``random_circuit(n, 100, seed=42)`` at n = 10, 14,
@@ -105,7 +107,11 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     op in a low sweep and a grid sweep at 26 qubits beside its flops bound
     and one ``torch.matmul`` of the core on the complex64 state (TF32 off;
     without and with the planes-to-complex64 copies), the op checked
-    against the matmul (1e-7). Below 20 qubits a
+    against the matmul (1e-7), k = 5 to 11: its bounds are the flops over
+    float32 FMAs and this design's, three TF32 tensor-core products per
+    real one; for k >= 7 the dense pass of the same core on the same state
+    beside it (a second yardstick, checked against the matmul at 1e-7; the
+    route never sends it a core below 12 qubits). Below 20 qubits a
     kernel's time is its device time, from CUDA-graph replays of its
     launches (many per event pair); the eager time through the Python
     wrappers is printed beside it;
@@ -189,9 +195,12 @@ from tpu_qsim_torch.base import counts_to_histogram
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches
-from tpu_qsim_torch.kernels.dense_pass import DensePass, dense_pass, pass_instance
+from tpu_qsim_torch.kernels.dense_pass import MIN_PASS_CORE, DensePass, core_operand, dense_pass, pass_instance
 from tpu_qsim_torch.kernels import floor
-from tpu_qsim_torch.kernels.fused_circuit import WholeCircuitProgram, as_pgates, merge_1q_chains
+from tpu_qsim_torch.kernels.fused_circuit import (
+    MAX_SWEEP_BITS, WholeCircuitProgram, as_pgates, build_op_table, merge_1q_chains,
+    tiled_op_sass,
+)
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
@@ -265,7 +274,13 @@ def phase_build() -> dict:
         log(f"build: {name}.cu {f'built in {built[0]:.2f} s' if built else 'reused'}")
     log(f"build: {len(names)} libraries in {wall:.2f} s")
     check(wall < 60.0, f"build took {wall:.1f} s (limit 60 s)")
-    return {"build_s": wall}
+    sass = tiled_op_sass()
+    for key, counts in sass.items():
+        log(f"sass tiled op: {key.split(':')[0]} {key.split(':')[1][-48:]} {json.dumps(counts)}")
+    check(sorted(key.split(":")[0] for key in sass) == ["grid_sweep", "segment", "sweep", "sweep", "sweep"]
+          and all(c["HMMA"] > 0 and c["FFMA"] == 0 and c["kernel_HMMA"] == 0 for c in sass.values()),
+          f"the tiled op's SASS: {sass}")
+    return {"build_s": wall, "tiled_op_sass": sass}
 
 
 def oracle_planes(circuit, device) -> torch.Tensor:
@@ -1217,19 +1232,33 @@ def sweeps_timing(prog, label: str) -> dict:
         per_plain.append(median_ms(lambda: prog.step_plain(x, i), reps=3))
     del x
     b = bound(prog.bytes_moved(), prog.flops())
+    # the flops of each sweep's unit stages (the tiled op: three TF32
+    # tensor-core products per real multiply-add) and of the rest (float32)
+    tiled = [sum(build_op_table(st.gates, st.layout, MAX_SWEEP_BITS).flops_per_amp
+                 for st in stages if st.kind == "unit") * (1 << n) for stages in prog.stages]
+    flops = [t.flops_per_amp * (1 << n) for t in prog.tables]
+
+    def ops_ms(idx, tensor_cores):
+        t = sum(tiled[i] for i in idx) if tensor_cores else 0.0
+        return (3 * t / TF32_FLOP_PER_S + (sum(flops[i] for i in idx) - t) / FP32_FLOP_PER_S) * 1e3
+
+    all_sweeps = range(prog.num_sweeps)
+    b["tf32x3_bound_ms"] = max(b["bytes_ms"], ops_ms(all_sweeps, True))
     kernels = {}
     for kind in ("low", "high"):
         idx = [i for i, k in enumerate(prog.sweep_kinds) if k == kind]
         bytes_ms = len(idx) * 16 * (1 << n) / HBM_BYTES_PER_S * 1e3
-        flops_ms = sum(prog.tables[i].flops_per_amp for i in idx) * (1 << n) / FP32_FLOP_PER_S * 1e3
+        flops_ms = ops_ms(idx, True)
         kernels[f"{kind}_sweep"] = {
             "ms": sum(per[i] for i in idx), "plain_ms": sum(per_plain[i] for i in idx),
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "fp32_bound_ms": max(bytes_ms, ops_ms(idx, False)),
             "per_launch_ms": [per[i] for i in idx]}
     log(f"phase timing_sweeps: {label} n={n} sweeps={prog.sweep_kinds} "
         f"ops={[len(g) for g in prog.sweep_gates]} max_core={[t.max_core for t in prog.tables]} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.4f} "
+        f"tf32x3_bound_ms={b['tf32x3_bound_ms']:.4f} "
         f"bytes_ms={b['bytes_ms']:.4f} flops_ms={b['flops_ms']:.4f} "
         f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.geometry} "
         f"per_kernel={json.dumps(kernels)}")
@@ -1255,7 +1284,7 @@ def phase_timing_sweeps(main_prog, cross: dict) -> dict:
     return res
 
 
-DENSE_OP_WIDTHS = (6, 7, 8, 9, 10)
+DENSE_OP_WIDTHS = (5, 6, 7, 8, 9, 10, 11)
 WIDE_GRID = GridParams(WIDE_BLK_BITS, A_MAX)
 
 
@@ -1263,9 +1292,12 @@ def phase_timing_dense_op() -> dict:
     """The tiled dense op's cost at 26q: one k-qubit core alone in a low
     sweep (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, the grid's
     geometry for wide cores), less the same sweep holding one 1-qubit op,
-    beside its flops bound and one
+    beside its bounds (the flops over float32 FMAs, and three TF32 products
+    per real one over the tensor cores: this design's), one
     ``torch.matmul`` of the core on the complex64 view of the same state
-    (TF32 off), timed without and with the planes-to-complex64 copies."""
+    (TF32 off), timed without and with the planes-to-complex64 copies, and
+    for k >= 7 the dense pass of the same core on the same state (a second
+    yardstick: the route sends it no core below 12 qubits)."""
     n = N_SWEEPS
     x = random_planes(n, 3)
     allow = torch.backends.cuda.matmul.allow_tf32
@@ -1276,7 +1308,8 @@ def phase_timing_dense_op() -> dict:
         for k in (1, *DENSE_OP_WIDTHS):
             gate = "h" if k == 1 else _dense_gate(k)
             # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
-            sprog = SweepProgram(tq.Circuit(n).add(gate, *range(17 - k, 17)))
+            qubits = tuple(range(17 - k, 17))
+            sprog = SweepProgram(tq.Circuit(n).add(gate, *qubits))
             gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)), WIDE_GRID)
             check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
             one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
@@ -1293,7 +1326,18 @@ def phase_timing_dense_op() -> dict:
             want = torch.matmul(u, z).reshape(-1)
             got = sprog.run(x.clone())
             err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - want)))
-            del want, got
+            del got
+            pass_err = pass_ms = None
+            if k >= MIN_PASS_CORE:
+                # the dense pass: out of place, the same core on the same bits
+                tmask = sum(1 << q for q in qubits)
+                up = torch.from_numpy(core_operand(tq.gates.gate_matrix(gate), qubits)).cuda()
+                got = dense_pass(x, up, tmask)
+                pass_err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - want)))
+                del got
+                pass_ms = median_ms(lambda: dense_pass(x, up, tmask))
+                del up
+            del want
             mm_ms = median_ms(lambda: torch.matmul(u, z))
 
             def with_copy():
@@ -1304,13 +1348,19 @@ def phase_timing_dense_op() -> dict:
             mm_copy_ms = median_ms(with_copy)
             del z
             flops = sprog.tables[0].flops_per_amp * (1 << n)
-            b = bound(0, flops)["flops_ms"]
-            rows[k] = {"low_sweep_ms": one_op[k][0] - one_op[1][0],
-                       "grid_sweep_ms": one_op[k][1] - one_op[1][1],
-                       "bound_ms": b, "matmul_ms": mm_ms, "matmul_with_copy_ms": mm_copy_ms,
-                       "max_abs_err_vs_matmul": err}
-            log(f"phase timing_dense_op: n={n} k={k} {json.dumps(rows[k])}")
+            row = {"low_sweep_ms": one_op[k][0] - one_op[1][0],
+                   "grid_sweep_ms": one_op[k][1] - one_op[1][1],
+                   "bound_ms": bound(0, flops)["flops_ms"],
+                   "tf32x3_bound_ms": bound(0, 3 * flops, TF32_FLOP_PER_S)["flops_ms"],
+                   "matmul_ms": mm_ms, "matmul_with_copy_ms": mm_copy_ms,
+                   "max_abs_err_vs_matmul": err}
+            if pass_ms is not None:
+                row.update(dense_pass_ms=pass_ms, dense_pass_max_abs_err_vs_matmul=pass_err)
+            rows[k] = row
+            log(f"phase timing_dense_op: n={n} k={k} {json.dumps(row)}")
             check(err <= 1e-7, f"{k}-qubit op vs torch.matmul {err} > 1e-7")
+            check(pass_err is None or pass_err <= 1e-7,
+                  f"{k}-qubit dense pass vs torch.matmul {pass_err} > 1e-7")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
     del x
@@ -1838,7 +1888,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    phase_build()
+    build = phase_build()
     phase_20q_oracle()
     phase_whole_circuit_oracle()
     whole = phase_main(N_WHOLE, "whole_circuit", ("whole_circuit",))
@@ -1965,8 +2015,11 @@ def main() -> int:
             "random_circuit_grid_sweep_ms": t_sweeps["grid_ms"],
             "oracle_22q_max_abs_err": sweeps_oracle["max_abs_err"],
             "cross_engine_max_abs_err": cross["cross_err"],
+            "fp32_bound_ms": k["fp32_bound_ms"],
+            "run_tf32x3_bound_ms": t_sweeps["main"]["tf32x3_bound_ms"],
             "wide_op_ms": t_sweeps["wide_op_ms"],
             "wide_core_max_abs_err": wide,
+            "tiled_op_sass": build["tiled_op_sass"],
         })
     main_pass = passes[DENSE_PASS_QUBITS[0]]
     kernels.append({

@@ -12,8 +12,10 @@ certify (the grid-sweep kernel) run on the card against the CPU. Two gloo
 ranks on the card run a sharded circuit with the grid-sweep (21 qubits) and
 the whole-circuit kernel (19) on each shard against the single-card run,
 the demo (``python -m tpu_qsim_torch``) runs on the card, and the floor
-certificate's rotation-chain kernel runs against its plain version: 104
-cases.
+certificate's rotation-chain kernel runs against its plain version. The
+tiled dense op (cores of 5-11 qubits) runs on each kernel that holds it,
+also with fewer groups than a warp tile, and its SASS holds tensor-core
+products and no float32 FMA: 125 cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -341,32 +343,87 @@ def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("k", [5, 6, 7, 8, 9, 10])
-@pytest.mark.parametrize("kernel", ["whole_circuit", "low_sweep", "grid_sweep"])
-def test_tiled_op_matches_plain(cuda_device, kernel, k):
-    # one k-qubit core under a block-local control, alone in its table, on a
-    # random state: the tiled op against the plain version
-    n = {"whole_circuit": 12, "low_sweep": 22, "grid_sweep": 20}[kernel]
-    qubits = {"whole_circuit": (11,) + tuple(range(k)),
-              "low_sweep": (0,) + tuple(range(17 - k, 17)),
-              "grid_sweep": (12,) + tuple(range(1, k + 1))}[kernel]
-    u = np.eye(1 << (k + 1), dtype=np.complex128)
-    rng = np.random.default_rng(k)
+def _tiled_case(kernel: str, n: int, k: int, qubits: tuple[int, ...], seed: int):
+    """One k-qubit core (under the control qubits[0] when qubits holds
+    k + 1) alone on a random n-qubit state, through ``kernel``'s program:
+    (program, the result of its kernel, the result of its plain version).
+    The gate is carried inline (no registry check of a 4096 x 4096
+    matrix)."""
+    from tpu_qsim_torch.circuit import Gate
+
+    rng = np.random.default_rng(seed)
     m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
-    u[1 << k:, 1 << k:] = np.linalg.qr(m)[0]
-    name = f"torch_cuda_ctrl_dense{k}"
-    if name not in GATE_ARITY:
-        register_gate(name, u)
-    c = tq.Circuit(n).add(name, *qubits)
+    core = np.linalg.qr(m)[0]
+    u = core
+    if len(qubits) > k:
+        u = np.eye(1 << len(qubits), dtype=np.complex128)
+        u[-(1 << k):, -(1 << k):] = core
+    c = tq.Circuit(n).append(Gate(f"tiled{k}", tuple(qubits), matrix_bytes=u.tobytes()))
     prog = {"whole_circuit": fc.WholeCircuitProgram, "low_sweep": ts.SweepProgram,
-            "grid_sweep": tgs.GridSweepProgram}[kernel](c)
-    if kernel == "low_sweep":
-        assert prog.sweep_kinds == ["low"]
-    x = _random_planes(n, k, cuda_device)
+            "high_sweep": ts.SweepProgram, "grid_sweep": tgs.GridSweepProgram,
+            "segment": seg.SegmentedProgram}[kernel](c)
+    if kernel.endswith("_sweep") and kernel != "grid_sweep":
+        assert prog.sweep_kinds == [kernel.split("_")[0]]
+    x = _random_planes(n, seed, torch.device("cuda"))
     got = prog.run(x.clone())
     want = prog.run_plain(x)
     torch.cuda.synchronize()
+    return prog, got, want
+
+
+def _tiled_qubits(kernel: str, k: int) -> tuple[int, tuple[int, ...]]:
+    """(n, qubits) of test_tiled_op_matches_plain's core: under a
+    block-local control, but for a segment's 9-qubit core (a segment's gate
+    holds at most 9 qubits)."""
+    if kernel == "whole_circuit":
+        return 12, (11,) + tuple(range(k))
+    if kernel == "low_sweep":
+        return 22, (0,) + tuple(range(17 - k, 17))
+    if kernel == "high_sweep":       # 4 of the top 5 bits and low bits
+        return 22, (15, 18, 19, 20, 21) + tuple(range(k - 4))
+    if kernel == "grid_sweep":
+        return 20, (12,) + tuple(range(1, k + 1))
+    return 22, ((0,) if k < 9 else ()) + tuple(range(22 - k, 22))
+
+
+@pytest.mark.parametrize("kernel,k", [
+    (kernel, k) for kernel in ("whole_circuit", "low_sweep", "grid_sweep", "segment", "high_sweep")
+    for k in range(5, 12) if kernel != "segment" or k <= 9
+])
+def test_tiled_op_matches_plain(cuda_device, kernel, k):
+    # one k-qubit core under a block-local control, alone in its table, on a
+    # random state: the tiled op against the plain version
+    n, qubits = _tiled_qubits(kernel, k)
+    prog, got, want = _tiled_case(kernel, n, k, qubits, seed=k)
+    core = prog.table.max_core if kernel in ("whole_circuit", "segment") else max(
+        t.max_core for t in prog.tables)
+    assert core == k
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("kernel,n,k,qubits", [
+    ("whole_circuit", 11, 10, (10,) + tuple(range(10))),      # 1 group
+    ("whole_circuit", 12, 9, (11,) + tuple(range(9))),        # 4
+    ("grid_sweep", 20, 11, (12,) + tuple(range(1, 12))),      # 2 in a 2^13 block
+    ("grid_sweep", 20, 9, (12,) + tuple(range(1, 10))),       # 8
+    ("low_sweep", 22, 11, tuple(range(6, 17))),               # 8 a tile of 2^14 float2
+])
+def test_tiled_op_with_fewer_groups_than_a_warp_tile(cuda_device, kernel, n, k, qubits):
+    # a warp tile takes 16 groups: the columns past the op's groups read
+    # duplicates and are never stored
+    _, got, want = _tiled_case(kernel, n, k, qubits, seed=n + k)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_tiled_op_runs_on_the_tensor_cores(cuda_device):
+    # every wide instance's tiled op (its own function, after the kernel's
+    # code) holds tensor-core products and no float32 FMA
+    sass = fc.tiled_op_sass()
+    assert sorted(key.split(":")[0] for key in sass) == [
+        "grid_sweep", "segment", "sweep", "sweep", "sweep"]  # low, high, low with spare warps
+    for key, counts in sass.items():
+        assert counts["calls"] >= 1 and counts["kernel_HMMA"] == 0, (key, counts)
+        assert counts["HMMA"] > 0 and counts["FFMA"] == 0, (key, counts)
 
 
 @pytest.mark.parametrize("blk,threads", [(8, 512), (6, 128)])

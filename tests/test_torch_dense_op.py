@@ -1,10 +1,20 @@
 """The tiled dense-core op and the grid sweep's register planner, on the CPU.
 
+* :func:`emulate_tiled_op` mirrors the numerics of ops.cuh's tiled op: the
+  product in its real form on the tensor cores, every operand split into
+  TF32 parts (``test_torch_dense_pass.tf32_split``), each real product
+  hi.lo + lo.hi + hi.hi, chunk by chunk of 32 columns, each chunk's share
+  rounded to float32 and added to float32 accumulators. Every kernel's
+  mirror multiplies a core of ``TILE_CORE`` qubits or more through it.
 * Cores of 5-10 qubits under a control, through the op tables of every
   kernel (whole circuit, grid sweep, segments, low sweep) and each kernel's
   numpy mirror, agree with the JAX package's complex128 oracle within 1e-5:
   the coefficients column-major at an even offset, the groups enumerated
   with the control bits fixed, the tiles dealt to a Part's CTAs in turn.
+  One core of 5-11 qubits alone on a random state of at most 14 qubits,
+  uncontrolled, under a block-local control and under a control outside
+  the block, through each mirror that takes it, agrees with the oracle
+  within 1e-6 and with the plain version within 1e-7.
 * The grid sweep's register planner (``gridsweeps.register_table``) puts
   every op in a run whose register and lane bits cover its moving qubits;
   the tables with their remaps, through the grid mirror, agree with the
@@ -14,6 +24,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch.convert import circuit_from_jax
@@ -23,12 +34,45 @@ from tpu_qsim_torch.kernels import segmented as seg
 from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
+from test_torch_dense_pass import tf32_split
 from test_torch_gridsweeps import _mixed_circuit, emulate_sweep as emulate_grid_sweep
 from test_torch_segmented import emulate_segments
 from test_torch_sweeps import emulate_sweep, jax_oracle, register_both, tiled_bases
 from test_torch_whole_circuit import emulate_whole_circuit
 
 TOL = 1e-5
+CHUNK_COLUMNS = 32   # ops.cuh's TILE_CHUNK k8 steps of 4 complex columns
+
+
+def emulate_tiled_op(u: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Y = U X as ops.cuh's tiled op takes it on the tensor cores: the
+    float32 core ``u`` (D x D) and amplitudes ``x`` (D x groups), each plane
+    split into its TF32 parts (:func:`tf32_split`, as the kernel splits
+    every operand in registers), the real form Yr = Ur Xr - Ui Xi, Yi = Ui Xr
+    + Ur Xi with each real product al bh + ah bl + ah bh, chunk by chunk of
+    ``CHUNK_COLUMNS`` columns: a chunk's share (summed here in float64; the
+    tensor cores' fresh accumulators) rounded to float32 and added to the
+    float32 accumulators, rounded to nearest. Returns complex128 holding
+    the float32 results."""
+    u = np.asarray(u, np.complex128)
+    x = np.asarray(x, np.complex128)
+    d = u.shape[0]
+    assert u.shape == (d, d) and x.shape[0] == d and d % CHUNK_COLUMNS == 0
+    urh, url = tf32_split(u.real)
+    uih, uil = tf32_split(u.imag)
+    xrh, xrl = tf32_split(x.real)
+    xih, xil = tf32_split(x.imag)
+    yr = np.zeros(x.shape, np.float32)
+    yi = np.zeros(x.shape, np.float32)
+    for c0 in range(0, d, CHUNK_COLUMNS):
+        ch = slice(c0, c0 + CHUNK_COLUMNS)
+
+        def prod(ah, al, bh, bl):
+            return al[:, ch] @ bh[ch] + ah[:, ch] @ bl[ch] + ah[:, ch] @ bh[ch]
+
+        yr = yr + (prod(urh, url, xrh, xrl) - prod(uih, uil, xih, xil)).astype(np.float32)
+        yi = yi + (prod(uih, uil, xrh, xrl) + prod(urh, url, xih, xil)).astype(np.float32)
+    return yr.astype(np.float64) + 1j * yi.astype(np.float64)
 
 
 def dense_unitary(k: int, rng) -> np.ndarray:
@@ -62,8 +106,8 @@ def _between_random(n: int, name: str, qubits, seed: int = 5) -> tq.Circuit:
 
 def test_tiled_bases_cover_every_group_once():
     # a 6-qubit core with two block-local controls in a 12-bit block: 16
-    # groups, in tiles of 4 x 2 x 16 / 64 = 2 groups at 16 threads, dealt to
-    # the CTAs in turn (a 7-qubit core takes 4 groups a thread there)
+    # groups, in tiles of 128 / 64 = 2 groups in a scratch of 128 float2,
+    # dealt to the CTAs in turn
     lay = fc.BlockLayout(12, 12, ())
     u = np.eye(1 << 8, dtype=np.complex128)
     rng = np.random.default_rng(0)
@@ -72,12 +116,19 @@ def test_tiled_bases_cover_every_group_once():
     t = fc.build_op_table(fc.as_pgates([(u, (11, 3, 0, 9, 5, 7, 2, 4))]), lay, max_bits=12)
     op = t.ints[fc.SWEEP_HEADER:fc.SWEEP_HEADER + fc.OP_HEADER]
     assert op[1] == 6 and op[3] == op[4] == (1 << 11) | (1 << 3)
-    assert [p.size for p in tiled_bases(op, 12, 16, 16)] == [2] * 8 + [0] * 8
-    parts = tiled_bases(op, 12, 4, 16)
+    assert [p.size for p in tiled_bases(op, 12, 16, 128)] == [2] * 8 + [0] * 8
+    parts = tiled_bases(op, 12, 4, 128)
     assert [p.size for p in parts] == [4, 4, 4, 4]
-    np.testing.assert_array_equal(parts[1][:2], tiled_bases(op, 12, 1, 16)[0][2:4])
-    # at 1024 threads: tiles of 4 x 2 x 1024 / 64 groups, more than it has
-    assert [p.size for p in tiled_bases(op, 12, 2, 1024)] == [16, 0]
+    np.testing.assert_array_equal(parts[1][:2], tiled_bases(op, 12, 1, 128)[0][2:4])
+    # the sweep kernel at 256 threads: 32 x 256 float2, 128 groups a tile,
+    # more than it has; its ring of two tiles of 64 groups, the same
+    assert [p.size for p in tiled_bases(op, 12, 2, 32 * 256)] == [16, 0]
+    assert [p.size for p in tiled_bases(op, 12, 2, 32 * 256, ring=True)] == [16, 0]
+    # a ring only where each of its two tiles takes 16 groups or more
+    assert [p.size for p in tiled_bases(op, 12, 16, 256, ring=True)] == [4] * 4 + [0] * 12
+    assert [p.size for p in tiled_bases(op, 12, 16, 1 << 14, ring=True)] == [16] + [0] * 15
+    with pytest.raises(AssertionError, match="two groups"):
+        tiled_bases(op, 12, 1, 64)
     bases = np.sort(np.concatenate(parts))
     want = [b for b in range(1 << 12)
             if not b & sum(1 << q for q in (0, 9, 5, 7, 2, 4)) and (b >> 11) & 1 and (b >> 3) & 1]
@@ -140,6 +191,96 @@ def test_tiled_core_through_each_mirror(kernel, k):
             emulate_sweep(re, im, table, group_bits=1)
         got = re + 1j * im
     np.testing.assert_allclose(got, jax_oracle(c, psi), atol=TOL, rtol=0)
+
+
+def _dense_ops(ints: np.ndarray, stages: bool) -> list:
+    """The op words of every dense op in a register table, or in each stage
+    table of a sweep table (``stages``)."""
+    if stages:
+        n = int(ints[0])
+        desc = ints[fc.SWEEP_HEADER:fc.SWEEP_HEADER + n * ts.STAGE_WORDS].reshape(n, ts.STAGE_WORDS)
+        return [o for d in desc for o in _dense_ops(ints[int(d[1]):], False)]
+    ops = [ints[fc.SWEEP_HEADER + o * fc.OP_HEADER:][:fc.OP_HEADER] for o in range(int(ints[0]))]
+    return [o for o in ops if o[0] == fc.KIND_DENSE]
+
+
+# (kernel, k, control): one k-qubit core alone on a state of at most 14
+# qubits through each kernel that takes it there. The control is a block
+# bit ("local") or a bit outside the block ("ext": the grid sweep's inactive
+# bit, the low sweep's part bit); the whole circuit and the segments have
+# no bit outside. An 11-qubit core comes uncontrolled (a controlled one is
+# a 4096 x 4096 complex128 matrix).
+NUMERICS_CASES = [
+    *[("whole_circuit", k, c) for k in range(5, 12) for c in ("none", "local") if (k, c) != (11, "local")],
+    *[("grid_sweep", k, c) for k in range(5, 12) for c in ("none", "local", "ext") if k < 11 or c == "none"],
+    *[("segment", k, c) for k, c in ((5, "none"), (5, "local"), (6, "none"), (6, "local"),
+                                      (7, "none"), (7, "local"), (8, "none"))],
+    *[("low_sweep", k, c) for k in range(5, 11) for c in ("none", "local", "ext")],
+]
+
+
+@pytest.mark.parametrize("kernel,k,control", NUMERICS_CASES)
+def test_tiled_op_numerics_through_each_mirror(kernel, k, control):
+    from tpu_qsim_torch.circuit import Gate
+
+    n = {"whole_circuit": 12, "grid_sweep": 14, "low_sweep": 12 if k <= 8 else 14,
+         "segment": {(5, "none"): 12, (5, "local"): 12, (6, "none"): 12, (6, "local"): 13,
+                     (7, "none"): 13, (7, "local"): 14, (8, "none"): 14}.get((k, control))}[kernel]
+    targets = {"whole_circuit": tuple(range(k)), "grid_sweep": tuple(range(k)),
+               "segment": tuple(range(n - k, n)), "low_sweep": tuple(range(n - 2 - k, n - 2))}[kernel]
+    ctrl = {"none": (), "local": {"whole_circuit": (n - 1,), "grid_sweep": (k,)}.get(kernel, (0,)),
+            "ext": (n - 1,)}[control]
+    core = dense_unitary(k, np.random.default_rng(400 + k))
+    u = core
+    if ctrl:
+        u = np.eye(2 << k, dtype=np.complex128)
+        u[1 << k:, 1 << k:] = core
+    c = tq.Circuit(n).append(Gate(f"tiled{k}", ctrl + targets, matrix_bytes=u.tobytes()))
+    psi = random_state(n, np.random.default_rng(n + k))
+    if kernel == "whole_circuit":
+        prog = fc.WholeCircuitProgram(c)
+        ops = _dense_ops(prog.table.ints, True)
+        got = emulate_whole_circuit(psi, prog)
+    elif kernel == "segment":
+        prog = seg.SegmentedProgram(c)
+        ops = [o for st in prog.steps for o in _dense_ops(st.table.ints, False)]
+        got = emulate_segments(psi, prog)
+    else:
+        if kernel == "grid_sweep":
+            prog = tgs.GridSweepProgram(c)
+            ops = [o for t in prog.tables for o in _dense_ops(t.ints, False)]
+        else:
+            prog = ts.SweepProgram(c, ts.SweepParams(k_bits=2, rb_bits=2 if k <= 8 else 4))
+            assert prog.sweep_kinds == ["low"]
+            ops = [o for t in prog.tables for o in _dense_ops(t.ints, True)]
+        re, im = psi.real.copy(), psi.imag.copy()
+        for table in prog.tables:
+            (emulate_grid_sweep if kernel == "grid_sweep" else emulate_sweep)(re, im, table)
+        got = re + 1j * im
+    # the op table holds the core with the control where the case puts it
+    (op,) = ops
+    assert int(op[1]) == k
+    assert (bool(op[3]), bool(op[5])) == (control == "local", control == "ext")
+    np.testing.assert_allclose(got, jax_oracle(c, psi), atol=1e-6, rtol=0)
+    x = torch.from_numpy(np.stack([psi.real, psi.imag]).astype(np.float32))
+    plain = tq.apply.to_complex(prog.run_plain(x))
+    np.testing.assert_allclose(got, plain, atol=1e-7, rtol=0)
+
+
+def test_emulate_tiled_op_is_float32_accurate():
+    # an 11-qubit core on 8 groups: the split products, chunk by chunk, stay
+    # within float32's reach of the complex128 product of the float32 inputs
+    # (TF32 alone, the high parts only, does not)
+    rng = np.random.default_rng(11)
+    u = dense_unitary(11, rng).astype(np.complex64)
+    x = (rng.standard_normal((2048, 8)) + 1j * rng.standard_normal((2048, 8))).astype(np.complex64)
+    x /= np.linalg.norm(x, axis=0)
+    want = u.astype(np.complex128) @ x.astype(np.complex128)
+    got = emulate_tiled_op(u, x)
+    assert np.abs(got - want).max() <= 1e-7
+    hi_only = (tf32_split(u.real)[0] + 1j * tf32_split(u.imag)[0]) @ (
+        tf32_split(x.real)[0] + 1j * tf32_split(x.imag)[0])
+    assert np.abs(hi_only - want).max() > 1e-5
 
 
 # ---------------------------------------------------------------------------

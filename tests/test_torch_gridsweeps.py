@@ -141,7 +141,11 @@ def core_matrix(w: np.ndarray, off: int, m: int) -> np.ndarray:
 
 def apply_core(s, size, targets, u, lmask, lval) -> None:
     """``s`` (one block) under the core ``u`` whose index bit k is block bit
-    ``targets[k]``, on the groups whose control bits match."""
+    ``targets[k]``, on the groups whose control bits match; a core of
+    ``TILE_CORE`` qubits or more as ops.cuh's tiled op multiplies it on the
+    tensor cores (``test_torch_dense_op.emulate_tiled_op``)."""
+    from test_torch_dense_op import emulate_tiled_op
+
     local = np.arange(size, dtype=np.int64)
     free = np.all([((local >> t) & 1) == 0 for t in targets], axis=0)
     base = local[free]
@@ -149,7 +153,7 @@ def apply_core(s, size, targets, u, lmask, lval) -> None:
     offs = [sum(1 << t for k, t in enumerate(targets) if (j >> k) & 1)
             for j in range(1 << len(targets))]
     x = np.stack([s[base | d] for d in offs])
-    y = u @ x
+    y = emulate_tiled_op(u, x) if len(targets) >= fc.TILE_CORE else u @ x
     for j, d in enumerate(offs):
         s[base | d] = y[j]
 

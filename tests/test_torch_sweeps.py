@@ -179,19 +179,26 @@ def test_layouts_are_the_jax_relabelings():
 # ---------------------------------------------------------------------------
 
 
-def tiled_bases(op: np.ndarray, kbits: int, parts: int, threads: int) -> list:
+RING_GROUPS = 16   # ops.cuh's TILE_RING_GROUPS
+
+
+def tiled_bases(op: np.ndarray, kbits: int, parts: int, cap: int, ring: bool = False) -> list:
     """Per CTA of a Part of ``parts``, the group bases a tiled core's op
     (ops.cuh's ``apply_dense_tiled``) takes: its groups enumerated with zeros
     at the target and control bits and the controls' values ORed in, cut
-    into tiles of min(4 GT threads / 2^m, groups) groups (GT = 4 groups a
-    thread for a core of 7 qubits or more at up to 512 threads, else 2), CTA
-    r taking tiles r, r + parts, ... in turn."""
+    into tiles of min(cap / 2^m, groups) groups (``cap`` the kernel's scratch
+    in float2: 32 x threads in the sweep kernel, a block's worth in the
+    grid sweep and the segments; half of it where the slots lie in device
+    memory, ``ring``, and half holds RING_GROUPS groups or more: two tiles
+    in turn, the next one's copies in flight), CTA r taking tiles r, r +
+    parts, ... in turn."""
     m = int(op[1])
-    assert 1 << m <= 4 * threads, "a tile holds one group block or more"
-    gt = 4 if threads <= 512 and m >= 7 else 2
+    assert 2 << m <= cap, "a tile holds two groups or more"
+    if ring and cap >> (m + 1) >= RING_GROUPS:
+        cap //= 2
     fixed = sum(1 << int(c) for c in op[8:8 + m]) | int(op[3])
     base = np.arange(1 << (kbits - bin(fixed).count("1")), dtype=np.int64)
-    tg = min(4 * gt * threads >> m, base.size)
+    tg = min(cap >> m, base.size)
     for p in range(kbits):                  # insert a 0 at each fixed bit
         if (fixed >> p) & 1:
             base = ((base >> p) << (p + 1)) | (base & ((1 << p) - 1))
@@ -216,7 +223,10 @@ def emulate_sweep(
     the tile, through the grid sweep's block mirror (:func:`emulate_block`).
     A unit stage's wide core runs over the unit, its tiles dealt to the
     group's CTAs in turn, slot l at ``GlobalSlots``' state index ``cta_g |
-    (l & (2^blk - 1)) | hi_off[l >> blk]``."""
+    (l & (2^blk - 1)) | hi_off[l >> blk]``, its product as the tensor cores
+    take it (``test_torch_dense_op.emulate_tiled_op``)."""
+    from test_torch_dense_op import emulate_tiled_op
+
     ints = table.ints
     n_stages, blk, a, n_inact = (int(v) for v in ints[:4])
     tile_bits = int(ints[ts.HEADER_TILE_BITS])
@@ -267,9 +277,9 @@ def emulate_sweep(
                     for j in range(1 << m)]
             w = sub.coef[:, 0].astype(np.complex128) + 1j * sub.coef[:, 1]
             core = core_matrix(w, off, m)
-            for base in tiled_bases(op, kbits, members, threads):
+            for base in tiled_bases(op, kbits, members, 32 * threads, ring=True):
                 gs = [index(base | dd) for dd in offs]
-                y = core @ np.stack([re[g] + 1j * im[g] for g in gs])
+                y = emulate_tiled_op(core, np.stack([re[g] + 1j * im[g] for g in gs]))
                 for j, g in enumerate(gs):
                     re[g], im[g] = y[j].real, y[j].imag
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -153,3 +154,30 @@ def check(name: str, lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)(?:\.[A-Z0-9_]+)*\s*([^;]*);")
+
+
+def sass_listing(name: str) -> dict[str, list[tuple[int, str, str]]]:
+    """Every function in the built library of ``csrc/<name>.cu`` (by mangled
+    name) as its instructions, (address, opcode, operands), from
+    ``cuobjdump -sass`` beside ``nvcc``. A device function that is not
+    inlined is compiled into each kernel that calls it, after the caller's
+    code, and reached by CALL."""
+    lib = build(name)
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out: dict[str, list[tuple[int, str, str]]] = {}
+    body = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            body = out.setdefault(line.split("Function :", 1)[1].strip(), [])
+            continue
+        m = _SASS_LINE.search(line) if body is not None else None
+        if m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+    return out
+

@@ -401,14 +401,15 @@ struct BlockShape {
 // CTA may have more threads than the block's 2^(blk + a - R): the warps past
 // them hold no values and only share the barriers and the shared-memory ops
 // (load_first must skip them too).
-template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst, class Store>
+template <int MAXM, bool STREAM, bool SPARE = false, class Scratch, class LoadFirst,
+          class Store>
 __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           float* __restrict__ im,
                                           const int* __restrict__ table,
                                           const BlockShape& shape,
                                           const float2* __restrict__ coef,
                                           unsigned cta_g, float* sr, float* si,
-                                          float2* scratch,
+                                          const Scratch& scratch,
                                           LoadFirst&& load_first,
                                           const Store& store) {
   const int n_ops = shape.n_ops;
@@ -505,14 +506,14 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
 }
 
 // run_block storing to the block's own slots, in place.
-template <int MAXM, bool STREAM, bool SPARE = false, class LoadFirst>
+template <int MAXM, bool STREAM, bool SPARE = false, class Scratch, class LoadFirst>
 __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           float* __restrict__ im,
                                           const int* __restrict__ table,
                                           const BlockShape& shape,
                                           const float2* __restrict__ coef,
                                           unsigned cta_g, float* sr, float* si,
-                                          float2* scratch,
+                                          const Scratch& scratch,
                                           LoadFirst&& load_first) {
   run_block<MAXM, STREAM, SPARE>(re, im, table, shape, coef, cta_g, sr, si,
                                  scratch, load_first,

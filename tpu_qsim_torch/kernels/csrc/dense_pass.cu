@@ -24,20 +24,12 @@
 //   - the product runs on the tensor cores in its real form on the planes,
 //     Yr = Ur Xr - Ui Xi and Yi = Ui Xr + Ur Xi, TF32 products accumulated
 //     in float32 (mma.sync m16n8k8, or wgmma m64n64k8 in the large
-//     instance). TF32 keeps 10 mantissa bits, which
-//     alone misses the 1e-6 gate, so every operand is split in registers
-//     into a TF32 high part (rounded to nearest, as cvt.rna.tf32.f32 does,
-//     in two integer operations) and the remainder, whose bits past TF32's
-//     the tensor cores drop, and each real product is hi.lo + lo.hi +
-//     hi.hi, small terms first ("3xTF32"): float32's own accuracy at three
-//     tensor-core products per real one (the lo.lo term and what the low
-//     part drops are below 2^-21 of each term). U is split as it is read,
-//     never stored twice: at 16 qubits U's bytes set the bound;
-//   - the tensor cores add into their accumulator with truncation, so a
-//     4096-term sum in one accumulator drifted past the 1e-7 gate against
-//     float32 FMAs at 16 and 22 qubits on the H100: each chunk's share goes
-//     into fresh accumulators, added to the run's in float32 (rounded to
-//     nearest) after the chunk;
+//     instance), in 3xTF32 (csrc/tf32.cuh: every operand split in
+//     registers into a TF32 high part and its remainder, three tensor-core
+//     products per real one, each chunk's share in fresh accumulators): U
+//     is split as it is read, never stored twice (at 16 qubits U's bytes
+//     set the bound); a 4096-term sum in one accumulator drifted past the
+//     1e-7 gate against float32 FMAs at 16 and 22 qubits on the H100;
 //   - a CTA owns a tile of BM rows x BN groups (fewer groups when the state
 //     has fewer; the columns past them are computed from whatever the
 //     shared memory holds and never stored). The mma.sync instances' warps
@@ -81,6 +73,7 @@
 #include <stdint.h>
 
 #include "ops.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -114,15 +107,6 @@ __device__ __forceinline__ unsigned low_bits(unsigned mask, int count) {
   return out;
 }
 
-// x as a TF32 high part (10 mantissa bits, rounded to nearest with ties
-// away from zero, as cvt.rna.tf32.f32; the low 13 bits cleared) and the
-// float32 remainder x - hi, exact, which the tensor cores read as TF32 by
-// dropping its low 13 bits.
-__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
-}
-
 // Four 8 x 4 tiles of 32-bit words from shared memory, as ldmatrix's four
 // 8 x 8 b16 matrices: lane l gives the row address of tile l / 8, row l % 8,
 // and gets word l % 4 of row l / 4 of each tile, the fragment layout of
@@ -131,21 +115,6 @@ __device__ __forceinline__ void ldmatrix4(uint32_t (&d)[4], const float* row) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(row);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(a));
-}
-
-// d += a b: a 16 x 8 TF32 fragment (row-major), b 8 x 8 (column-major), d
-// 16 x 8 float32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 // A CTA's tile of the product (BM rows of U from r0, BN groups from g0, the
@@ -366,15 +335,7 @@ __global__ void __launch_bounds__(SH::THREADS, 1) dense_pass_kernel(const Pass p
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          accr[i][j][v] += tr[i][j][v];
-          acci[i][j][v] += ti[i][j][v];
-        }
+    add_share(accr, tr, acci, ti);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free
@@ -593,11 +554,7 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
     fence_operands(a[(BK / 8 - 1) & 1]);
     fence_operands(tr);
     fence_operands(ti);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      accr[i] += tr[i];
-      acci[i] += ti[i];
-    }
+    add_share(accr, tr, acci, ti);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free

@@ -77,7 +77,9 @@ grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
   float* si = sr + size;                         // shared-memory ops
   float* pr = si + size;                         // the next step's block
   float* pi = pr + size;
-  float2* scratch = reinterpret_cast<float2*>(pi + size);
+  // the tiled op's scratch: a block's worth, so a wide core's tile is the
+  // whole block
+  const TileScratch<4> scratch{reinterpret_cast<float2*>(pi + size), size};
 
   unsigned step = blockIdx.x;
   if (step < steps)
@@ -101,7 +103,7 @@ template <int MAXM>
 int launch(float* state, long long dim, const int* table, const float* coef,
            int kbits, long long steps, int threads, cudaStream_t stream) {
   size_t smem = (size_t)4 * sizeof(float) << kbits;  // block and prefetch
-  if (MAXM > NARROW_CORE) smem += tile_scratch_bytes(threads);
+  if (MAXM > NARROW_CORE) smem += tile_scratch_bytes(1u << kbits);
   cudaError_t err = cudaFuncSetAttribute(
       grid_sweep_kernel<MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

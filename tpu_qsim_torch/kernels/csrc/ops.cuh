@@ -22,6 +22,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32.cuh"
+
 namespace qsim {
 
 constexpr int SWEEP_HEADER = 64;    // int32 words before the first op
@@ -35,6 +37,7 @@ constexpr int NARROW_CORE = 4;      // the widest core of a kernel's narrow inst
 // Masking every access of a single-CTA block (a mask of size - 1 on each
 // slot) cost the 28q grid sweep 3% against this type on the H100 (PERF.md).
 struct BlockSlots {
+  static constexpr bool GLOBAL = false;  // the slots lie in shared memory
   float* sr;
   float* si;
   __device__ float* re(unsigned l) const { return sr + l; }
@@ -49,6 +52,7 @@ struct BlockSlots {
 // l is cta_g + l.
 template <bool DEPOSIT>
 struct GlobalSlots {
+  static constexpr bool GLOBAL = true;
   float* sr;  // the state's planes
   float* si;
   unsigned cta_g;
@@ -177,69 +181,108 @@ __device__ void apply_dense(const S& s, const int* op, const float2* coef,
 }
 
 // ---------------------------------------------------------------------------
-// Dense op on M >= TILE_CORE block qubits: one tiled complex matrix product.
+// Dense op on M >= TILE_CORE block qubits: one tiled complex matrix product
+// on the tensor cores.
+//
+// Replaces, for cores of 5-11 qubits, tpu_qsim/kernels/fused_circuit.py
+// ::_emit_gate_generic (fused_circuit.py:569, reached from emit_ops), which
+// multiplies the core into the VMEM block on the TPU's matrix unit.
 //
 // The op is Y = U X, U the 2^M x 2^M core (D = 2^M) and X the D x G matrix
 // whose column g holds the amplitudes of group g (the 2^M slots that differ
-// only in the targets, under the block-local controls). Each thread owns 4
-// rows of GT groups (GT = 4 for cores of 7 qubits and more at up to 512
-// threads, else 2), so a CTA of T threads takes tiles of TG = 4 GT T / D
-// groups (fewer if the op has fewer groups):
-//   1. the tile's X is staged from the slots into shared memory, xs[c][g]
-//      (its slots may be this CTA's shared memory or device memory: the op
-//      reads each once). A tile is the slots whose bits
-//      outside the targets and the tile's lowest free bits are fixed; its
-//      elements are taken in the order of their slot indices, so a warp's
-//      32 loads are consecutive slots wherever the targets lie (no bank
-//      conflicts in shared memory, whole sectors in device memory). Row and
-//      group of a slot are linear in its bits, so each thread derives them
-//      for its 4 GT elements from a few masks;
-//   2. U streams through shared memory in panels of KC = min(D, PANEL / D)
-//      whole columns (build_op_table stores U column-major, so a panel is one
-//      contiguous run of coefficients), double-buffered with cp.async: the
-//      next panel's copy is in flight while the threads multiply the current
-//      one (starting each CTA at another panel, tried, was 10% slower);
-//   3. thread t accumulates rows 2 rb, 2 rb + 1, 2 rb + D/2, 2 rb + 1 + D/2
-//      of groups GT gb .. GT gb + GT - 1 in float32 registers: per column
-//      GT/2 float4 of X and two of U from shared memory for 4 GT complex
-//      multiply-adds of four chained FMAs. A warp's lanes take 8 or more row
-//      pairs and up to 4 group blocks, so their U loads are 128 consecutive
-//      bytes and their X loads broadcast;
-//   4. after the last panel (and the barrier that ends it, so every read of
-//      the tile's slots is done) the outputs go to xs, and from there to the
-//      slots in the order of step 1.
-// xs[c][g] sits at c TGS + (g ^ (GT c mod TGS)), TGS = max(TG, GT): the
-// swizzle keeps a group block in whole float4s and spreads a column's rows
-// over the banks.
-// U is read once per tile of TG groups, not once per group. Block-local
-// controls fix their bits in the group enumeration (no group is skipped).
-// Tiles are split over the CTAs of a Part in turn. Needs T a power of two
-// with D <= 4 T and D <= PANEL, and tile_scratch_bytes(T) of shared memory
-// at `scratch` (16-byte aligned); the coefficients must start 16-byte
-// aligned (build_op_table pads). Every thread of the CTA must call it. It is
-// one non-inlined function, so its registers are allocated apart from the
-// surrounding kernel's.
+// only in the targets, under the block-local controls). It runs in tiles of
+// TG = min(G, cap / D) groups, as many as the scratch holds: a tile is the
+// slots whose bits outside the targets and the tile's lowest free bits are
+// fixed, and tiles are split over the CTAs of a Part in turn. Per tile:
+//   1. the tile's X is staged from the slots into shared memory, xs[c][g],
+//      in the order of slot indices, so a warp's 32 loads are consecutive
+//      slots wherever the targets lie (row and group of a slot are linear in
+//      its bits: a thread takes its elements in Gray-code order, one table
+//      lookup and three XORs each; against a lookup per set bit this took
+//      the 26q low sweep's k = 5 / 8 op from 0.54-0.57 to 0.44-0.48 / from
+//      2.45-2.50 to 2.32-2.40 ms on the H100). Where the
+//      slots lie in device memory (the sweeps) and each of two tiles of
+//      cap / 2 takes TILE_RING_GROUPS groups or more, the tiles alternate
+//      between two buffers and the next tile's X streams in with cp.async
+//      while the warps multiply this one's (26q low sweep, k = 5/6/7/8:
+//      0.87/1.11/1.66/2.74 ms without, 0.58/0.76/1.28/2.46 with, on the
+//      H100; k = 9, tiles of 16 groups instead of 32: 4.68 against
+//      4.83-5.02). One barrier a tile (two without the ring);
+//   2. the warps take warp tiles of 8 MT rows x 16 groups in turn and run
+//      each over all D columns with no barrier: the product in its real
+//      form, on mma.sync m16n8k8 TF32 in 3xTF32 (csrc/tf32.cuh). A k8 step
+//      covers 4 complex columns c0..c0+3, its 8 real columns Xr then Xi of
+//      the 4; an m16 tile covers 8 complex rows, its 16 real rows Yr then Yi
+//      of the 8. So lane (g, q)'s A fragment is (Ur, Ui, -Ui, Ur) of U[row
+//      g][c0 + q], U's real embedding [[Ur, -Ui], [Ui, Ur]] built in
+//      registers from one complex coefficient as it is loaded, and its B
+//      fragment (Xr, Xi) of X[c0 + q][group g], one float2 of xs: the
+//      interleaved complex tile is the B operand as it stands. U is read as
+//      build_op_table stores it (column-major) from L2 through L1, never
+//      stored twice: an m-tile pair's rows interleave, so a lane's two
+//      coefficients are one 16-byte load, issued a k8 step ahead; a lane's
+//      two n-tiles' X is one 16-byte load too. Each chunk of TILE_CHUNK k8
+//      steps (32 columns) runs into fresh accumulators, each term of an
+//      m-tile pair over its 4 accumulators before the next term;
+//   3. each lane stores its outputs straight to their slots (xs still holds
+//      X for the warps that are not done), 16 bytes a plane where a lane's
+//      4 groups are adjacent slots.
+// xs[c][g] sits at c TGS + (g ^ (4 (c mod 4) & (TGS - 2))), TGS = max(TG, 2):
+// the swizzle keeps group pairs whole and puts the 8 lanes of a 16-byte
+// load phase on 8 distinct bank quads (TG >= 16). An op with fewer than 16
+// groups a tile reads duplicates of its groups into the last warp tile's
+// columns past TG and never stores them. Block-local controls fix their bits
+// in the group enumeration (no group is skipped).
+//
+// Instruction: mma.sync, which runs at every CTA size the kernels launch
+// (32-1024 threads) beside the block program's shared memory. wgmma reads B
+// only from shared memory, in its core-matrix layout and already split (a
+// second, twice larger copy of the tile, as dense_pass.cu's large instance
+// keeps, which the block kernels cannot hold beside their block), in
+// 64-row warpgroup tiles that a 5- or 6-qubit core does not fill. On the
+// H100 this op issues 3.1-3.2 cycles per m16n8k8 product per SM at k =
+// 8-10 on the 26q low sweep, the dense pass's wgmma 2.1 for the same work.
+//
+// Bound on this card: 8 flops per complex multiply-add, 8 D per amplitude,
+// three TF32 flops per real one over the tensor cores' 495 TFLOP/s; and
+// U's re-reads, D^2 x 8 bytes per tile from L2. A kernel gives the op
+// `cap` float2 of scratch (a power of two, at least 2 D and at most 32
+// threads) and its warp tile: MT = 4 m-tiles where ptxas may give a thread
+// 128 registers, 2 at 64 (at 128, MT = 4 took 3.00 / 10.0 ms for k = 8 /
+// 10 where MT = 2 took 3.96 / 14.7). Every thread of the CTA must call it.
+// It is one non-inlined function, so its registers are allocated apart from
+// the surrounding kernel's; its product loop is not a function of its own
+// (a call per warp tile cost 10-25%), and the tables every thread computes
+// alike live in static shared memory, out of the loop's registers.
 // ---------------------------------------------------------------------------
-constexpr int PANEL = 2048;  // float2 per U panel buffer: 16 KB
-// cores of this many qubits and more take 4 groups a thread at <= 512
-// threads (at 6 qubits 2 groups were faster in the grid sweep on the H100)
-constexpr int TILE_GT4_CORE = 7;
-constexpr int TILE_MAX_CORE = 11;  // D <= PANEL
+constexpr int TILE_MAX_CORE = 11;
+constexpr int TILE_CHUNK = 8;       // k8 steps (32 complex columns) per share
+constexpr int TILE_GROUPS = 16;     // a warp tile's groups: two n-tiles of 8
+constexpr int TILE_STAGE_BITS = 5;  // elements a thread stages: cap / T <= 32
+constexpr int TILE_RING_GROUPS = 16;  // the least groups a tile of a ring of two
 
-// Groups each thread of a CTA of `threads` takes in the tiled op, for a
-// core of 2^m rows (0: the most any core takes, for the scratch size).
-__host__ __device__ constexpr int tile_thread_groups(int threads, int m = 0) {
-  return threads <= 512 && (m == 0 || m >= TILE_GT4_CORE) ? 4 : 2;
-}
+template <int MT_>
+struct TileScratch {
+  static constexpr int MT = MT_;  // m-tiles (8 rows each) of a warp tile
+  float2* xs;                     // 16-byte aligned
+  unsigned cap;                   // float2 at xs
+};
 
-__host__ __device__ constexpr size_t tile_scratch_bytes(int threads) {
-  return (size_t)threads * 4 * tile_thread_groups(threads) * sizeof(float2) +
-         2 * PANEL * sizeof(float2);
+__host__ __device__ constexpr size_t tile_scratch_bytes(unsigned cap) {
+  return (size_t)cap * sizeof(float2);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+// 4 bytes to the shared-memory address `s` (as __cvta_generic_to_shared
+// gives it)
+__device__ __forceinline__ void cp_async4_at(unsigned s, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  cp_async4_at((unsigned)__cvta_generic_to_shared(smem), gmem);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -247,15 +290,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start the copy of `count` float2 (a multiple of 2) from src to dst, each
-// thread 16 bytes at a time, as one cp.async group.
-__device__ __forceinline__ void copy_panel(float2* dst, const float2* src,
-                                           unsigned count) {
-  for (unsigned ch = threadIdx.x; ch < count / 2; ch += blockDim.x)
-    cp_async16(dst + 2 * ch, src + 2 * ch);
-  cp_async_commit();
 }
 
 // The bits of x placed, ascending, at the set bits of mask.
@@ -288,12 +322,35 @@ __device__ __forceinline__ unsigned row_of(const int* op, int m, unsigned x) {
   return c;
 }
 
-template <int GT, class S>
+// Slot bits of row index r under an m-qubit core (row_of's inverse).
+__device__ __forceinline__ unsigned row_slot(const int* op, int m, unsigned r) {
+  unsigned l = 0;
+  for (int i = 0; i < m; ++i) l |= ((r >> (m - 1 - i)) & 1u) << op[8 + i];
+  return l;
+}
+
+__device__ __forceinline__ float4 lds128(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts64(unsigned addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(x), "f"(y));
+}
+
+template <class S, int MT>
 __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
                                                const float2* coef, int kbits,
-                                               Part part, float2* scratch) {
-  constexpr int E = 4 * GT;             // elements of a tile per thread
-  constexpr int LOG2E = GT == 4 ? 4 : 3;
+                                               Part part, TileScratch<MT> sc) {
+  constexpr int WR = 8 * MT, WG = TILE_GROUPS;
+  constexpr int EB = TILE_STAGE_BITS;
+  static_assert(MT % 2 == 0, "m-tiles in interleaved pairs");
+  // tables every thread computes alike (the staging's bit deltas; a lane's
+  // output offsets, the same in every warp), kept out of the product loop's
+  // registers
+  __shared__ uint4 stage_tab[EB];
+  __shared__ unsigned lane_tab[32][MT + 4];
   const int m = op[1];
   const unsigned D = 1u << m;
   const unsigned T = blockDim.x, t = threadIdx.x;
@@ -303,10 +360,15 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
   const unsigned lmask = op[3], lval = op[4];
   const unsigned free = ((1u << kbits) - 1u) & ~(tmask | lmask);
   const int free_bits = __popc(free);
-  const int log2tg = min(log2t + LOG2E - m, free_bits);
-  // a tile's groups, and its row stride in xs: at least one group block (an
-  // op with fewer groups computes unused ones, never loaded or stored)
-  const unsigned TG = 1u << log2tg, TGS = TG > GT ? TG : GT;
+  // slots in device memory, and room for two tiles of TILE_RING_GROUPS
+  // groups or more: the next tile's X streams into the second buffer with
+  // cp.async while the warps multiply this one's
+  const bool ring = S::GLOBAL && (sc.cap >> (m + 1)) >= TILE_RING_GROUPS;
+  const unsigned cap = ring ? sc.cap / 2 : sc.cap;
+  const int log2tg = min(__ffs(cap) - 1 - m, free_bits);
+  // a tile's groups, and its row stride in xs (an op with one group keeps
+  // a pair, the second never loaded or stored)
+  const unsigned TG = 1u << log2tg, TGS = TG > 2 ? TG : 2;
   // a tile: the lowest log2tg free bits (its groups) and the targets (its
   // rows) vary; the other free bits number the tiles
   unsigned gmask = 0, rest = free;
@@ -316,121 +378,178 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
   }
   const unsigned pmask = tmask | gmask;
   const unsigned n_tiles = 1u << (free_bits - log2tg);
-  const unsigned count = D * TG;       // elements of a tile, at most E T
-  const unsigned KC = D < PANEL / D ? D : PANEL / D;
-  const unsigned panel = KC * D, n_panels = D / KC;
-  float2* xs = scratch;                 // [D][TGS], swizzled
-  float2* us = scratch + E * T;         // [2][PANEL]
-  const float2* u = coef + op[2];       // column-major: u[c * D + r]
-  const unsigned swz = TGS - GT;        // GT c mod TGS keeps group blocks whole
+  const unsigned stride = 1u << part.log2;
+  const unsigned count = D << log2tg;  // elements of a tile, at most cap
+  const unsigned per_thread = (count + T - 1u) >> log2t;
+  const float2* const u = coef + op[2];  // column-major: u[c * D + r]
+  const unsigned xs0 = (unsigned)__cvta_generic_to_shared(sc.xs);
 
-  // element t + i T of a tile: slot bits dep_t | dl[bits of i], row
-  // c_t ^ dc[..], group g_t ^ dg[..] (linear in the element's bits)
+  // staging: element t + i T of a tile is slot dep_t ^ (the slot bits of
+  // i's bits), row c_t ^ .., group g_t ^ .. (linear in the element's bits):
+  // stage_tab[b] holds the slot, row and group bits that bit b flips, and a
+  // thread takes its elements in Gray-code order of i, one flip each
   const unsigned dep_t = deposit_bits(t, pmask);
   const unsigned c_t = row_of(op, m, dep_t), g_t = extract_bits(dep_t, gmask);
-  unsigned dl[LOG2E], dc[LOG2E], dg[LOG2E];
 #pragma unroll
-  for (int b = 0; b < LOG2E; ++b) {
-    dl[b] = deposit_bits(1u << (log2t + b), pmask);
-    dc[b] = row_of(op, m, dl[b]);
-    dg[b] = extract_bits(dl[b], gmask);
+  for (int b = 0; b < EB; ++b) {
+    const unsigned dl = deposit_bits(1u << (log2t + b), pmask);
+    stage_tab[b] = make_uint4(dl, row_of(op, m, dl), extract_bits(dl, gmask), 0u);
   }
-
-  // compute: row pair rb (rows 2 rb, 2 rb + 1 and the same + D/2), group
-  // block gb (groups GT gb .. GT gb + GT - 1)
-  const unsigned GB = TGS / GT, GBL = GB < 4 ? GB : 4;
-  const unsigned q = D / 4;
-  const bool computes = t < q * GB;
-  const unsigned rb = (t / GBL) % q;
-  const unsigned gb = (t / GBL / q) * GBL + t % GBL;
-
-  for (unsigned tile = part.index; tile < n_tiles; tile += 1u << part.log2) {
-    const unsigned hi = deposit_bits(tile, rest) | lval;
-    copy_panel(us, u, panel);
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      if (t + i * T >= count) break;
-      unsigned l = hi | dep_t, c = c_t, g = g_t;
-#pragma unroll
-      for (int b = 0; b < LOG2E; ++b)
-        if ((i >> b) & 1) {
-          l |= dl[b];
-          c ^= dc[b];
-          g ^= dg[b];
-        }
-      xs[c * TGS + (g ^ ((GT * c) & swz))] = make_float2(*s.re(l), *s.im(l));
-    }
-    float ar[4][GT], ai[4][GT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < GT; ++j) ar[i][j] = ai[i][j] = 0.f;
-    for (unsigned p = 0; p < n_panels; ++p) {
-      if (p + 1 < n_panels) {
-        copy_panel(us + ((p + 1) & 1u) * PANEL, u + (size_t)(p + 1) * panel, panel);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (computes) {
-        const float4* up = reinterpret_cast<const float4*>(us + (p & 1u) * PANEL) + rb;
+  auto stage = [&](unsigned tile, unsigned xs) {
+    if (t >= count) return;  // a tile of fewer elements than threads
+    unsigned l = deposit_bits(tile, rest) | lval | dep_t, c = c_t, g = g_t;
 #pragma unroll 4
-        for (unsigned cc = 0; cc < KC; ++cc) {
-          const unsigned c = p * KC + cc;
-          const float4* xr = reinterpret_cast<const float4*>(
-              xs + c * TGS + ((GT * gb) ^ ((GT * c) & swz)));
-          float2 x[GT];
-#pragma unroll
-          for (int j = 0; j < GT / 2; ++j) {
-            const float4 v = xr[j];
-            x[2 * j] = make_float2(v.x, v.y);
-            x[2 * j + 1] = make_float2(v.z, v.w);
-          }
-          const float4 w01 = up[cc * (D / 2)];          // rows 2 rb, 2 rb + 1
-          const float4 w23 = up[cc * (D / 2) + q];      // the same + D/2
-          const float2 w[4] = {make_float2(w01.x, w01.y), make_float2(w01.z, w01.w),
-                               make_float2(w23.x, w23.y), make_float2(w23.z, w23.w)};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < GT; ++j) {  // four chained FMAs per product
-              ar[i][j] = fmaf(w[i].x, x[j].x, fmaf(-w[i].y, x[j].y, ar[i][j]));
-              ai[i][j] = fmaf(w[i].x, x[j].y, fmaf(w[i].y, x[j].x, ai[i][j]));
-            }
+    for (unsigned i = 0; i < per_thread; ++i) {
+      if (i) {
+        const uint4 d = stage_tab[__ffs(i) - 1];
+        l ^= d.x;
+        c ^= d.y;
+        g ^= d.z;
+      }
+      const unsigned x = xs + 8u * (c * TGS + (g ^ ((4u * (c & 3u)) & (TGS - 2u))));
+      if constexpr (S::GLOBAL) {
+        if (ring) {
+          cp_async4_at(x, s.re(l));
+          cp_async4_at(x + 4u, s.im(l));
+          continue;
         }
       }
-      __syncthreads();
+      sts64(x, *s.re(l), *s.im(l));
     }
-    if (computes) {
+  };
+
+  // the product: lane (fg, fq) in mma's fragment terms; warp tile w is rows
+  // (w / NB) WR.. and groups (w % NB) WG..
+  const unsigned lane = t & 31u, warp = t >> 5, warps = T >> 5;
+  const unsigned fg = lane >> 2, fq = lane & 3u;
+  const unsigned NB = (TG + WG - 1u) / WG;
+  const unsigned n_wtiles = (D / WR) * NB;
+  const unsigned steps = D / 4;                     // k8 steps
+  const unsigned ustep = 2u * D, xstep = 32u * TGS;  // U float4, X bytes a step
+  const unsigned swz = (4u * fq) & (TGS - 2u);      // column c = 4 step + fq
+  // the lane's outputs: m-tile i's row fg of the warp tile (slot bits
+  // lane_tab[i]) and groups 4 fq + q (lane_tab[MT + q]; q = 2 h + j: n-tile
+  // j's column 2 fq + h); where the groups' lowest slot bits are 0 and 1,
+  // the 4 groups are 4 adjacent slots
+  if (warp == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned r = 2 * rb + (i & 1) + (i & 2 ? D / 2 : 0u);
-        float4* xw = reinterpret_cast<float4*>(
-            xs + r * TGS + ((GT * gb) ^ ((GT * r) & swz)));
+    for (int i = 0; i < MT; ++i)
+      lane_tab[lane][i] = row_slot(op, m, 16u * (i / 2) + 2u * fg + (i & 1));
 #pragma unroll
-        for (int j = 0; j < GT / 2; ++j)
-          xw[j] = make_float4(ar[i][2 * j], ai[i][2 * j], ar[i][2 * j + 1],
-                              ai[i][2 * j + 1]);
-      }
-    }
+    for (int q = 0; q < 4; ++q) lane_tab[lane][MT + q] = deposit_bits(4u * fq + q, gmask);
+  }
+  const bool quad = (gmask & 3u) == 3u;
+
+  unsigned b = 0;  // the tile's buffer: 0 and 1 in turn with the ring
+  if (ring && part.index < n_tiles) {
+    stage(part.index, xs0);
+    cp_async_commit();
+  }
+  for (unsigned tile = part.index; tile < n_tiles; tile += stride, b ^= ring) {
+    const unsigned xs = xs0 + 8u * b * cap;
+    if (ring) cp_async_wait<0>();
+    else stage(tile, xs);
+    // the tile's X is in (and lane_tab); with the ring, every warp is done
+    // with the other buffer, which the next tile's copies then take
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      if (t + i * T >= count) break;
-      unsigned l = hi | dep_t, c = c_t, g = g_t;
-#pragma unroll
-      for (int b = 0; b < LOG2E; ++b)
-        if ((i >> b) & 1) {
-          l |= dl[b];
-          c ^= dc[b];
-          g ^= dg[b];
-        }
-      const float2 y = xs[c * TGS + (g ^ ((GT * c) & swz))];
-      *s.re(l) = y.x;
-      *s.im(l) = y.y;
+    if (ring && tile + stride < n_tiles) {
+      stage(tile + stride, xs0 + 8u * (b ^ 1u) * cap);
+      cp_async_commit();
     }
-    __syncthreads();  // the next tile's staging overwrites xs
+    const unsigned hi = deposit_bits(tile, rest) | lval;
+    for (unsigned w = warp; w < n_wtiles; w += warps) {
+      const unsigned rbase = (w / NB) * WR, nbase = (w % NB) * WG;
+      // lane's U: rows rbase + 16 ii + 2 fg (+ 1), column 4 step + fq; its
+      // X: groups nbase + 2 fg (+ 1), the same column
+      const float4* const up = reinterpret_cast<const float4*>(u + fq * D + rbase + 2u * fg);
+      const unsigned xa = xs + 8u * (fq * TGS + (((nbase + 2u * fg) & (TGS - 1u)) ^ swz));
+      float acc[MT][2][4], sh[MT][2][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+      float4 un[MT / 2];
+#pragma unroll
+      for (int ii = 0; ii < MT / 2; ++ii) un[ii] = __ldg(up + 8 * ii);
+      for (unsigned s0 = 0; s0 < steps; s0 += TILE_CHUNK) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) sh[i][j][v] = 0.f;
+#pragma unroll
+        for (int ss = 0; ss < TILE_CHUNK; ++ss) {
+          const unsigned st = s0 + ss;
+          const float4 xv = lds128(xa + st * xstep);
+          uint32_t bh[2][2], bl[2][2];  // n-tile j: (Xr, Xi) of group 2 fg + j
+          split(__float_as_uint(xv.x), bh[0][0], bl[0][0]);
+          split(__float_as_uint(xv.y), bh[0][1], bl[0][1]);
+          split(__float_as_uint(xv.z), bh[1][0], bl[1][0]);
+          split(__float_as_uint(xv.w), bh[1][1], bl[1][1]);
+#pragma unroll
+          for (int ii = 0; ii < MT / 2; ++ii) {  // m-tiles 2 ii + e: rows 16 ii + 2 fg + e
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              uint32_t rh, rl, ih, il;
+              split(__float_as_uint(e ? un[ii].z : un[ii].x), rh, rl);
+              split(__float_as_uint(e ? un[ii].w : un[ii].y), ih, il);
+              ah[e][0] = ah[e][3] = rh;
+              ah[e][1] = ih;
+              ah[e][2] = ih ^ SIGN_BIT;
+              al[e][0] = al[e][3] = rl;
+              al[e][1] = il;
+              al[e][2] = il ^ SIGN_BIT;
+            }
+            if (st + 1u < steps)  // the next step's U, from L2 through L1
+              un[ii] = __ldg(up + (st + 1u) * ustep + 8 * ii);
+            // small terms first, each term over the pair's 4 accumulators
+            // before the next
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) mma(sh[2 * ii + e][j], al[e], bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) mma(sh[2 * ii + e][j], ah[e], bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) mma(sh[2 * ii + e][j], ah[e], bh[j][0], bh[j][1]);
+          }
+        }
+        add_share(acc, sh);
+      }
+      // m-tile i, n-tile j: acc[i][j] = (Yr, Yr, Yi, Yi) of row fg, groups
+      // 2 (2 fq + h) + j for h = 0, 1
+      const int valid = (int)TG - (int)(nbase + 4u * fq);
+      if (valid <= 0) continue;
+      const unsigned base = hi | row_slot(op, m, rbase) | deposit_bits(nbase, gmask);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const unsigned l = base | lane_tab[lane][i];
+        if (quad) {
+          const unsigned lq = l | lane_tab[lane][MT];
+          *reinterpret_cast<float4*>(s.re(lq)) =
+              make_float4(acc[i][0][0], acc[i][1][0], acc[i][0][1], acc[i][1][1]);
+          *reinterpret_cast<float4*>(s.im(lq)) =
+              make_float4(acc[i][0][2], acc[i][1][2], acc[i][0][3], acc[i][1][3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q >= valid) break;
+            const unsigned lq = l | lane_tab[lane][MT + q];
+            *s.re(lq) = acc[i][q & 1][q >> 1];
+            *s.im(lq) = acc[i][q & 1][2 + (q >> 1)];
+          }
+        }
+      }
+    }
+    if (!ring) __syncthreads();  // the next tile's staging overwrites xs
   }
 }
 
@@ -444,7 +563,8 @@ constexpr int MAX_CORE = TILE_MAX_CORE;
 
 // Whether a launch of `threads` threads per CTA can run a table whose widest
 // core is `max_core`: the tiled op needs a power of two with 2^max_core <=
-// 4 threads (a tile of two or more groups).
+// 4 threads (each kernel's scratch, 8 threads float2 or more, then holds a
+// tile of two or more groups).
 inline bool threads_fit_core(int threads, int max_core) {
   if (max_core < TILE_CORE) return true;
   return max_core <= MAX_CORE && threads >= 32 && (threads & (threads - 1)) == 0 &&
@@ -457,12 +577,12 @@ __device__ __forceinline__ void check_core_width(const int* table) {
 }
 
 // One op of the table. Out-of-block controls (words 5, 6) are uniform over
-// the CTA and skip it whole. `scratch` is the tiled op's shared memory (only
+// the CTA and skip it whole. `scratch` is the tiled op's TileScratch (only
 // the wide instance reads it).
-template <int MAXM, class S>
+template <int MAXM, class S, class Scratch>
 __device__ void apply_op(const S& s, const int* op, const float2* coef,
                          int kbits, unsigned cta_g, Part part,
-                         float2* scratch) {
+                         const Scratch& scratch) {
   if ((cta_g & (unsigned)op[5]) != (unsigned)op[6]) return;
   if (op[0] == KIND_DIAG) {
     apply_diag(s, op, coef, kbits, cta_g, part);
@@ -474,12 +594,8 @@ __device__ void apply_op(const S& s, const int* op, const float2* coef,
     case 3: apply_dense<3>(s, op, coef, kbits, part); break;
     case 4: apply_dense<4>(s, op, coef, kbits, part); break;
     default:  // only the wide instance has code for these widths
-      if constexpr (MAXM > NARROW_CORE) {
-        if (tile_thread_groups(blockDim.x, op[1]) == 4)
-          apply_dense_tiled<4>(s, op, coef, kbits, part, scratch);
-        else
-          apply_dense_tiled<2>(s, op, coef, kbits, part, scratch);
-      }
+      if constexpr (MAXM > NARROW_CORE)
+        apply_dense_tiled(s, op, coef, kbits, part, scratch);
       break;
   }
 }

@@ -86,12 +86,19 @@ struct MapStore {
   __device__ __forceinline__ unsigned at(unsigned l) const { return base | map_local(t, l); }
 };
 
+// The tiled op's scratch (float2): a block's worth, at most 2^13 (64 KB
+// beside a 2^14-slot block's 128 KB).
+constexpr unsigned TILE_CAP = 1u << 13;
+__host__ __device__ constexpr unsigned tile_cap(int local_bits) {
+  return (1u << local_bits) < TILE_CAP ? 1u << local_bits : TILE_CAP;
+}
+
 // Dynamic shared memory of one CTA: the block's planes, and in the wide
 // instance the tiled op's scratch.
 template <int MAXM>
 size_t smem_bytes(int local_bits) {
   const size_t block = (size_t)2 * sizeof(float) << local_bits;
-  return MAXM > NARROW_CORE ? block + tile_scratch_bytes(1 << (local_bits - R)) : block;
+  return MAXM > NARROW_CORE ? block + tile_scratch_bytes(tile_cap(local_bits)) : block;
 }
 
 template <int MAXM>
@@ -106,7 +113,9 @@ segment_kernel(float* a, float* b, long long dim, const int* __restrict__ table,
   const unsigned blocks = (unsigned)(dim >> lb);
   float* sr = reinterpret_cast<float*>(smem4);  // the block, for remaps and
   float* si = sr + size;                         // shared-memory ops
-  float2* scratch = reinterpret_cast<float2*>(si + size);
+  // the tiled op's warp tiles: 2 m-tiles, in the 64 registers that 1024
+  // threads leave a thread
+  const TileScratch<2> scratch{reinterpret_cast<float2*>(si + size), tile_cap(lb)};
   float* cur = a;
   float* other = b;
   unsigned target = 0;

@@ -82,7 +82,7 @@ using namespace qsim;
 constexpr int MAX_ACTIVE = 4;  // the high sweep's active top bits
 
 // The wide instance takes at most WIDE_THREADS threads, so that ptxas may
-// give the tiled op 128 registers a thread (4 groups a thread).
+// give the tiled op 128 registers a thread (warp tiles of 4 m-tiles).
 constexpr int WIDE_THREADS = 512;
 constexpr int MAX_THREADS = 1024;  // a tile of 2^14 slots
 // The sweep table's header word: T, the tile bits; after the header, a
@@ -115,7 +115,7 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
   // times
   float* sr = reinterpret_cast<float*>(dyn_smem);
   float* si = sr + (1u << tile_bits);
-  float2* scratch = reinterpret_cast<float2*>(dyn_smem);
+  const TileScratch<4> scratch{reinterpret_cast<float2*>(dyn_smem), 32u * blockDim.x};
   if constexpr (HIGH) {
     for (unsigned h = threadIdx.x; h < (1u << a); h += blockDim.x) {
       unsigned o = 0;
@@ -194,12 +194,12 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
 
 // Dynamic shared memory of a CTA of `threads` threads: the tile (2^T slots of
 // both planes, 2^T = 16 x threads); in the wide instance also the next
-// tile's, and at least the tiled op's scratch.
+// tile's, the same bytes as the tiled op's scratch of 32 x threads float2.
 template <int MAXM>
 size_t smem_bytes(int threads) {
   const size_t tile = (size_t)2 * sizeof(float) * ((size_t)threads << R);
   if (MAXM <= NARROW_CORE) return tile;
-  const size_t tiled = tile_scratch_bytes(threads);
+  const size_t tiled = tile_scratch_bytes(32u * threads);
   return 2 * tile > tiled ? 2 * tile : tiled;
 }
 

@@ -55,11 +55,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import statistics
 import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -233,29 +231,18 @@ def sm_clocks() -> tuple[float, float]:
     return sm, mx
 
 
-_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
-
-
 def sass_counts(name: str = "rotation_chain", kernel: str = "rotation_chain_kernel") -> dict:
     """Instruction counts by opcode of ``kernel`` in the built library of
     ``csrc/<name>.cu``, from ``cuobjdump -sass`` (beside ``nvcc``)."""
     from . import _build
 
-    lib = _build.build(name)
-    tool = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
     counts: dict[str, int] = {}
-    inside = False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-            continue
-        m = _SASS_OP.search(line) if inside else None
-        if m:
-            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    for fn, body in _build.sass_listing(name).items():
+        if kernel in fn:
+            for _, op, _ in body:
+                counts[op] = counts.get(op, 0) + 1
     if not counts:
-        raise RuntimeError(f"no SASS of {kernel} in {lib.name}")
+        raise RuntimeError(f"no SASS of {kernel} in {_build.library_path(name).name}")
     return counts
 
 

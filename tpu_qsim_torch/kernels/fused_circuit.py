@@ -174,10 +174,11 @@ KIND_DENSE = 1
 EXT = 32
 MAX_DIAG_QUBITS = 16     # op words [8, 24)
 NARROW_CORE = 4          # widest core one thread gathers alone (2^m amplitudes)
-# cores of TILE_CORE qubits and more take ops.cuh's tiled product: stored
-# column-major at a 16-byte aligned offset, 2^m <= 4 x threads (a tile holds
-# two groups or more), and at most TILE_MAX_CORE qubits (a 16 KB panel holds
-# one column); the kernel's block is the other limit
+# cores of TILE_CORE qubits and more take ops.cuh's tiled product on the
+# tensor cores: stored column-major at a 16-byte aligned offset (a lane's
+# coefficients of two adjacent rows are one 16-byte load), 2^m <= 4 x
+# threads (a tile holds two groups or more), at most TILE_MAX_CORE qubits;
+# the kernel's block is the other limit
 TILE_CORE = 5
 MAX_DENSE_QUBITS = 11
 SORTED_WORDS = 8         # op words 24-31: the sorted codes of a core of <= 8 qubits
@@ -276,11 +277,11 @@ def build_op_table(
     its core becomes one DENSE op whose qubits must lie in the block (the
     planner's ``moving_qubits`` guarantee). A core of up to ``NARROW_CORE``
     qubits is stored row-major; a wider one (up to ``MAX_DENSE_QUBITS``)
-    column-major at an even coefficient offset, so that the tiled op streams
-    whole columns with 16-byte copies. ``max_bits`` is the largest block
-    the caller's kernel holds: one CTA's shared memory, a cluster's for the
-    whole-circuit kernel, or ``MAX_SWEEP_BITS`` of device memory for the
-    sweep kernels.
+    column-major at an even coefficient offset, so that a lane of the tiled
+    op reads two adjacent rows' coefficients as one 16-byte load.
+    ``max_bits`` is the largest block the caller's kernel holds: one CTA's
+    shared memory, a cluster's for the whole-circuit kernel, or
+    ``MAX_SWEEP_BITS`` of device memory for the sweep kernels.
     """
     if layout.kbits > max_bits:
         raise ValueError(
@@ -360,6 +361,36 @@ def build_op_table(
         np.concatenate([head, ops.reshape(-1)]), np.ascontiguousarray(coef),
         flops, max_core,
     )
+
+
+# the libraries whose wide instances hold ops.cuh's tiled op
+TILED_OP_LIBRARIES = ("grid_sweep", "segment", "sweep")
+
+
+def tiled_op_sass() -> dict[str, dict[str, int]]:
+    """Per wide kernel instance (keyed library:mangled name) of the built
+    grid_sweep, segment and sweep libraries, from ``cuobjdump -sass``: the
+    tensor-core products (HMMA), float32 FMAs (FFMA) and instructions of
+    its tiled op, ops.cuh's ``apply_dense_tiled``, which is not inlined: the
+    code from the first CALL target on, after the kernel's own; and the
+    HMMA of the kernel's own code. The op multiplies on the tensor cores:
+    its code holds HMMA and no FFMA, the kernel's own no HMMA. Needs
+    ``nvcc`` (it builds the libraries)."""
+    from . import _build
+
+    out = {}
+    for lib in TILED_OP_LIBRARIES:
+        for fn, body in _build.sass_listing(lib).items():
+            if f"Li{MAX_DENSE_QUBITS}E" not in fn:      # the narrow instances hold no tiled op
+                continue
+            calls = [int(a, 16) for _, op, a in body if op == "CALL" and a.startswith("0x")]
+            start = min(calls) if calls else None
+            op_code = [op for addr, op, _ in body if start is not None and addr >= start]
+            own = [op for addr, op, _ in body if start is None or addr < start]
+            out[f"{lib}:{fn}"] = {"HMMA": op_code.count("HMMA"), "FFMA": op_code.count("FFMA"),
+                                  "instructions": len(op_code), "kernel_HMMA": own.count("HMMA"),
+                                  "calls": len(calls)}
+    return out
 
 
 def check_tile(max_core: int, threads: int) -> None:

@@ -131,7 +131,7 @@ def run_table(steps: list[SegmentStep], local_bits: int, n: int) -> OpTable:
     offset of its register table in int32 words, of its coefficients, of its
     gather map and of its store map), then each segment's register table and
     maps. Coefficients follow one another at even offsets (16-byte aligned,
-    for the tiled op's copies)."""
+    for the tiled op's 16-byte loads)."""
     head = np.zeros(RUN_HEADER, dtype=np.int32)
     desc = np.zeros((len(steps), SEG_WORDS), dtype=np.int32)
     ints: list[np.ndarray] = [head, desc.reshape(-1)]

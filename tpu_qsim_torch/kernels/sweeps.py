@@ -403,7 +403,7 @@ def sweep_table(stages: list[Stage], unit: BlockLayout, tile_bits: int) -> OpTab
     tile and their count), then each stage's table: a tile stage's
     ``register_table`` over its tile, a unit stage's ``build_op_table`` over
     the unit. Coefficients follow one another at even offsets (16-byte
-    aligned, for the tiled op's copies)."""
+    aligned, for the tiled op's 16-byte loads)."""
     from .gridsweeps import register_table
 
     head = build_op_table([], unit, max_bits=MAX_SWEEP_BITS).ints[:SWEEP_HEADER].copy()

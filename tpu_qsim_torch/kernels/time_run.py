@@ -18,7 +18,7 @@ Rows (``ROWS``):
 * the segmented engine's fixed costs at 19 qubits: programs of one segment
   each, in place with 0 ops (``h(0) h(0)``, merged away) and with 1 op
   (``h(0)``), and one that gathers and scatters for its 1 op (``h(18)``);
-* one k-qubit dense op at 26 qubits (k = 6, 7, 8) alone in a low sweep
+* one k-qubit dense op at 26 qubits (k = 5 to 11) alone in a low sweep
   (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, blk 8, 5 active
   bits: 512 threads), less the same sweep holding one 1-qubit op instead;
 * a 12-qubit dense gate on qubits 0-11 (a Kronecker product of seeded
@@ -84,7 +84,7 @@ SEGMENT_GATES = {
 PASS_QUBITS = (16, 18, 22)
 PASS_CORE = 12
 ONE_OP_QUBITS = 26
-ONE_OP_WIDTHS = (6, 7, 8)
+ONE_OP_WIDTHS = (5, 6, 7, 8, 9, 10, 11)
 
 
 def dense_gate(k: int) -> str:
