@@ -1,0 +1,77 @@
+// The host runtime that runs the port's CUDA kernels on the CPU
+// (runtime.cpp): its interface to the kernels' translation units, through
+// cuda_runtime.h and qsim_host_ptx.h beside this file.
+//
+// A launch runs every CTA of the grid: a cooperative launch each CTA on an
+// OS thread of its own, all at once (the kernels' barriers between CTAs
+// need them resident together); any other launch its CTAs on at most four
+// OS threads, one CTA after another on each. A CTA's threads are fibers on
+// its OS thread, switched only where a thread waits: at __syncthreads, at a
+// warp collective (__shfl_xor_sync, mma, ldmatrix: a 32-lane barrier around
+// an exchange buffer) and in a spin on device memory (load_acquire). Its
+// shared memory is one arena: the launch's dynamic bytes, then each static
+// __shared__ array of the kernel, with poisoned bytes (AddressSanitizer)
+// after each region, so an access past the launch's dynamic size or past an
+// array is reported. Shared memory and the targets of cp.async start filled
+// with NaN bytes: a read of bytes never written, or of a cp.async target
+// before its cp.async.wait_group, carries NaN into the result.
+
+#pragma once
+
+#include <stddef.h>
+#include <stdint.h>
+
+struct uint3 {
+  unsigned x, y, z;
+};
+
+struct dim3 {
+  unsigned x, y, z;
+  constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+
+// the calling thread's indices; the runtime sets them at every switch
+extern thread_local uint3 threadIdx;
+extern thread_local uint3 blockIdx;
+extern thread_local dim3 blockDim;
+extern thread_local dim3 gridDim;
+
+namespace qsim_host {
+
+constexpr int SMS = 2;                        // the device's multiprocessors
+constexpr int MAX_THREADS_PER_SM = 2048;
+constexpr int MAX_CTAS_PER_SM = 2;            // so a launch sizes 2-4 resident CTAs
+constexpr size_t SHARED_PER_CTA = 232448;     // 227 KB, static and dynamic
+constexpr size_t DEFAULT_DYNAMIC_SHARED = 49152;
+
+// Run `invoke(ctx)` once for every thread of `grid` CTAs of `block`
+// threads; returns a cudaError_t (the launch's checks) after every CTA
+// finished.
+int launch(const void* kernel, dim3 grid, dim3 block, size_t smem, bool cooperative,
+           void (*invoke)(void*), void* ctx);
+int set_max_dynamic_shared(const void* kernel, int bytes);
+int occupancy(const void* kernel, int threads, size_t smem);
+
+// the current CTA's shared memory
+char* dynamic_shared();
+char* shared_static(const void* site, size_t bytes, size_t align);
+unsigned shared_offset(const void* p);        // __cvta_generic_to_shared
+char* shared_at(unsigned addr, size_t bytes, size_t align);
+
+void syncthreads();
+uint32_t shfl_xor(uint32_t v, int lanemask, unsigned mask);
+void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+// this lane's 16-byte row in, its four words of the four tiles out
+void ldmatrix(uint32_t (&d)[4], const uint32_t (&row)[4]);
+
+// cp.async: `bytes` (4 or 16) already read from the source, for the shared
+// address `addr`; they land there at the wait that covers their group
+void cp_async(unsigned addr, const void* data, unsigned bytes);
+void cp_async_commit();
+void cp_async_wait(int groups_in_flight);
+
+void poll();                                  // one turn of a spin-wait
+long long clock_ns();
+[[noreturn]] void trap(const char* what);
+
+}  // namespace qsim_host

@@ -1,0 +1,110 @@
+// The host twin of tpu_qsim_torch/kernels/csrc/ptx.cuh: each PTX wrapper
+// with the same name and signature, its memory accesses made here (in the
+// kernel's translation unit, so AddressSanitizer and UBSan check them) and
+// its synchronisation in the host runtime (qsim_host.h).
+//
+// Where the host is looser than the card it errs toward a report:
+//   - a shared address (lds128, sts64, cp.async, ldmatrix) must lie in the
+//     CTA's arena and be aligned to its access, else the run traps;
+//   - a cp.async reads its source at issue, fills its target with NaN bytes
+//     and writes it at the cp.async.wait_group that covers its group: a read
+//     before the wait sees NaN;
+//   - mma truncates its TF32 inputs (the low 13 mantissa bits dropped) and
+//     accumulates in float32; a warp collective with a lane that has exited,
+//     or lanes at different collectives, traps.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define QSIM_SHARED(type, name, dims)                                                   \
+  static const char name##_qsim_site = 0;                                               \
+  using name##_qsim_t = type dims;                                                      \
+  name##_qsim_t& name = *reinterpret_cast<name##_qsim_t*>(::qsim_host::shared_static(   \
+      &name##_qsim_site, sizeof(name##_qsim_t), alignof(name##_qsim_t)))
+#define QSIM_DYNAMIC_SHARED(type, name) \
+  type* const name = reinterpret_cast<type*>(::qsim_host::dynamic_shared())
+
+namespace qsim {
+
+template <class T>
+struct Same {
+  using type = T;
+};
+
+namespace host_detail {
+template <class F>
+void invoke(void* f) {
+  (*static_cast<F*>(f))();
+}
+
+template <class... P>
+cudaError_t launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem, bool cooperative,
+                   typename Same<P>::type... args) {
+  const std::tuple<P...> params(args...);
+  auto body = [&]() { std::apply(kernel, params); };
+  return (cudaError_t)qsim_host::launch(reinterpret_cast<const void*>(kernel), grid, block, smem,
+                                        cooperative, &invoke<decltype(body)>, &body);
+}
+}  // namespace host_detail
+
+template <class... P>
+inline cudaError_t launch_kernel(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
+                                 cudaStream_t, typename Same<P>::type... args) {
+  return host_detail::launch(kernel, grid, block, smem, false, args...);
+}
+
+template <class... P>
+inline cudaError_t launch_cooperative(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
+                                      cudaStream_t, typename Same<P>::type... args) {
+  return host_detail::launch(kernel, grid, block, smem, true, args...);
+}
+
+inline void cp_async4_at(unsigned s, const void* gmem) {
+  if (reinterpret_cast<uintptr_t>(gmem) % 4) qsim_host::trap("cp.async of 4 bytes: source not 4-byte aligned");
+  const uint32_t v = *static_cast<const uint32_t*>(gmem);
+  memset(qsim_host::shared_at(s, 4, 4), 0xff, 4);
+  qsim_host::cp_async(s, &v, 4);
+}
+inline void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (reinterpret_cast<uintptr_t>(gmem) % 16) qsim_host::trap("cp.async of 16 bytes: source not 16-byte aligned");
+  const uint4 v = *static_cast<const uint4*>(gmem);
+  memset(qsim_host::shared_at(s, 16, 16), 0xff, 16);
+  qsim_host::cp_async(s, &v, 16);
+}
+inline void cp_async4(void* smem, const void* gmem) {
+  cp_async4_at((unsigned)__cvta_generic_to_shared(smem), gmem);
+}
+inline void cp_async_commit() { qsim_host::cp_async_commit(); }
+template <int N>
+inline void cp_async_wait() {
+  qsim_host::cp_async_wait(N);
+}
+
+inline float4 lds128(unsigned addr) {
+  return *reinterpret_cast<const float4*>(qsim_host::shared_at(addr, 16, 16));
+}
+inline void sts64(unsigned addr, float x, float y) {
+  *reinterpret_cast<float2*>(qsim_host::shared_at(addr, 8, 8)) = make_float2(x, y);
+}
+
+inline void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  qsim_host::mma(d, a, b0, b1);
+}
+
+inline void ldmatrix4(uint32_t (&d)[4], const float* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  const uint4 v = *reinterpret_cast<const uint4*>(qsim_host::shared_at(a, 16, 16));
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  qsim_host::ldmatrix(d, words);
+}
+
+inline unsigned load_acquire(const unsigned* p) {
+  const unsigned v = __atomic_load_n(p, __ATOMIC_ACQUIRE);
+  qsim_host::poll();
+  return v;
+}
+
+}  // namespace qsim

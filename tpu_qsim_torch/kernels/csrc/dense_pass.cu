@@ -73,6 +73,7 @@
 #include <stdint.h>
 
 #include "ops.cuh"
+#include "ptx.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -105,16 +106,6 @@ __device__ __forceinline__ unsigned low_bits(unsigned mask, int count) {
     mask &= mask - 1u;
   }
   return out;
-}
-
-// Four 8 x 4 tiles of 32-bit words from shared memory, as ldmatrix's four
-// 8 x 8 b16 matrices: lane l gives the row address of tile l / 8, row l % 8,
-// and gets word l % 4 of row l / 4 of each tile, the fragment layout of
-// mma's and wgmma's TF32 A operand.
-__device__ __forceinline__ void ldmatrix4(uint32_t (&d)[4], const float* row) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(a));
 }
 
 // A CTA's tile of the product (BM rows of U from r0, BN groups from g0, the
@@ -246,7 +237,7 @@ template <class SH>
 __global__ void __launch_bounds__(SH::THREADS, 1) dense_pass_kernel(const Pass p) {
   constexpr int BM = SH::BM, BN = SH::BN, S = SH::S;
   constexpr int STAGES = SH::STAGES, MT = SH::MT, NT = SH::NT;
-  extern __shared__ float4 dyn_smem[];
+  QSIM_DYNAMIC_SHARED(float4, dyn_smem);
   float* smem = reinterpret_cast<float*>(dyn_smem);
   const unsigned t = threadIdx.x;
   if (blockIdx.x >= p.gemm_ctas) {
@@ -394,8 +385,10 @@ __global__ void __launch_bounds__(SH::THREADS, 1) dense_pass_kernel(const Pass p
 }
 
 // ---------------------------------------------------------------------------
-// The large instance: wgmma, two warpgroups of 64 rows x 64 groups
+// The large instance: wgmma, two warpgroups of 64 rows x 64 groups (not in
+// the host build, which has no wgmma)
 // ---------------------------------------------------------------------------
+#ifndef QSIM_HOST
 
 // d (+)= scale_a a b: the m64n64k8 TF32 product of a warpgroup, a's fragment
 // in registers (the warp's 16 rows, as mma's), b from shared memory through
@@ -454,7 +447,7 @@ struct Large {
 __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass p) {
   using SH = Large;
   constexpr int BM = SH::BM, BN = SH::BN, BK = SH::BK, S = SH::S, STAGES = SH::STAGES;
-  extern __shared__ float4 dyn_smem[];
+  QSIM_DYNAMIC_SHARED(float4, dyn_smem);
   float* smem = reinterpret_cast<float*>(dyn_smem);
   const unsigned t = threadIdx.x;
   if (blockIdx.x >= p.gemm_ctas) {
@@ -571,6 +564,7 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
   __syncthreads();
   tile.store<SH::YS>(ysr, t);
 }
+#endif  // QSIM_HOST
 
 // the shared memory past 48 KB, allowed once per device and instance (the
 // CUDA call on every launch cost the host more than the 16-qubit pass
@@ -599,8 +593,7 @@ int launch(K kernel, Pass p, cudaStream_t stream) {
     if (copy_ctas > 1024) copy_ctas = 1024;
     if (copy_ctas < 1) copy_ctas = 1;
   }
-  kernel<<<p.gemm_ctas + copy_ctas, SH::THREADS, SH::SMEM, stream>>>(p);
-  return (int)cudaGetLastError();
+  return (int)launch_kernel(kernel, p.gemm_ctas + copy_ctas, SH::THREADS, SH::SMEM, stream, p);
 }
 
 }  // namespace
@@ -637,9 +630,13 @@ extern "C" int dense_pass_launch(const float* state, float* out, long long dim,
   p.groups = 1u << __builtin_popcount(p.free);
   p.dim = (unsigned)dim;
   const cudaStream_t s = (cudaStream_t)stream;
-  return instance == 2   ? launch<Large>(dense_pass_wgmma, p, s)
-         : instance == 1 ? launch<Medium>(dense_pass_kernel<Medium>, p, s)
-                         : launch<Small>(dense_pass_kernel<Small>, p, s);
+#ifdef QSIM_HOST
+  if (instance == 2) return (int)cudaErrorInvalidValue;
+#else
+  if (instance == 2) return launch<Large>(dense_pass_wgmma, p, s);
+#endif
+  return instance == 1 ? launch<Medium>(dense_pass_kernel<Medium>, p, s)
+                       : launch<Small>(dense_pass_kernel<Small>, p, s);
 }
 
 extern "C" const char* dense_pass_error_string(int err) {

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MAXM <= NARROW_CORE ? 2 : 1)
 grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
                   const int* __restrict__ table,
                   const float2* __restrict__ coef) {
-  extern __shared__ float4 smem4[];
+  QSIM_DYNAMIC_SHARED(float4, smem4);
   check_core_width<MAXM>(table);
   if (table[HEADER_REG_BITS] != R) __trap();
   const BlockShape shape(table);
@@ -118,9 +118,8 @@ int launch(float* state, long long dim, const int* table, const float* coef,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long resident = (long long)per_sm * sms;
   const unsigned grid = (unsigned)(steps < resident ? steps : resident);
-  grid_sweep_kernel<MAXM><<<grid, threads, smem, stream>>>(
-      state, state + dim, table, reinterpret_cast<const float2*>(coef));
-  return (int)cudaGetLastError();
+  return (int)launch_kernel(grid_sweep_kernel<MAXM>, grid, threads, smem, stream, state,
+                            state + dim, table, reinterpret_cast<const float2*>(coef));
 }
 
 }  // namespace

@@ -6,13 +6,9 @@
 
 #include <cuda_runtime.h>
 
-namespace qsim {
+#include "ptx.cuh"  // load_acquire
 
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
+namespace qsim {
 
 // Barrier of `members` CTAs that are resident at once (a cooperative
 // launch). The counter only grows: the k-th barrier waits for k * members

@@ -22,6 +22,7 @@
 
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
 #include "tf32.cuh"
 
 namespace qsim {
@@ -272,26 +273,6 @@ __host__ __device__ constexpr size_t tile_scratch_bytes(unsigned cap) {
   return (size_t)cap * sizeof(float2);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-// 4 bytes to the shared-memory address `s` (as __cvta_generic_to_shared
-// gives it)
-__device__ __forceinline__ void cp_async4_at(unsigned s, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  cp_async4_at((unsigned)__cvta_generic_to_shared(smem), gmem);
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The bits of x placed, ascending, at the set bits of mask.
 __device__ __forceinline__ unsigned deposit_bits(unsigned x, unsigned mask) {
   unsigned out = 0;
@@ -329,16 +310,6 @@ __device__ __forceinline__ unsigned row_slot(const int* op, int m, unsigned r) {
   return l;
 }
 
-__device__ __forceinline__ float4 lds128(unsigned addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void sts64(unsigned addr, float x, float y) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(x), "f"(y));
-}
-
 template <class S, int MT>
 __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
                                                const float2* coef, int kbits,
@@ -349,8 +320,8 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
   // tables every thread computes alike (the staging's bit deltas; a lane's
   // output offsets, the same in every warp), kept out of the product loop's
   // registers
-  __shared__ uint4 stage_tab[EB];
-  __shared__ unsigned lane_tab[32][MT + 4];
+  QSIM_SHARED(uint4, stage_tab, [EB]);
+  QSIM_SHARED(unsigned, lane_tab, [32][MT + 4]);
   const int m = op[1];
   const unsigned D = 1u << m;
   const unsigned T = blockDim.x, t = threadIdx.x;

@@ -29,7 +29,11 @@
 
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace {
+
+using qsim::launch_kernel;
 
 constexpr int LANE_BITS = 5;
 constexpr int R = 4;                   // 2^R amplitudes a thread
@@ -59,7 +63,7 @@ __device__ __forceinline__ unsigned global_index(unsigned l, const Layout& lay) 
 __global__ void __launch_bounds__(MAX_THREADS)
 rotation_chain_kernel(float* __restrict__ re, float* __restrict__ im,
                       const float2* __restrict__ cs, int k, Layout lay) {
-  extern __shared__ float2 s_cs[];
+  QSIM_DYNAMIC_SHARED(float2, s_cs);
   for (int j = threadIdx.x; j < k; j += blockDim.x) s_cs[j] = cs[j];
 
   unsigned cta_g = 0;  // the CTA's share of the global index
@@ -141,10 +145,9 @@ extern "C" int rotation_chain_launch(float* state, long long dim,
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (kbits - R);
   const unsigned grid = 1u << lay.n_inact;
-  rotation_chain_kernel<<<grid, threads, (size_t)k * sizeof(float2),
-                          (cudaStream_t)stream>>>(
-      state, state + dim, reinterpret_cast<const float2*>(cs), k, lay);
-  return (int)cudaGetLastError();
+  return (int)launch_kernel(rotation_chain_kernel, grid, threads, (size_t)k * sizeof(float2),
+                            (cudaStream_t)stream, state, state + dim,
+                            reinterpret_cast<const float2*>(cs), k, lay);
 }
 
 extern "C" const char* rotation_chain_error_string(int err) {

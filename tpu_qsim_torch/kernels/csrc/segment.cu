@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 segment_kernel(float* a, float* b, long long dim, const int* __restrict__ table,
                const float2* __restrict__ coef, unsigned* __restrict__ barrier,
                int first, int last) {
-  extern __shared__ float4 smem4[];
+  QSIM_DYNAMIC_SHARED(float4, smem4);
   const int lb = table[2];
   if ((blockDim.x << R) != (1u << lb)) __trap();
   const unsigned size = 1u << lb;
@@ -178,11 +178,10 @@ template <int MAXM>
 int launch(float* a, float* b, long long dim, const int* table,
            const float* coef, unsigned* barrier, int first, int last,
            int local_bits, int ctas, cudaStream_t stream) {
-  const float2* c = reinterpret_cast<const float2*>(coef);
-  void* args[] = {&a, &b, &dim, &table, &c, &barrier, &first, &last};
-  return (int)cudaLaunchCooperativeKernel(
-      (const void*)segment_kernel<MAXM>, dim3((unsigned)ctas),
-      dim3(1u << (local_bits - R)), args, smem_bytes<MAXM>(local_bits), stream);
+  return (int)launch_cooperative(segment_kernel<MAXM>, dim3((unsigned)ctas),
+                                 dim3(1u << (local_bits - R)), smem_bytes<MAXM>(local_bits),
+                                 stream, a, b, dim, table, reinterpret_cast<const float2*>(coef),
+                                 barrier, first, last);
 }
 
 bool valid_local_bits(int local_bits) {

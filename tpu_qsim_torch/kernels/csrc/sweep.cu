@@ -98,8 +98,8 @@ __global__ void __launch_bounds__(MAXM > NARROW_CORE ? WIDE_THREADS : MAX_THREAD
 sweep_kernel(float* __restrict__ re, float* __restrict__ im,
              const int* __restrict__ table, const float2* __restrict__ coef,
              unsigned* __restrict__ barriers, int group_bits) {
-  __shared__ unsigned hi_off[1 << MAX_ACTIVE];
-  extern __shared__ float4 dyn_smem[];
+  QSIM_SHARED(unsigned, hi_off, [1 << MAX_ACTIVE]);
+  QSIM_DYNAMIC_SHARED(float4, dyn_smem);
   check_core_width<MAXM>(table);
   const int n_stages = table[0], blk = table[1], a = table[2];
   const int n_inact = table[3];
@@ -207,14 +207,10 @@ template <bool HIGH, int MAXM, bool SPARE = false>
 int launch(float* state, long long dim, const int* table, const float* coef,
            unsigned* barriers, int groups, int group_bits, int threads,
            cudaStream_t stream) {
-  float* re = state;
-  float* im = state + dim;
-  const float2* c = reinterpret_cast<const float2*>(coef);
-  void* args[] = {&re, &im, &table, &c, &barriers, &group_bits};
-  return (int)cudaLaunchCooperativeKernel(
-      (const void*)sweep_kernel<HIGH, MAXM, SPARE>,
-      dim3((unsigned)groups << group_bits), dim3(threads), args,
-      smem_bytes<MAXM>(threads), stream);
+  return (int)launch_cooperative(sweep_kernel<HIGH, MAXM, SPARE>,
+                                 dim3((unsigned)groups << group_bits), dim3(threads),
+                                 smem_bytes<MAXM>(threads), stream, state, state + dim, table,
+                                 reinterpret_cast<const float2*>(coef), barriers, group_bits);
 }
 
 template <bool HIGH>

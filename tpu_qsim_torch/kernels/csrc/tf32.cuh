@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"  // mma
+
 namespace qsim {
 
 constexpr uint32_t SIGN_BIT = 0x80000000u;
@@ -31,18 +33,6 @@ constexpr uint32_t SIGN_BIT = 0x80000000u;
 __device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
   hi = (x + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
-}
-
-// d += a b: a 16 x 8 TF32 fragment (row-major), b 8 x 8 (column-major), d
-// 16 x 8 float32. With g = lane / 4 and q = lane % 4: a = (a[g][q],
-// a[g + 8][q], a[g][q + 4], a[g + 8][q + 4]), b = (b[q][g], b[q + 4][g]),
-// d = (d[g][2q], d[g][2q + 1], d[g + 8][2q], d[g + 8][2q + 1]).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A chunk's share (fresh accumulators) into the run's accumulators: float
