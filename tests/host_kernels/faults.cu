@@ -4,7 +4,9 @@
 // through the port's ptx.cuh, as the port's kernels do.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "grid_sync.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -12,6 +14,8 @@ namespace {
 using namespace qsim;
 
 constexpr int THREADS = 32;
+constexpr int GROUP = 128;                   // a warpgroup
+constexpr int B_FLOATS = 8 * 64;             // wgmma m64n64k8's B
 
 // each thread's element through shared memory at t + over: with over = 1
 // the last thread writes one float past the launch's dynamic bytes
@@ -45,17 +49,83 @@ __global__ void shift(float* state, int bits) {
   state[threadIdx.x] = (float)((1u << bits) >> 31);
 }
 
+// D = A B by one warpgroup's wgmma m64n64k8: B (8 x 64, row k) the first
+// plane's first 512 elements, A[r][k] = 1 where r % 8 == k (so row r of D
+// is row r % 8 of B), D (64 x 64, row-major) into the second plane (dim >=
+// 4096). `fault` 1 reads D before its wgmma.wait_group, 2 stores into B
+// while the product is in flight, 3 leaves out fence.proxy.async, 4 leaves
+// out wgmma.fence.
+__global__ void wgmma_product(float* state, long long dim, int fault) {
+  QSIM_DYNAMIC_SHARED(float4, smem4);
+  float* b = reinterpret_cast<float*>(smem4);
+  const unsigned t = threadIdx.x, lane = t % 32, warp = t / 32;
+  // B's element (k, n) in core matrix (k / 4, n / 8) of 8 rows of 4 TF32:
+  // 1024 bytes from one core matrix to the next along K, 128 along N
+  for (unsigned i = t; i < B_FLOATS; i += GROUP) {
+    const unsigned k = i / 64, n = i % 64;
+    b[(k / 4 * 8 + n / 8) * 32 + n % 8 * 4 + k % 4] = state[i];
+  }
+  if (fault != 3) fence_proxy_async();
+  __syncthreads();
+  const unsigned base = (unsigned)__cvta_generic_to_shared(b);
+  const uint64_t desc = (uint64_t)((base >> 4) & 0x3fffu) | ((uint64_t)(1024 >> 4) << 16) |
+                        ((uint64_t)(128 >> 4) << 32);
+  const unsigned g = lane / 4, q = lane % 4;  // rows g (+ 8) of the warp's 16, columns q (+ 4)
+  const uint32_t one = __float_as_uint(1.f);
+  const uint32_t a[4] = {g == q ? one : 0u, g == q ? one : 0u, g == q + 4 ? one : 0u,
+                         g == q + 4 ? one : 0u};
+  float d[32], early[32];
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  if (fault != 4) wgmma_fence();
+  wgmma<1>(d, a, desc, 0);
+  wgmma_commit();
+  if (fault == 1)
+    for (int i = 0; i < 32; ++i) early[i] = d[i];
+  if (fault == 2 && t == 0) b[0] += 1.f;
+  wgmma_wait<0>();
+  for (int j = 0; j < 8; ++j)
+    for (int v = 0; v < 4; ++v) {
+      const unsigned row = warp * 16 + g + (v >> 1) * 8, col = 8 * j + 2 * q + (v & 1);
+      state[dim + row * 64 + col] = fault == 1 ? early[4 * j + v] : d[4 * j + v];
+    }
+}
+
+// Two stages on the (2, dim) planes, dim = 64, CTA b on elements [32 b,
+// 32 b + 32): stage 1 doubles the first plane into the second, stage 2 sets
+// the first plane to the other CTA's half of the second, plus 1. `mode` 0
+// meets at a grid barrier between them, 1 skips it, 2 meets at a barrier
+// that waits for a third CTA, which never comes.
+__global__ void grid_stages(float* state, long long dim, unsigned* counter, int mode) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned other = (1 - blockIdx.x) * blockDim.x + threadIdx.x;
+  state[dim + i] = 2.f * state[i];
+  unsigned target = 0;
+  if (mode != 1) group_sync(counter, mode == 2 ? 3u : gridDim.x, target);
+  state[i] = state[dim + other] + 1.f;
+}
+
 }  // namespace
 
-// kind 0: shared_write, 1: global_write, 2: async_copy, 3: shift, with
-// `arg` the kernel's switch; one CTA of 32 threads on the (2, dim) planes
-extern "C" int host_fault_launch(int kind, float* state, long long dim, int arg) {
+// kind 0: shared_write, 1: global_write, 2: async_copy, 3: shift, one CTA of
+// 32 threads; 4-7: wgmma_product with fault kind - 3, one warpgroup; 8:
+// grid_stages, a cooperative launch of two CTAs of 32 threads on `counter`
+// (one zeroed word); `arg` the kernel's switch, on the (2, dim) planes
+extern "C" int host_fault_launch(int kind, float* state, long long dim, int arg,
+                                 unsigned* counter) {
   const size_t smem = THREADS * sizeof(float);
   switch (kind) {
     case 0: return (int)launch_kernel(shared_write, 1, THREADS, smem, nullptr, state, arg);
     case 1: return (int)launch_kernel(global_write, 1, THREADS, 0, nullptr, state, dim, arg);
     case 2: return (int)launch_kernel(async_copy, 1, THREADS, smem, nullptr, state, arg);
     case 3: return (int)launch_kernel(shift, 1, THREADS, 0, nullptr, state, arg);
+    case 4:
+    case 5:
+    case 6:
+    case 7:
+      return (int)launch_kernel(wgmma_product, 1, GROUP, B_FLOATS * sizeof(float), nullptr, state,
+                                dim, arg ? kind - 3 : 0);
+    case 8:
+      return (int)launch_cooperative(grid_stages, 2, THREADS, 0, nullptr, state, dim, counter, arg);
   }
   return (int)cudaErrorInvalidValue;
 }

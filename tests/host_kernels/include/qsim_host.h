@@ -2,19 +2,31 @@
 // (runtime.cpp): its interface to the kernels' translation units, through
 // cuda_runtime.h and qsim_host_ptx.h beside this file.
 //
-// A launch runs every CTA of the grid: a cooperative launch each CTA on an
-// OS thread of its own, all at once (the kernels' barriers between CTAs
-// need them resident together); any other launch its CTAs on at most four
-// OS threads, one CTA after another on each. A CTA's threads are fibers on
-// its OS thread, switched only where a thread waits: at __syncthreads, at a
-// warp collective (__shfl_xor_sync, mma, ldmatrix: a 32-lane barrier around
-// an exchange buffer) and in a spin on device memory (load_acquire). Its
-// shared memory is one arena: the launch's dynamic bytes, then each static
-// __shared__ array of the kernel, with poisoned bytes (AddressSanitizer)
-// after each region, so an access past the launch's dynamic size or past an
-// array is reported. Shared memory and the targets of cp.async start filled
-// with NaN bytes: a read of bytes never written, or of a cp.async target
-// before its cp.async.wait_group, carries NaN into the result.
+// A launch runs every CTA of the grid. A launch that is not cooperative runs
+// its CTAs on at most four OS threads, one CTA after another on each. A
+// cooperative launch (the kernels' barriers between CTAs need them resident
+// together) gives each CTA an OS thread but runs one CTA at a time: a CTA
+// gives way only where its threads all wait and one spins on device memory
+// (load_acquire), or where it ends, to the next CTA in block order, the
+// order turning back at either end. So after each grid barrier the CTAs go
+// on in the reverse of the order they arrived in, and a CTA that writes what
+// another reads before the next barrier does so before the read in one of
+// the two orders: a missing barrier shows in every run. When every CTA's
+// spin has seen the same word twice with nothing run in between, the
+// launch is reported as a deadlock naming each CTA's wait. A CTA's threads
+// are fibers on its OS thread, switched only where a thread waits: at
+// __syncthreads, at a warp collective (__shfl_xor_sync, mma, ldmatrix: a
+// 32-lane barrier around an exchange buffer), at a warpgroup collective
+// (wgmma and its fence, commit and wait: a 128-lane barrier of four
+// consecutive warps) and in a spin on device memory. Its shared memory is
+// one arena: the launch's dynamic bytes, then each static __shared__ array
+// of the kernel, with poisoned bytes (AddressSanitizer) after each region,
+// so an access past the launch's dynamic size or past an array is reported.
+// Shared memory and the targets of cp.async start filled with NaN bytes: a
+// read of bytes never written, or of a cp.async target before its
+// cp.async.wait_group, carries NaN into the result. The async proxy (what
+// wgmma reads) sees the arena as it was at the CTA's last
+// fence.proxy.async.
 
 #pragma once
 
@@ -64,13 +76,23 @@ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 // this lane's 16-byte row in, its four words of the four tiles out
 void ldmatrix(uint32_t (&d)[4], const uint32_t (&row)[4]);
 
+// wgmma m64n64k8 (TF32): this lane's A fragment, B's shared-memory
+// descriptor, scale-d (0: d is overwritten) and scale-a (+1 or -1). `d`, the
+// lane's 32 accumulators, holds NaN from issue until the wgmma_wait that
+// covers the product's group, and the result from there.
+void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a);
+void wgmma_fence();
+void wgmma_commit();
+void wgmma_wait(int groups_in_flight);
+void fence_proxy_async();
+
 // cp.async: `bytes` (4 or 16) already read from the source, for the shared
 // address `addr`; they land there at the wait that covers their group
 void cp_async(unsigned addr, const void* data, unsigned bytes);
 void cp_async_commit();
 void cp_async_wait(int groups_in_flight);
 
-void poll();                                  // one turn of a spin-wait
+void poll(const void* addr, unsigned value);  // one turn of a spin on *addr, which held value
 long long clock_ns();
 [[noreturn]] void trap(const char* what);
 

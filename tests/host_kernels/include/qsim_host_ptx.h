@@ -11,7 +11,35 @@
 //     before the wait sees NaN;
 //   - mma truncates its TF32 inputs (the low 13 mantissa bits dropped) and
 //     accumulates in float32; a warp collective with a lane that has exited,
-//     or lanes at different collectives, traps.
+//     or lanes at different collectives, traps;
+//   - wgmma (m64n64k8, TF32) and its fence, commit and wait are warpgroup
+//     collectives: the 128 threads of four consecutive warps, with the warp
+//     collective's rules (a lane that has exited, lanes at different
+//     collectives or with different descriptors, scales or wait counts
+//     trap). The product is computed at issue as mma's is (TF32 inputs
+//     truncated, float32 sums in k order; scale-a negates A, scale-d 0
+//     drops the accumulators), with A from the lanes' registers in mma's
+//     fragment layout (warp w of the warpgroup: rows 16 w to 16 w + 15) and
+//     B read through its descriptor: start address, leading (K) and stride
+//     (N) byte offsets, K-major 8 x 16-byte core matrices without swizzle;
+//     a swizzle mode, a base offset or a reserved bit traps, and every
+//     16-byte row must lie in the arena outside its poisoned bytes (the
+//     descriptor holds addresses in 16-byte units, so an unaligned base is
+//     cut to its 16 bytes before the host sees it, as on the card);
+//   - the accumulators of an in-flight wgmma hold NaN from issue to the
+//     wgmma.wait_group that covers its group, where the result lands: a read
+//     before the wait sees NaN, and a write to them before it traps at the
+//     wait. A later wgmma of the same thread on the same accumulator array
+//     chains on the pending value, as the card does;
+//   - B is read from the CTA's async-proxy view of shared memory: a copy of
+//     the arena taken at each fence.proxy.async (of any thread of the CTA,
+//     where the card makes only the fencing thread's writes visible), so a
+//     store with no fence after it is not seen by the product. B's bytes
+//     are read again at the covering wait, and an A fragment's registers
+//     too: a store to either while the product is in flight traps;
+//   - a wgmma with no wgmma.fence since the thread's last wgmma.wait_group
+//     (or the kernel's start) traps, where the card needs the fence only
+//     before registers touched since then.
 
 #pragma once
 
@@ -101,9 +129,25 @@ inline void ldmatrix4(uint32_t (&d)[4], const float* row) {
   qsim_host::ldmatrix(d, words);
 }
 
+template <int SCALE_A>
+inline void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  static_assert(SCALE_A == 1 || SCALE_A == -1, "scale-a is +1 or -1");
+  qsim_host::wgmma(d, a, desc, scale_d, SCALE_A);
+}
+inline void wgmma_fence() { qsim_host::wgmma_fence(); }
+inline void wgmma_commit() { qsim_host::wgmma_commit(); }
+template <int N>
+inline void wgmma_wait() {
+  qsim_host::wgmma_wait(N);
+}
+inline void fence_proxy_async() { qsim_host::fence_proxy_async(); }
+// compiler barriers on the card
+inline void fence_operands(float (&)[32]) {}
+inline void fence_operands(uint32_t (&)[4][4]) {}
+
 inline unsigned load_acquire(const unsigned* p) {
   const unsigned v = __atomic_load_n(p, __ATOMIC_ACQUIRE);
-  qsim_host::poll();
+  qsim_host::poll(p, v);
   return v;
 }
 

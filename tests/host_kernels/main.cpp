@@ -33,7 +33,7 @@ int segment_launch(float*, float*, long long, const int*, const float*, unsigned
 int dense_pass_launch(const float*, float*, long long, const float*, int, unsigned, unsigned,
                       unsigned, int, void*);
 int rotation_chain_launch(float*, long long, const float*, int, int, unsigned, void*);
-int host_fault_launch(int, float*, long long, int);
+int host_fault_launch(int, float*, long long, int, unsigned*);
 }
 
 namespace {

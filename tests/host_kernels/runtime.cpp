@@ -1,5 +1,6 @@
 // The host runtime of the port's kernels (qsim_host.h): launches, CTAs of
-// fibers, barriers, warp collectives, shared-memory arenas and cp.async.
+// fibers, barriers, warp and warpgroup collectives, shared-memory arenas,
+// cp.async and wgmma.
 
 #include <pthread.h>
 #include <sanitizer/asan_interface.h>
@@ -11,7 +12,9 @@
 #include <sys/mman.h>
 
 #include <chrono>
+#include <condition_variable>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <unordered_map>
 #include <vector>
@@ -78,12 +81,29 @@ constexpr size_t REDZONE = 64;               // poisoned bytes after each shared
 constexpr size_t STATIC_ROOM = 64 << 10;     // the arena's room for static arrays
 constexpr int MAX_WORKERS = 4;               // OS threads of a launch that is not cooperative
 
-enum class Wait { NONE, BARRIER, WARP };
-enum class Collective { NONE, SHFL, MMA, LDMATRIX };
+enum class Wait { NONE, BARRIER, WARP, WARPGROUP, SPIN };
+enum class Collective { NONE, SHFL, MMA, LDMATRIX, WGMMA, WGMMA_FENCE, WGMMA_COMMIT, WGMMA_WAIT };
 
 struct Copy {
   unsigned addr, bytes, group;
   uint32_t data[4];
+};
+
+constexpr uint32_t IN_FLIGHT = 0xffffffffu;  // an in-flight wgmma's accumulators (NaN)
+
+// An accumulator array of a thread's in-flight wgmma, and the value that
+// lands in it at the wait covering `group`.
+struct Accumulator {
+  float* d;
+  unsigned group;
+  float value[32];
+};
+
+// An A fragment a thread's in-flight wgmma read, as it read it.
+struct Fragment {
+  const uint32_t* a;
+  unsigned group;
+  uint32_t value[4];
 };
 
 struct Cta;
@@ -98,6 +118,9 @@ struct Fiber {
   Cta* cta = nullptr;
   std::vector<Copy> copies;                  // cp.async in flight
   unsigned committed = 0;                    // groups committed
+  std::vector<Accumulator> accumulators;     // of wgmma in flight
+  std::vector<Fragment> fragments;
+  bool wgmma_fenced = false;                 // a wgmma.fence since the last wgmma.wait_group
 };
 
 struct Slot {
@@ -112,6 +135,33 @@ struct Warp {
   unsigned exited = 0;
   Fiber* waiting[32];
   Slot slot[32];
+};
+
+// a lane's words at a warpgroup collective
+struct GroupSlot {
+  uint32_t a[4];
+  float c[32];
+  uint64_t desc;
+  int scale_d, scale_a, param;
+  float out[32];
+};
+
+// B of an in-flight wgmma: the shared address of each of its 16-byte rows,
+// and the bytes the arena held there at issue
+struct Operand {
+  unsigned group;
+  unsigned rows[128];
+  uint32_t words[128][4];
+};
+
+struct WarpGroup {
+  Collective kind = Collective::NONE;
+  unsigned arrived = 0;
+  unsigned warp_arrived[4] = {};
+  unsigned committed = 0;                    // wgmma groups committed
+  std::vector<Operand> operands;             // B of the wgmma in flight
+  Fiber* waiting[128];
+  GroupSlot slot[128];
 };
 
 // An OS thread's fiber stacks, reused from CTA to CTA.
@@ -164,9 +214,16 @@ struct Cta {
   unsigned bar_arrived = 0;
   bool reverse = false;                      // the order of the last barrier's release
   std::vector<Warp> warps;
+  std::vector<WarpGroup> warpgroups;         // made at the first warpgroup collective
   char* arena = nullptr;
   size_t arena_bytes = 0, dyn_bytes = 0, static_bytes = 0, used = 0;
   std::vector<std::pair<const void*, char*>> statics;
+  std::vector<std::pair<size_t, size_t>> regions;  // (offset, bytes) of the dynamic bytes and each static array
+  std::vector<char> async_view;              // the arena at the last fence.proxy.async
+  // a cooperative launch: the word and value of the CTA's last spin that gave way
+  const void* spin_addr = nullptr;
+  unsigned spin_value = 0;
+  bool spun = false;
 
   void push(Fiber* f) {
     ready[(head + count) % ready.size()] = f;
@@ -251,13 +308,108 @@ void release_barrier(Cta& c) {
   }
 }
 
+const char* wait_name(Wait w) {
+  switch (w) {
+    case Wait::BARRIER: return "bar";
+    case Wait::WARP: return "warp";
+    case Wait::WARPGROUP: return "wgrp";
+    case Wait::SPIN: return "spin";
+    case Wait::NONE: break;
+  }
+  return "run";
+}
+
+// Each live thread's wait, threads in a row with the same wait joined:
+// " t0:spin t1-255:bar".
+std::string waits(const Cta& c) {
+  std::string out;
+  for (unsigned t = 0; t < c.threads;) {
+    const Fiber& f = c.fibers[t];
+    unsigned e = t + 1;
+    if (!f.done) {
+      while (e < c.threads && !c.fibers[e].done && c.fibers[e].wait == f.wait) ++e;
+      char buf[64];
+      if (e - t == 1) snprintf(buf, sizeof buf, " t%u:%s", t, wait_name(f.wait));
+      else snprintf(buf, sizeof buf, " t%u-%u:%s", t, e - 1, wait_name(f.wait));
+      out += buf;
+    }
+    t = e;
+  }
+  return out;
+}
+
 [[noreturn]] void deadlock(Cta& c) {
-  fprintf(stderr, "qsim_host: deadlock in CTA %u:", blockIdx.x);
-  for (Fiber& f : c.fibers)
-    if (!f.done)
-      fprintf(stderr, " t%u:%s", f.tid, f.wait == Wait::BARRIER ? "bar" : f.wait == Wait::WARP ? "warp" : "run");
-  fprintf(stderr, "\n");
+  fprintf(stderr, "qsim_host: deadlock in CTA %u:%s\n", blockIdx.x, waits(c).c_str());
   abort();
+}
+
+// A cooperative launch's turn: the one CTA that runs. It passes from a CTA
+// that gives way to the next live CTA in block order, the direction turning
+// at either end (0 1 2 3 2 1 0 1 ...).
+struct Baton {
+  std::mutex m;
+  std::condition_variable cv;
+  std::vector<Cta*> ctas;                    // each running CTA, for a deadlock's report
+  std::vector<char> done;
+  unsigned turn = 0;
+  int step = 1;
+  unsigned live = 0;
+  unsigned stuck = 0;                        // turns given up in a row by spins that saw nothing new
+
+  unsigned next(unsigned from) {
+    const long n = (long)done.size();
+    for (int pass = 0; pass < 2; ++pass) {
+      for (long b = (long)from + step; b >= 0 && b < n; b += step)
+        if (!done[b]) return (unsigned)b;
+      step = -step;
+    }
+    return from;                             // the only live CTA
+  }
+  void wait_turn(std::unique_lock<std::mutex>& lock, unsigned b) {
+    cv.wait(lock, [&] { return turn == b; });
+  }
+  void pass(unsigned from) {
+    turn = next(from);
+    cv.notify_all();
+  }
+};
+
+thread_local Baton* baton = nullptr;         // the cooperative launch of this OS thread's CTA
+
+// Every live CTA of the launch spins on a word that no CTA can change.
+[[noreturn]] void grid_deadlock(Baton& bt) {
+  fprintf(stderr, "qsim_host: deadlock in a cooperative launch of %zu CTAs:", bt.ctas.size());
+  for (size_t b = 0; b < bt.ctas.size(); ++b) {
+    const Cta* c = bt.ctas[b];
+    if (bt.done[b] || !c) {
+      fprintf(stderr, " CTA %zu: ended;", b);
+      continue;
+    }
+    fprintf(stderr, " CTA %zu (word %p = %u):%s;", b, c->spin_addr, c->spin_value,
+            waits(*c).c_str());
+  }
+  fprintf(stderr, "\n");
+  fflush(stderr);
+  abort();
+}
+
+// The running CTA of a cooperative launch waits on *addr (which held
+// `value`) with no other thread of it able to run: the turn passes on, and
+// this returns when it comes back.
+void give_way(Cta& c, const void* addr, unsigned value) {
+  Baton& bt = *baton;
+  std::unique_lock<std::mutex> lock(bt.m);
+  const bool stuck = c.spun && c.spin_addr == addr && c.spin_value == value;
+  c.spun = true;
+  c.spin_addr = addr;
+  c.spin_value = value;
+  bt.stuck = stuck ? bt.stuck + 1 : 0;
+  Fiber* me = c.current;
+  me->wait = Wait::SPIN;
+  if (bt.stuck >= 2 * bt.live) grid_deadlock(bt);
+  bt.pass(blockIdx.x);
+  bt.wait_turn(lock, blockIdx.x);
+  me->wait = Wait::NONE;
 }
 
 std::mutex attr_mutex;
@@ -310,12 +462,15 @@ void run_cta(void (*invoke)(void*), void* ctx, unsigned block, unsigned threads,
     c.push(&f);
   }
   c.live = threads;
+  c.regions.emplace_back(0, smem);
   current_cta = &c;
+  if (baton) baton->ctas[block] = &c;
   while (c.live) {
     Fiber* f = c.pop();
     if (!f) deadlock(c);
     jump(nullptr, f);
   }
+  if (baton) baton->ctas[block] = nullptr;
   current_cta = nullptr;
   stack_pool.clean(threads);
   __asan_unpoison_memory_region(c.arena, c.arena_bytes);
@@ -348,9 +503,28 @@ int launch(const void* kernel, dim3 grid, dim3 block, size_t smem, bool cooperat
   if (smem > dynamic_limit(kernel)) return 1;  // cudaErrorInvalidValue
   if (cooperative && grid.x > (unsigned)(occupancy(kernel, block.x, smem) * SMS)) return 720;
   const unsigned workers = cooperative ? grid.x : grid.x < MAX_WORKERS ? grid.x : MAX_WORKERS;
+  Baton bt;
+  bt.ctas.assign(grid.x, nullptr);
+  bt.done.assign(grid.x, 0);
+  bt.live = grid.x;
   auto work = [&](unsigned first) {
     blockDim = block;
     gridDim = grid;
+    if (cooperative) {                       // CTA `first`, in its turns
+      baton = &bt;
+      {
+        std::unique_lock<std::mutex> lock(bt.m);
+        bt.wait_turn(lock, first);
+      }
+      run_cta(invoke, ctx, first, block.x, smem);
+      std::lock_guard<std::mutex> lock(bt.m);
+      bt.done[first] = 1;
+      --bt.live;
+      bt.stuck = 0;
+      bt.pass(first);
+      baton = nullptr;
+      return;
+    }
     for (unsigned b = first; b < grid.x; b += workers) run_cta(invoke, ctx, b, block.x, smem);
   };
   std::vector<std::thread> pool;
@@ -374,6 +548,7 @@ char* shared_static(const void* site, size_t bytes, size_t align) {
   __asan_unpoison_memory_region(p, bytes);
   c.used = off + bytes + REDZONE;
   c.statics.emplace_back(site, p);
+  c.regions.emplace_back(off, bytes);
   return p;
 }
 
@@ -415,6 +590,8 @@ const uint32_t* collective(Collective kind, const uint32_t* in, int n, int param
   Warp& w = c.warps[me.tid >> 5];
   const unsigned lane = me.tid & 31u;
   if (w.exited) trap("a warp collective in a warp with a lane that has exited");
+  if ((me.tid >> 7) < c.warpgroups.size() && c.warpgroups[me.tid >> 7].warp_arrived[(me.tid >> 5) & 3])
+    trap("lanes of one warp at different collectives (a warp and a warpgroup collective)");
   if (w.arrived == 0) w.kind = kind;
   else if (w.kind != kind) trap("lanes of one warp at different warp collectives");
   memcpy(w.slot[lane].in, in, n * sizeof(uint32_t));
@@ -492,6 +669,210 @@ void ldmatrix(uint32_t (&d)[4], const uint32_t (&row)[4]) {
   memcpy(d, out, 16);
 }
 
+namespace {
+
+// Arrive at a warpgroup collective (the 128 threads of four consecutive
+// warps) with this lane's words; the last lane to arrive runs `finish` on
+// the warpgroup and the others resume.
+template <class Finish>
+GroupSlot& group_collective(Collective kind, const GroupSlot& in, Finish finish) {
+  Cta& c = cta();
+  Fiber& me = *c.current;
+  const unsigned wg = me.tid >> 7, lane = me.tid & 127u;
+  if (4 * wg + 3 >= c.warps.size()) trap("a warpgroup collective in a warpgroup of fewer than four warps");
+  for (unsigned w = 4 * wg; w < 4 * wg + 4; ++w)
+    if (c.warps[w].exited) trap("a warpgroup collective in a warpgroup with a lane that has exited");
+  if (c.warps[me.tid >> 5].arrived)
+    trap("lanes of one warp at different collectives (a warp and a warpgroup collective)");
+  if (c.warpgroups.empty()) c.warpgroups.resize(c.warps.size() / 4);
+  WarpGroup& g = c.warpgroups[wg];
+  if (g.arrived == 0) g.kind = kind;
+  else if (g.kind != kind) trap("lanes of one warpgroup at different warpgroup collectives");
+  g.slot[lane] = in;
+  g.waiting[lane] = &me;
+  ++g.warp_arrived[(me.tid >> 5) & 3];
+  if (++g.arrived == 128) {
+    finish(g);
+    g.arrived = 0;
+    g.kind = Collective::NONE;
+    for (unsigned& a : g.warp_arrived) a = 0;
+    for (unsigned l = 0; l < 128; ++l)
+      if (l != lane) release(g.waiting[l]);
+  } else {
+    block(Wait::WARPGROUP);
+  }
+  return g.slot[lane];
+}
+
+WarpGroup& warpgroup() { return cta().warpgroups[self().tid >> 7]; }
+
+// B of a wgmma m64n64k8 through its descriptor: the 16-byte rows of its
+// K-major core matrices (8 rows of N, 4 TF32 of K each), the two along K
+// `lbo` bytes apart, the eight along N `sbo`; row (k / 4, n / 8, n % 8) is
+// rows[(k / 4 * 8 + n / 8) * 8 + n % 8].
+void operand_rows(const Cta& c, uint64_t desc, unsigned (&rows)[128]) {
+  constexpr uint64_t RESERVED = (3ull << 14) | (3ull << 30) | (7ull << 46) | (1023ull << 52);
+  if (desc & RESERVED) trap("a wgmma descriptor with reserved bits set");
+  const unsigned mode = (unsigned)(desc >> 62);
+  if (mode) {
+    static const char* const names[4] = {"", "128-byte", "64-byte", "32-byte"};
+    char what[96];
+    snprintf(what, sizeof what, "a wgmma descriptor of the %s swizzle mode (%u): not modelled on the host",
+             names[mode], mode);
+    trap(what);
+  }
+  if ((desc >> 49) & 7u) trap("a wgmma descriptor with a base offset, which only a swizzle mode reads");
+  const unsigned start = (unsigned)(desc & 0x3fffu) << 4;
+  const unsigned lbo = (unsigned)((desc >> 16) & 0x3fffu) << 4;
+  const unsigned sbo = (unsigned)((desc >> 32) & 0x3fffu) << 4;
+  for (unsigned i = 0; i < 128; ++i) {
+    const size_t addr = (size_t)start + (i >> 6) * lbo + ((i >> 3) & 7u) * sbo + (i & 7u) * 16;
+    if (addr + 16 > c.arena_bytes) trap("a wgmma operand past the CTA's shared memory");
+    if (__asan_region_is_poisoned(c.arena + addr, 16))
+      trap("a wgmma operand in shared memory past a region (poisoned bytes)");
+    rows[i] = (unsigned)addr;
+  }
+}
+
+// Every lane's D = scale_d C + scale_a A B (TF32 inputs, float32 sums in k
+// order), with B from the async view; B's rows and their bytes in the arena
+// kept for the wait.
+void wgmma_product(WarpGroup& g) {
+  Cta& c = *current_cta;
+  const GroupSlot& s0 = g.slot[0];
+  for (const GroupSlot& s : g.slot)
+    if (s.desc != s0.desc || s.scale_d != s0.scale_d || s.scale_a != s0.scale_a)
+      trap("lanes of one warpgroup gave a wgmma different descriptors or scales");
+  if (c.async_view.empty()) c.async_view.assign(c.arena_bytes, (char)0xff);
+  Operand op;
+  op.group = g.committed;
+  operand_rows(c, s0.desc, op.rows);
+  float B[8][64];
+  for (unsigned i = 0; i < 128; ++i) {
+    memcpy(op.words[i], c.arena + op.rows[i], 16);
+    uint32_t w[4];
+    memcpy(w, c.async_view.data() + op.rows[i], 16);
+    for (unsigned j = 0; j < 4; ++j) B[(i >> 6) * 4 + j][((i >> 3) & 7u) * 8 + (i & 7u)] = tf32(w[j]);
+  }
+  g.operands.push_back(op);
+  float A[64][8];
+  const float sa = (float)s0.scale_a;
+  for (unsigned l = 0; l < 128; ++l) {
+    const unsigned r = (l >> 5) * 16 + ((l & 31u) >> 2), q = l & 3u;
+    const uint32_t* a = g.slot[l].a;
+    A[r][q] = sa * tf32(a[0]);
+    A[r + 8][q] = sa * tf32(a[1]);
+    A[r][q + 4] = sa * tf32(a[2]);
+    A[r + 8][q + 4] = sa * tf32(a[3]);
+  }
+  for (unsigned l = 0; l < 128; ++l) {
+    GroupSlot& s = g.slot[l];
+    const unsigned r = (l >> 5) * 16 + ((l & 31u) >> 2), q = l & 3u;
+    for (unsigned j = 0; j < 8; ++j)
+      for (unsigned v = 0; v < 4; ++v) {
+        const unsigned row = r + (v >> 1) * 8, col = 8 * j + 2 * q + (v & 1);
+        float acc = s0.scale_d ? s.c[4 * j + v] : 0.f;
+        for (unsigned k = 0; k < 8; ++k) acc += A[row][k] * B[k][col];
+        s.out[4 * j + v] = acc;
+      }
+  }
+}
+
+}  // namespace
+
+void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a) {
+  Fiber& f = self();
+  if (!f.wgmma_fenced)
+    trap("a wgmma with no wgmma.fence since the thread's last wgmma.wait_group (or the kernel's start)");
+  auto pending = [&f, &d]() -> Accumulator* {
+    for (Accumulator& acc : f.accumulators)
+      if (acc.d == d) return &acc;
+    return nullptr;
+  };
+  GroupSlot in{};
+  memcpy(in.a, a, sizeof in.a);
+  const Accumulator* chained = pending();  // a product in flight on d: chain on its value
+  memcpy(in.c, chained ? chained->value : d, sizeof in.c);
+  in.desc = desc;
+  in.scale_d = scale_d;
+  in.scale_a = scale_a;
+  in.param = 0;
+  const GroupSlot& out = group_collective(Collective::WGMMA, in, wgmma_product);
+  const unsigned group = warpgroup().committed;
+  Accumulator* acc = pending();
+  if (!acc) {
+    f.accumulators.push_back(Accumulator{d, 0, {}});
+    acc = &f.accumulators.back();
+  }
+  acc->group = group;
+  memcpy(acc->value, out.out, sizeof acc->value);
+  for (float& x : d) memcpy(&x, &IN_FLIGHT, 4);
+  Fragment frag{a, group, {a[0], a[1], a[2], a[3]}};
+  f.fragments.push_back(frag);
+}
+
+void wgmma_fence() {
+  group_collective(Collective::WGMMA_FENCE, GroupSlot{}, [](WarpGroup&) {});
+  self().wgmma_fenced = true;
+}
+
+void wgmma_commit() {
+  group_collective(Collective::WGMMA_COMMIT, GroupSlot{}, [](WarpGroup& g) { ++g.committed; });
+}
+
+void wgmma_wait(int groups_in_flight) {
+  const unsigned keep = (unsigned)groups_in_flight;
+  GroupSlot in{};
+  in.param = groups_in_flight;
+  group_collective(Collective::WGMMA_WAIT, in, [keep](WarpGroup& g) {
+    for (const GroupSlot& s : g.slot)
+      if (s.param != g.slot[0].param) trap("lanes of one warpgroup at wgmma.wait_group with different counts");
+    const Cta& c = *current_cta;
+    size_t kept = 0;
+    for (Operand& op : g.operands) {
+      if (op.group + keep < g.committed) {
+        for (unsigned i = 0; i < 128; ++i)
+          if (memcmp(op.words[i], c.arena + op.rows[i], 16))
+            trap("shared operand of an in-flight wgmma was written");
+      } else {
+        g.operands[kept++] = op;
+      }
+    }
+    g.operands.resize(kept);
+  });
+  // this lane's products that the wait covers land
+  Fiber& f = self();
+  const unsigned committed = warpgroup().committed;
+  size_t kept = 0;
+  for (Accumulator& acc : f.accumulators) {
+    if (acc.group + keep < committed) {
+      for (unsigned i = 0; i < 32; ++i)
+        if (memcmp(acc.d + i, &IN_FLIGHT, 4)) trap("an accumulator of an in-flight wgmma was written");
+      memcpy(acc.d, acc.value, sizeof acc.value);
+    } else {
+      f.accumulators[kept++] = acc;
+    }
+  }
+  f.accumulators.resize(kept);
+  kept = 0;
+  for (Fragment& frag : f.fragments) {
+    if (frag.group + keep < committed) {
+      if (memcmp(frag.a, frag.value, sizeof frag.value))
+        trap("an A fragment register of an in-flight wgmma was written");
+    } else {
+      f.fragments[kept++] = frag;
+    }
+  }
+  f.fragments.resize(kept);
+  f.wgmma_fenced = false;
+}
+
+void fence_proxy_async() {
+  Cta& c = cta();
+  if (c.async_view.empty()) c.async_view.assign(c.arena_bytes, (char)0xff);
+  for (const auto& [off, bytes] : c.regions) memcpy(c.async_view.data() + off, c.arena + off, bytes);
+}
+
 void cp_async(unsigned addr, const void* data, unsigned bytes) {
   Fiber& f = self();
   Copy cp{addr, bytes, f.committed, {0, 0, 0, 0}};
@@ -503,10 +884,11 @@ void cp_async_commit() { ++self().committed; }
 
 void cp_async_wait(int groups_in_flight) { land_copies(self(), (unsigned)groups_in_flight); }
 
-void poll() {
+void poll(const void* addr, unsigned value) {
   Cta& c = cta();
   if (!c.count) {
-    sched_yield();
+    if (baton) give_way(c, addr, value);
+    else sched_yield();
     return;
   }
   Fiber* me = c.current;
@@ -551,6 +933,8 @@ extern "C" [[noreturn]] void qsim_host_fiber_main(qsim_host::Fiber* f) {
   --c.live;
   ++c.warps[f->tid >> 5].exited;
   if (c.warps[f->tid >> 5].arrived) trap("a lane exited while its warp waits at a collective");
+  if ((f->tid >> 7) < c.warpgroups.size() && c.warpgroups[f->tid >> 7].arrived)
+    trap("a lane exited while its warpgroup waits at a collective");
   if (c.bar_arrived && c.bar_arrived == c.live) release_barrier(c);
   jump(f, c.pop(), true);
   __builtin_unreachable();

@@ -11,17 +11,28 @@ under AddressSanitizer and UBSan (``-fsanitize=address,undefined
   element past the launch's dynamic bytes and a global write one element
   past the state's planes are AddressSanitizer reports, a ``1u << 32`` a
   UBSan report, and a read of a cp.async target before its
-  ``cp.async.wait_group`` gives a result that differs from the copy's. A
-  cooperative launch of more CTAs than the device keeps resident is
-  refused, as on the card.
-* ``csrc/dense_pass.cu``'s two ``mma.sync`` instances (small, medium; the
-  ``wgmma`` instance is not in the host build), uncontrolled and controlled
-  at k = 7-10, one of each at 11 and 12 (a 12-qubit pass is 3.1 million
-  mma collectives), targets in a scrambled order: against the plain version
-  (``dense_pass.apply_controlled``) within 1e-6 and the JAX package's
-  complex128 oracle within 1e-5 (on the amplitudes whose controls are 1,
-  the core alone through ``CPUReferenceSimulator``; a controlled 12-qubit
-  matrix would be 1 GiB).
+  ``cp.async.wait_group`` gives a result that differs from the copy's. Of
+  a warpgroup's ``wgmma``: a store into B while the product is in flight
+  and a product with no ``wgmma.fence`` trap; a read of the accumulators
+  before their ``wgmma.wait_group`` and B stored with no
+  ``fence.proxy.async`` after it give a wrong result (NaN). Of a
+  cooperative launch of two CTAs: a skipped grid barrier gives the same
+  wrong result in every run, and a barrier that waits for a CTA that never
+  comes is reported as a deadlock naming each CTA's wait. A cooperative
+  launch of more CTAs than the device keeps resident is refused, as on
+  the card.
+* ``csrc/dense_pass.cu``'s three instances, targets in a scrambled order:
+  the two ``mma.sync`` ones (small, medium) uncontrolled and controlled at
+  k = 7-10, one of each at 11 and 12 (a 12-qubit pass is 3.1 million mma
+  collectives); the ``wgmma`` one (large, forced: ``pass_instance`` takes
+  it only at 2^7 tiles and more, n >= 20 at k = 12) uncontrolled and
+  controlled at k = 7-10 over 64 groups, over 128 (two group tiles), over
+  32 (the tile's other columns computed and never stored) and at k = 11
+  (10^5 warpgroup products; the card's ``chip_smoke.py`` runs k = 12).
+  Each against the plain version (``dense_pass.apply_controlled``) within
+  1e-6 and the JAX package's complex128 oracle within 1e-5 (on the
+  amplitudes whose controls are 1, the core alone through
+  ``CPUReferenceSimulator``; a controlled 12-qubit matrix would be 1 GiB).
 * ``csrc/rotation_chain.cu`` at K = 16 and 17: against the plain chain
   within 1e-6 and, within 1e-5, the complex128 product of its float32
   (cos, sin) pairs (``benchmark_floor.run_vpu``, the JAX function, is held
@@ -45,41 +56,95 @@ from test_torch_sweeps import jax_oracle
 PLAIN_TOL = 1e-6
 ORACLE_TOL = 1e-5
 FAULT_THREADS = 32          # faults.cu's one CTA
+WGMMA_DIM = 4096            # wgmma_product's planes: B in, the 64 x 64 D out
+GRID_DIM = 64               # grid_stages' planes: two CTAs of 32
+
+
+def fault_dim(kind: int) -> int:
+    return WGMMA_DIM if 4 <= kind <= 7 else GRID_DIM if kind == 8 else FAULT_THREADS
+
+
+def fault_input(kind: int) -> np.ndarray:
+    return np.arange(2 * fault_dim(kind), dtype=np.float32).reshape(2, -1)
 
 
 def fault_run(kind: int, arg: int) -> np.ndarray:
     run = host.HostRun()
-    state = run.buffer(np.arange(2 * FAULT_THREADS, dtype=np.float32).reshape(2, -1))
-    run.call("host_fault_launch", kind, state, FAULT_THREADS, arg)
+    state = run.buffer(fault_input(kind))
+    run.call("host_fault_launch", kind, state, fault_dim(kind), arg,
+             run.buffer(np.zeros(1, np.uint32)))
     host.run_checked(run)
     return run.arrays[state.index]
 
 
-# (faults.cu kind, switch off, switch on, what the sanitizer reports)
+def fault_free(kind: int) -> np.ndarray:
+    """What faults.cu's kernel ``kind`` leaves in its planes with its fault
+    off."""
+    want = fault_input(kind)
+    if kind == 1:               # its one write, at the planes' last element
+        want[1, -1] = 0.0
+    if kind == 3:               # (1 << 31) >> 31 in each of the first plane's slots
+        want[0] = 1.0
+    if 4 <= kind <= 7:          # D's row r is B's row r % 8
+        want[1] = want[0, :512].reshape(8, 64)[np.arange(64) % 8].ravel()
+    if kind == 8:               # doubled, then the other CTA's half plus 1
+        x = want[0].copy()
+        want[1] = 2 * x
+        want[0] = 2 * np.roll(x, GRID_DIM // 2) + 1
+    return want
+
+
+WRONG = None                # the fault shows as a wrong result, not a report
+# (faults.cu kind, switch off, switch on, what the harness reports)
 REPORTED = {
     "shared_overrun": (0, 0, 1, "AddressSanitizer: use-after-poison"),
     "global_overrun": (1, 0, 1, "AddressSanitizer: heap-buffer-overflow"),
     "wide_shift": (3, 31, 32, "runtime error: shift exponent 32 is too large"),
+    "wgmma_read_before_wait": (4, 0, 1, WRONG),
+    "wgmma_operand_written_in_flight": (5, 0, 1, "shared operand of an in-flight wgmma was written"),
+    "wgmma_without_proxy_fence": (6, 0, 1, WRONG),
+    "wgmma_without_fence": (7, 0, 1, "a wgmma with no wgmma.fence"),
+    "grid_barrier_skipped": (8, 0, 1, WRONG),
+    "grid_barrier_deadlock": (8, 0, 2, r"deadlock in a cooperative launch of 2 CTAs: "
+                                       r"CTA 0 \(word 0x[0-9a-f]+ = 2\): t0:spin t1-31:bar; "
+                                       r"CTA 1 \(word 0x[0-9a-f]+ = 2\): t0:spin t1-31:bar;"),
 }
 
 
 @pytest.mark.parametrize("fault", sorted(REPORTED))
 def test_fault_is_reported(fault):
     kind, _, on, report = REPORTED[fault]
-    with pytest.raises(host.HostFault, match=report):
-        fault_run(kind, on)
+    if report is WRONG:
+        out = fault_run(kind, on)
+        assert not np.array_equal(out, fault_free(kind))
+        if 4 <= kind <= 7:      # every element of D read from NaN bytes
+            assert np.isnan(out[1]).all()
+    else:
+        with pytest.raises(host.HostFault, match=report):
+            fault_run(kind, on)
 
 
 @pytest.mark.parametrize("fault", sorted(REPORTED))
 def test_kernel_without_its_fault_runs_clean(fault):
     kind, off, _, _ = REPORTED[fault]
-    out = fault_run(kind, off)
-    want = np.arange(2 * FAULT_THREADS, dtype=np.float32).reshape(2, -1)
-    if fault == "global_overrun":   # its one write, at the planes' last element
-        want[1, -1] = 0.0
-    if fault == "wide_shift":       # (1 << 31) >> 31 in each of the first plane's slots
-        want[0] = 1.0
-    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(fault_run(kind, off), fault_free(kind))
+
+
+def test_skipped_grid_barrier_shows_in_every_run():
+    # one CTA runs at a time, each to its spin or its end: without the
+    # barrier CTA 0 runs both stages before CTA 1 starts, and reads CTA 1's
+    # half of the second plane before CTA 1 writes it, in every launch
+    run = host.HostRun()
+    states = [run.buffer(fault_input(8)) for _ in range(3)]
+    for state in states:
+        run.call("host_fault_launch", 8, state, GRID_DIM, 1, run.buffer(np.zeros(1, np.uint32)))
+    host.run_checked(run)
+    want, half = fault_free(8), GRID_DIM // 2
+    for state in states:
+        out = run.arrays[state.index]
+        np.testing.assert_array_equal(out[1], want[1])
+        np.testing.assert_array_equal(out[0, half:], want[0, half:])
+        np.testing.assert_array_equal(out[0, :half], fault_input(8)[1, half:] + 1)
 
 
 @pytest.mark.parametrize("early", [False, True])
@@ -139,15 +204,33 @@ DENSE_CASES = [
 ]
 
 
+# (n, k, controls) of the wgmma instance, forced: 64 groups a tile of 128
+# rows, uncontrolled and controlled, at k = 7-10; 128 groups (two group
+# tiles); 32 groups; k = 11
+LARGE_CASES = [
+    (13, 7, ()), (14, 7, (13,)), (14, 8, ()), (15, 8, (0,)), (15, 9, ()), (16, 9, (7,)),
+    (16, 10, ()), (17, 10, (16,)), (15, 8, ()), (12, 7, ()), (17, 11, ()),
+]
+
+
 @pytest.mark.parametrize("n,k,controls,instance", DENSE_CASES)
 def test_dense_pass(n, k, controls, instance):
     assert dp.pass_instance(k, n - k - len(controls)) == instance
+    check_dense_pass(n, k, controls, None)
+
+
+@pytest.mark.parametrize("n,k,controls", LARGE_CASES)
+def test_dense_pass_wgmma(n, k, controls):
+    check_dense_pass(n, k, controls, "large")
+
+
+def check_dense_pass(n, k, controls, instance):
     rng = np.random.default_rng(900 + 16 * n + k)
     free = [q for q in range(n) if q not in controls]
     targets = tuple(int(q) for q in rng.permutation(free)[:k])
     core = dense_unitary(k, rng)
     psi = random_state(n, rng)
-    got = host.run_dense_pass(core, targets, controls, psi)
+    got = host.run_dense_pass(core, targets, controls, psi, instance)
     plain = dp.apply_controlled(torch.from_numpy(host.planes(psi)), core, targets, controls)
     np.testing.assert_allclose(got, np.asarray(tq.apply.to_complex(plain)), atol=PLAIN_TOL, rtol=0)
     np.testing.assert_allclose(got, controlled_oracle(core, targets, controls, psi),

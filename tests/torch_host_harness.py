@@ -5,8 +5,10 @@ AddressSanitizer and UBSan.
 as they stand, with ``QSIM_HOST`` defined: ``csrc/ptx.cuh`` then takes its
 host twin from ``tests/host_kernels/include/`` (with a ``cuda_runtime.h``
 of the same intrinsics), whose runtime (``tests/host_kernels/runtime.cpp``)
-runs a CTA's threads as fibers, warp collectives as 32-lane barriers and
-shared memory as a poisoned arena. Each source is one translation unit;
+runs a CTA's threads as fibers, warp collectives as 32-lane barriers,
+warpgroup collectives (``wgmma``) as 128-lane ones, shared memory as a
+poisoned arena and a cooperative launch's CTAs one at a time, in an order
+that turns back at every grid barrier. Each source is one translation unit;
 with the runtime, ``tests/host_kernels/faults.cu`` (test-only kernels with
 a fault each) and the driver ``tests/host_kernels/main.cpp`` they link
 into one executable, ``qsim_host_run``: an instrumented library could not
@@ -326,17 +328,19 @@ def run_segments(prog, psi: np.ndarray, first: int = 0, last: int | None = None)
     return complex_of(run.arrays[(other if relabels % 2 else state).index])
 
 
-def run_dense_pass(core: np.ndarray, targets, controls, psi: np.ndarray) -> np.ndarray:
+def run_dense_pass(core: np.ndarray, targets, controls, psi: np.ndarray,
+                   instance: str | None = None) -> np.ndarray:
     """``dense_pass.dense_pass``: ``core`` on ``targets`` (``targets[0]``
     the index MSB) where every bit of ``controls`` is 1, out of place, on
-    the instance ``pass_instance`` picks."""
+    ``instance`` ("small", "medium" or "large"), by default the one
+    ``pass_instance`` picks."""
     from tpu_qsim_torch.kernels import dense_pass as dp
 
     n = int(psi.size).bit_length() - 1
     k = len(targets)
     tmask = sum(1 << q for q in targets)
     cmask = sum(1 << q for q in controls)
-    instance = dp.INSTANCE_CODE[dp.pass_instance(k, n - k - len(controls))]
+    instance = dp.INSTANCE_CODE[instance or dp.pass_instance(k, n - k - len(controls))]
     run = HostRun()
     state = run.buffer(planes(psi))
     out = run.buffer(_garbage((2, 1 << n), np.float32))

@@ -385,44 +385,8 @@ __global__ void __launch_bounds__(SH::THREADS, 1) dense_pass_kernel(const Pass p
 }
 
 // ---------------------------------------------------------------------------
-// The large instance: wgmma, two warpgroups of 64 rows x 64 groups (not in
-// the host build, which has no wgmma)
+// The large instance: wgmma, two warpgroups of 64 rows x 64 groups
 // ---------------------------------------------------------------------------
-#ifndef QSIM_HOST
-
-// d (+)= scale_a a b: the m64n64k8 TF32 product of a warpgroup, a's fragment
-// in registers (the warp's 16 rows, as mma's), b from shared memory through
-// its descriptor, d the 64 x 64 float32 fragment (columns 8 j + 2 ft (+ 1),
-// rows fg (+ 8) in d[4 j + v]); d is overwritten where scale_d is 0.
-template <int SCALE_A>
-__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                      int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SCALE_A));
-}
-
-// Registers that an in-flight wgmma reads or writes: keep the compiler's
-// own reads and writes of them (and its reuse of them) on their side of the
-// wait.
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_operands(uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i / 4][i % 4])::"memory");
-}
 
 // Descriptor of a K-major TF32 operand in shared memory without swizzle:
 // 8 x 16-byte core matrices, 1024 bytes apart along K and 128 along N.
@@ -497,7 +461,7 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
         *reinterpret_cast<uint4*>(xt + (2 * plane + 1) * SH::PART + o) = l;
       }
       // the generic proxy's writes, before wgmma reads them
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       __syncthreads();
     }
     // U's fragments of k8 step ks, split: rh, rl, ih, il; two sets, so that
@@ -523,7 +487,7 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
       const int keep = ks > 0;  // this chunk's share starts afresh
       fence_operands(tr);
       fence_operands(ti);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
       // Yr += Ur Xr - Ui Xi, Yi += Ui Xr + Ur Xi: small terms first
       wgmma<1>(tr, f[1], xrh, keep);
       wgmma<1>(tr, f[0], xrl, 1);
@@ -537,13 +501,13 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
       wgmma<1>(ti, f[0], xil, 1);
       wgmma<1>(ti, f[2], xrh, 1);
       wgmma<1>(ti, f[0], xih, 1);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       // the step before is done, and with it the other set of fragments
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_wait<1>();
       fence_operands(a[(ks + 1) & 1]);
       if (ks + 1 < BK / 8) prepare(ks + 1, a[(ks + 1) & 1]);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_operands(a[(BK / 8 - 1) & 1]);
     fence_operands(tr);
     fence_operands(ti);
@@ -564,7 +528,6 @@ __global__ void __launch_bounds__(Large::THREADS, 1) dense_pass_wgmma(const Pass
   __syncthreads();
   tile.store<SH::YS>(ysr, t);
 }
-#endif  // QSIM_HOST
 
 // the shared memory past 48 KB, allowed once per device and instance (the
 // CUDA call on every launch cost the host more than the 16-qubit pass
@@ -630,11 +593,7 @@ extern "C" int dense_pass_launch(const float* state, float* out, long long dim,
   p.groups = 1u << __builtin_popcount(p.free);
   p.dim = (unsigned)dim;
   const cudaStream_t s = (cudaStream_t)stream;
-#ifdef QSIM_HOST
-  if (instance == 2) return (int)cudaErrorInvalidValue;
-#else
   if (instance == 2) return launch<Large>(dense_pass_wgmma, p, s);
-#endif
   return instance == 1 ? launch<Medium>(dense_pass_kernel<Medium>, p, s)
                        : launch<Small>(dense_pass_kernel<Small>, p, s);
 }

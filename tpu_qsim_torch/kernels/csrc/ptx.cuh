@@ -108,6 +108,61 @@ __device__ __forceinline__ void ldmatrix4(uint32_t (&d)[4], const float* row) {
                : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(a));
 }
 
+// d (+)= scale_a a b: the m64n64k8 TF32 product of a warpgroup, a's fragment
+// in registers (the warp's 16 rows, as mma's), b from shared memory through
+// its descriptor, d the 64 x 64 float32 fragment (columns 8 j + 2 ft (+ 1),
+// rows fg (+ 8) in d[4 j + v]); d is overwritten where scale_d is 0.
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SCALE_A));
+}
+
+// Before a warpgroup's wgmma reads or writes registers that it touched
+// since its last wait.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// the warpgroup's wgmma issued since the last commit, as one group
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's shared-memory writes through the generic proxy, before the
+// async proxy (wgmma's operands) reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Registers that an in-flight wgmma reads or writes: keep the compiler's
+// own reads and writes of them (and its reuse of them) on their side of the
+// wait.
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_operands(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i / 4][i % 4])::"memory");
+}
+
 // a word of device memory, read with acquire order at GPU scope
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;
