@@ -94,7 +94,13 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     production plan, streaming only, each sweep alone; the full variant's
     state against phase 9's, 1e-6) and ``--scale`` for the reg, lane and
     extctrl flavors, each counted (only ``grid_sweep``); the census model's
-    floor per op class and per sweep at the measured rate;
+    floor per op class and per sweep at the measured rate, and each sweep's
+    time beside the larger of its bytes and its census ops floor at the
+    data sheet's rate (the kernels line gives row 1 that sum beside its
+    bytes bound); ``--stamps`` (the grid sweep's stamp instance, built from
+    the same source with ``QSIM_STAMPS``): warp 0's cycles a step and an op
+    class on the 28q plan's sweeps and ``--scale``'s 32 CNOTs, at full
+    occupancy and at one CTA an SM;
 10. 28-qubit closed forms through the grid-sweep kernel: GHZ probabilities
     and histogram, QFT|0> amplitudes;
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
@@ -196,7 +202,7 @@ from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
 from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches
 from tpu_qsim_torch.kernels.dense_pass import MIN_PASS_CORE, DensePass, core_operand, dense_pass, pass_instance
-from tpu_qsim_torch.kernels import floor
+from tpu_qsim_torch.kernels import floor, sass_census
 from tpu_qsim_torch.kernels.fused_circuit import (
     MAX_SWEEP_BITS, WholeCircuitProgram, as_pgates, build_op_table, merge_1q_chains,
     tiled_op_sass,
@@ -660,14 +666,77 @@ def phase_floor(main_res: dict) -> dict:
               f"--scale {flavor} launches {launches}")
         out["scale"][flavor] = sc
 
-    po = floor.plan_only(N_MAIN, rate)
+    # each register-op class's decode in this build's SASS: the marked
+    # instance of the grid sweep, whose opcodes are the main instance's but
+    # its markers and alignment NOPs, and the census's DECODE
+    match = sass_census.marks_match(_build)
+    for fn, m in match.items():
+        log(f"phase floor: SASS {fn[-44:]}: {m['marked']} instructions but its markers and NOPs "
+            f"({m['nops'][0]} NOPs), the main instance {m['main']} ({m['nops'][1]}): "
+            f"{'equal opcodes' if m['equal'] else m['differ']}, "
+            f"{'in' if m['same_order'] else 'not in'} the same order")
+    check(len(match) == 2 and all(m["equal"] for m in match.values()),
+          f"the marked grid sweep's opcodes are not the main instance's: {match}")
+    decode = sass_census.narrow_decode(sass_census.classes(_build))
+    log(f"phase floor: SASS decode a class (narrow instance) {decode}; floor.DECODE {floor.DECODE}")
+    check(decode == floor.DECODE, f"floor.DECODE {floor.DECODE} is not this build's {decode}")
+    out["marks_match"], out["decode"] = match, decode
+
+    po = floor.plan_only(N_MAIN, rate, decode)
     log(f"phase floor: census model ({po['model']}) at {po['tinstr_per_s']:.3f} T instructions/s "
         f"({po['rate_source']}), selects at the full-half float32 rate: "
-        + ", ".join(f"{name} {c['floor_fast_sel_us']:.1f}-{c['floor_us']:.1f} us/op"
+        + ", ".join(f"{name} {c['floor_fast_sel_us']:.1f}-{c['floor_us']:.1f} us/op (loop model "
+                    f"{c['loop_fast_sel_us']:.1f}-{c['loop_us']:.1f})"
                     for name, c in po["classes"].items())
         + f"; 28q plan ops floor {po['plan_ops_fast_sel_ms']:.4f}-{po['plan_ops_ms']:.4f} ms "
         f"(per sweep {[round(s['ops_ms'], 4) for s in po['plan']]}), bytes {po['plan_bytes_ms']:.4f} ms")
     out["census"] = po
+    # each sweep's time beside the larger of its bytes and its census ops
+    # floor (at the data sheet's rate, as the kernels line's bound), and
+    # beside the loop model (the ops with their decode)
+    sheet = floor.plan_only(N_MAIN, decode=decode)
+    check(len(sheet["plan"]) == len(dec["sweep_ms"]), "the census plan is not the decompose plan")
+    for i, (t, s) in enumerate(zip(dec["sweep_ms"], sheet["plan"])):
+        lo, hi = max(s["bytes_ms"], s["ops_fast_sel_ms"]), max(s["bytes_ms"], s["ops_ms"])
+        log(f"phase floor: 28q sweep[{i}] {t:.4f} ms against max(bytes, census ops floor) "
+            f"{lo:.4f}-{hi:.4f} ms ({t / hi:.2f}-{t / lo:.2f}x); loop model "
+            f"{max(s['bytes_ms'], s['loop_fast_sel_ms']):.4f}-{max(s['bytes_ms'], s['loop_ms']):.4f} ms")
+    out["max_bytes_ops_ms"] = sheet["max_bytes_ops_ms"]
+    out["census_ops_floor_ms"] = [sheet["plan_ops_fast_sel_ms"], sheet["plan_ops_ms"]]
+    out["loop_model_ms"] = sheet["loop_model_ms"]
+    log(f"phase floor: 28q plan {dec['full_ms']:.4f} ms against the sum of max(bytes, census ops "
+        f"floor) {out['max_bytes_ops_ms'][0]:.4f}-{out['max_bytes_ops_ms'][1]:.4f} ms (data sheet "
+        f"rate); loop model {out['loop_model_ms'][0]:.4f}-{out['loop_model_ms'][1]:.4f} ms")
+
+    # --stamps: the stamp instance on one sweep against its plain version,
+    # at each occupancy; then counted, cycles of warp 0 a step and an op
+    prog = floor.decompose_programs(N_MAIN)["sweeps"][0]
+    x = floor.random_planes(N_MAIN, FLOOR_SEED, "cuda")
+    want = prog.run_plain(x.clone())
+    for occ, one_per_sm in floor.OCCUPANCIES.items():
+        got = x.clone()
+        floor.stamp_rows(prog, got, one_per_sm)
+        err, fid = compare(got, want)
+        del got
+        log(f"phase floor: stamp instance {occ}, 28q sweep[0] vs plain max_abs_err={err:.3e} "
+            f"(tol 1e-7) fidelity={fid:.9f} (tol 1 - 1e-5)")
+        check(err <= 1e-7, f"stamp instance {occ} vs plain max |d amp| {err} > 1e-7")
+        check(1.0 - fid <= 1e-5, f"stamp instance {occ} 1 - fidelity {1.0 - fid} > 1e-5")
+    del x, want
+    reset_launches()
+    st = floor.stamps(N_MAIN)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    stamped = 2 * sum(len(sweeps) for res in st["programs"].values() for sweeps in res.values())
+    log(f"phase floor: --stamps launches {launches} (stamp instance: programs x occupancies x "
+        f"sweeps x 2 = {stamped}; the clock reading's grid sweeps 200)")
+    check(launches == {"grid_sweep_stamps": stamped, "grid_sweep": 200},
+          f"--stamps launches {launches}, not {stamped} of the stamp instance and 200 grid sweeps")
+    for name, res in st["programs"].items():
+        for occ, sweeps in res.items():
+            check(all(s["steps"] > 0 for s in sweeps), f"--stamps {name} {occ}: no step stamped")
+    floor.print_stamps(st)
+    out["stamps"] = st
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase floor: {out['phase_s']:.1f} s")
     return out
@@ -1935,6 +2004,9 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "census_ops_floor_ms": flo["census_ops_floor_ms"],
+        "max_bytes_ops_bound_ms": flo["max_bytes_ops_ms"],
+        "loop_model_ms": flo["loop_model_ms"],
         "fidelity": main_res["fidelity"],
         "certify_launches": paths["certify"]["launches"],
         "ghz_max_abs_err": closed["ghz_max_abs_err"],

@@ -145,6 +145,10 @@ inline void fence_proxy_async() { qsim_host::fence_proxy_async(); }
 inline void fence_operands(float (&)[32]) {}
 inline void fence_operands(uint32_t (&)[4][4]) {}
 
+// a measurement build's SASS marker: nothing on the host
+template <int ID>
+inline void pm_marker() {}
+
 inline unsigned load_acquire(const unsigned* p) {
   const unsigned v = __atomic_load_n(p, __ATOMIC_ACQUIRE);
   qsim_host::poll(p, v);

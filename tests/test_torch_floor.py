@@ -237,6 +237,46 @@ def test_floor_arithmetic():
     assert r["plan_bytes_ms"] == pytest.approx(len(r["plan"]) * 16 * (1 << 14) / 3.35e12 * 1e3)
 
 
+def test_loop_census_adds_the_decode():
+    # the loop model: the arithmetic census plus each class's decode over a
+    # thread's 16 amplitudes, priced with the selects
+    rate, amps = 33.5e12, 1 << 28
+    decode = {"diag": 16, "swap": 32, "swap_lane": 48, "dense1": 64, "dense1_lane": 80}
+    for name, (key, per_amp) in {"reg": ("swap", 2), "lane": ("swap_lane", 3),
+                                 "extctrl": ("swap", 2), "dense1": ("dense1", 4),
+                                 "dense1_lane": ("dense1_lane", 5), "diag1": ("diag", 1)}.items():
+        d = floor.census_classes(16)[name]["descriptor"]
+        assert floor.decode_class(d) == key
+        c = floor.loop_census(d, decode)
+        assert c == {**floor.op_census(d), "INT": per_amp}, name
+        assert c["INT"] == decode[key] / 16
+    c = floor.loop_census(floor.census_classes(28)["reg"]["descriptor"], decode)
+    assert floor.op_floor_s(c, amps, rate) == pytest.approx((2 + 2) * amps / (rate / 2))
+    assert floor.op_floor_s(c, amps, rate, "alu_fast") == pytest.approx(4 * amps / rate)
+    remap = np.zeros(tgs.DESC_WORDS, np.int32)
+    remap[0] = tgs.D_REMAP
+    assert floor.decode_class(remap) is None and floor.loop_census(remap)["INT"] == 0
+    assert floor.loop_census(np.zeros(tgs.DESC_WORDS, np.int32)) is None
+    assert set(floor.DECODE) == set(decode)
+
+
+def test_plan_bound_and_loop_model():
+    # the bound sums each sweep's larger of bytes and ops floor; the loop
+    # model the same with the decode, which only adds
+    r = floor.plan_only(14)
+    for key, ops in (("max_bytes_ops_ms", "ops"), ("loop_model_ms", "loop")):
+        assert r[key] == pytest.approx(
+            [sum(max(s["bytes_ms"], s[f"{ops}_fast_sel_ms"]) for s in r["plan"]),
+             sum(max(s["bytes_ms"], s[f"{ops}_ms"]) for s in r["plan"])])
+    assert r["plan_bytes_ms"] <= r["max_bytes_ops_ms"][0] <= r["max_bytes_ops_ms"][1]
+    assert r["plan_ops_ms"] < r["plan_loop_ms"] and r["plan_ops_fast_sel_ms"] < r["plan_loop_fast_sel_ms"]
+    for c in r["classes"].values():
+        assert c["floor_us"] <= c["loop_us"] and c["decode"] > 0
+    bare = floor.plan_only(14, decode={k: 0 for k in floor.DECODE})
+    assert bare["plan_loop_ms"] == pytest.approx(bare["plan_ops_ms"])
+    assert bare["loop_model_ms"] == pytest.approx(bare["max_bytes_ops_ms"])
+
+
 @pytest.mark.parametrize("k", [1, 17, 256])
 def test_folded_rotation_is_the_chain(k):
     # chip_smoke.py times one torch.matmul of it as the chain's library call
@@ -287,3 +327,124 @@ def test_module_runs_on_the_cpu():
     assert "14q extctrl us/op [16->32]" in out
     out = run("--plan-only")
     assert "data sheet" in out and "28q plan: ops floor" in out and "a model" in out
+
+
+def test_stamp_summary_splits_a_step_by_op_class():
+    # rows as the stamp instance writes them: slot 0 the wait, 1 the first
+    # load, 2 + o op o's start, 2 + n_ops the last store's start, 3 + n_ops
+    # its end, the last slot the step's share of the global index
+    prog = floor.scale_program(14, "extctrl", 8)
+    (table,) = prog.tables
+    n_ops = int(table.ints[0])
+    ext = int(np.bitwise_or.reduce(floor.descriptors(table)[:, 4]))   # both control bits
+    rows = np.zeros((2, 3, n_ops + floor.STAMP_EXTRA), np.int64)
+    for b in range(2):
+        for j in range(2):                      # the third step is never written
+            row = rows[b, j]
+            row[0], row[1] = 1000, 1100
+            t = 1100 + np.cumsum([10 * (o + 1) for o in range(n_ops + 2)])
+            row[2:4 + n_ops] = t
+            row[-1] = ext if b else 0           # CTA 1's controls pass
+    s = floor.stamp_summary(table, rows)
+    assert s["steps"] == 4 and s["wait_cycles"] == 100 and s["ops"] == n_ops
+    assert s["store_cycles"] == 10 * (n_ops + 2)
+    # op o takes 10 (o + 2) cycles; on CTA 0 every op is skipped
+    assert s["class_counts"] == {"skipped": 2 * n_ops, "swap_ext": 2 * n_ops}
+    assert s["class_cycles"]["swap_ext"] == np.median([10 * (o + 2) for o in range(n_ops)])
+    with pytest.raises(ValueError, match="CUDA device"):
+        floor.stamps(14, device="cpu")
+
+
+def test_op_class_names_every_register_class():
+    names = {name: floor.op_class(cls["descriptor"]) for name, cls in floor.census_classes(16).items()}
+    assert names == {"reg": "swap_ctrl", "lane": "swap_lane_ctrl", "extctrl": "swap_ext",
+                     "dense1": "dense1", "dense1_lane": "dense1_lane", "diag1": "diag1"}
+    remap = np.zeros(tgs.DESC_WORDS, np.int32)
+    remap[0] = tgs.D_REMAP
+    assert floor.op_class(remap) == "remap"
+    assert floor.op_class(np.zeros(tgs.DESC_WORDS, np.int32)) == "smem"
+
+
+SASS = """
+\t\tFunction : _Z6kernelPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   PMTRIG 0x1 ;
+        /*0020*/                   LDS.128 R4, [R2] ;
+        /*0030*/              @P0 BRA 0xe0 ;
+        /*0040*/                   ISETP.NE.AND P1, PT, R4, RZ, PT ;
+        /*0050*/                   BRX R8 -0x60 ;
+        /*0060*/                   PMTRIG 0x2 ;
+        /*0070*/                   FSEL R10, R11, R12, P1 ;
+        /*0080*/                   BRA 0x100 ;
+        /*0090*/                   PMTRIG 0x20 ;
+        /*00a0*/                   STL [R1], R3 ;
+        /*00b0*/              @P3 BRA 0xb0 ;
+        /*00c0*/                   FMUL R3, R3, R4 ;
+        /*00d0*/                   BRA 0x100 ;
+        /*00e0*/                   STS [R1], R3 ;
+        /*00f0*/                   BRA 0x20 ;
+        /*0100*/                   IADD R5, R5, 1 ;
+        /*0110*/               @P2 BRA 0x10 ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_sass_class_census_of_a_listing():
+    # the loop's marker (pmevent 0 as the mask 0x1), a swap's (0x2) reached
+    # by the jump table, a diagonal's (0x20); the loop's tail is no class's
+    from tpu_qsim_torch.kernels import sass_census
+
+    (body,) = sass_census.parse_functions(SASS).values()
+    c = sass_census.class_census(body)
+    assert set(c) == {"swap", "diag"}
+    # the decode: LDS, the untaken branch, ISETP, BRX
+    assert c["swap"]["decode"] == [4] and c["swap"]["body"] == [2]
+    assert c["diag"]["decode"] == [4] and c["diag"]["body"] == [4]
+    assert c["diag"]["local"] == [1] and c["diag"]["opcodes"]["FMUL"] == 1
+
+
+def test_narrow_decode_reads_the_narrow_instance():
+    # classes() of the two marked instances (cores of up to 4 and 11 qubits)
+    from tpu_qsim_torch.kernels import sass_census
+
+    def cls(d):
+        return {"swap": {"decode": [d + 3, d]}, "diag": {"decode": [d - 30]}}
+
+    got = sass_census.narrow_decode({
+        "_ZN12_GLOBAL__N__23grid_sweep_stamp_kernelILi11ENS_5MarksEEEvPfS1_PKiPK6float2T0_": cls(90),
+        "_ZN12_GLOBAL__N__23grid_sweep_stamp_kernelILi4ENS_5MarksEEEvPfS1_PKiPK6float2T0_": cls(59)})
+    assert got == {"swap": 59, "diag": 29}
+
+
+def test_marks_match_ignores_markers_and_padding():
+    # the marked instance against the main library's instance of its width
+    from tpu_qsim_torch.kernels import sass_census
+
+    def listing(ops):
+        return [(16 * i, op, "") for i, op in enumerate(ops)]
+
+    def text(name, ops):
+        return f"\t\tFunction : {name}\n" + "".join(
+            f"        /*{16 * i:04x}*/                   {op} {'0x1' if op == 'PMTRIG' else 'R1'} ;\n"
+            for i, op in enumerate(ops))
+
+    class Build:
+        main = ["IMAD", "LDG", "FFMA", "STG", "EXIT", "NOP"]
+
+        def sass_listing(self, lib):
+            assert lib == "grid_sweep"
+            return {"_ZN12_GLOBAL__N__17grid_sweep_kernelILi4EEEvPf": listing(self.main)}
+
+        def sass_text(self, lib):
+            assert lib == "grid_sweep_stamps"
+            return (text("_ZN12_GLOBAL__N__23grid_sweep_stamp_kernelILi4ENS_5MarksEEEvPf",
+                         ["PMTRIG", "IMAD", "LDG", "PMTRIG", "FFMA", "STG", "EXIT", "NOP", "NOP"])
+                    + text("_ZN12_GLOBAL__N__23grid_sweep_stamp_kernelILi4ENS_9StampRowsEEEvPf",
+                           ["IMAD", "CS2R", "STG", "EXIT"]))
+
+    (m,) = sass_census.marks_match(Build()).values()
+    assert m == {"equal": True, "same_order": True, "marked": 5, "main": 5, "nops": [2, 1],
+                 "differ": {}}
+    Build.main = ["LDG", "IMAD", "FFMA", "FFMA", "STG", "EXIT"]
+    (m,) = sass_census.marks_match(Build()).values()
+    assert not m["equal"] and not m["same_order"] and m["differ"] == {"FFMA": [1, 2]}

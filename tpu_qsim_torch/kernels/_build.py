@@ -32,14 +32,24 @@ NVCC_FLAGS = (
 # libraries whose kernels use sm_90a-only instructions (wgmma): -arch=sm_90a
 # emits compute_90 PTX, which ptxas refuses them in
 ARCH_FLAGS = {"dense_pass": ("-gencode", "arch=compute_90a,code=sm_90a")}
+# libraries built from another library's source with a macro: the grid
+# sweep's stamp instance (kernels/floor.py --stamps), which no main path
+# builds or launches
+VARIANTS = {"grid_sweep_stamps": ("grid_sweep", ("-DQSIM_STAMPS",))}
+
+
+def source(name: str) -> Path:
+    """The ``csrc/*.cu`` file library ``name`` is built from."""
+    return CSRC / f"{VARIANTS.get(name, (name,))[0]}.cu"
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:
-    """The flags ``csrc/<name>.cu`` is built with."""
+    """The flags library ``name`` is built with."""
+    flags = NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
     arch = ARCH_FLAGS.get(name)
     if arch is None:
-        return NVCC_FLAGS
-    return tuple(f for f in NVCC_FLAGS if f != "-arch=sm_90a") + arch
+        return flags
+    return tuple(f for f in flags if f != "-arch=sm_90a") + arch
 BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -65,6 +75,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "grid_sweep": {
         # state, dim, table, coef, kbits, steps, max_core, stream
         "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P],
+    },
+    "grid_sweep_stamps": {
+        "grid_sweep_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P],
+        # ..., max_core, stamps, stamp_ctas, stamp_steps, one_per_sm, stream
+        "grid_sweep_stamp_launch": [_P, _LL, _P, _P, _I, _LL, _I, _P, _I, _I, _I, _P],
     },
     "segment": {
         # local_bits, wide, int* ctas
@@ -93,7 +108,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
 
 def library_path(name: str) -> Path:
     key = hashlib.sha256()
-    key.update((CSRC / f"{name}.cu").read_bytes())
+    key.update(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         key.update(header.name.encode() + header.read_bytes())
     key.update(" ".join(nvcc_flags(name)).encode())
@@ -101,13 +116,14 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile library ``name`` (``csrc/<name>.cu``, or a variant's source)
+    unless it is already built."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(source(name))]
     t0 = time.perf_counter()
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
@@ -142,7 +158,7 @@ def library(name: str) -> ctypes.CDLL:
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            err = getattr(lib, f"{source(name).stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -152,12 +168,20 @@ def library(name: str) -> ctypes.CDLL:
 def check(name: str, lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise RuntimeError when a launch function returned non-zero."""
     if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        msg = getattr(lib, f"{source(name).stem}_error_string")(err).decode()
         raise RuntimeError(f"{what} failed: {msg} ({err})")
 
 
 _SASS_LINE = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)(?:\.[A-Z0-9_]+)*\s*([^;]*);")
+
+
+def sass_text(name: str) -> str:
+    """``cuobjdump -sass`` of library ``name``'s build (built first)."""
+    lib = build(name)
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
 
 
 def sass_listing(name: str) -> dict[str, list[tuple[int, str, str]]]:
@@ -166,10 +190,7 @@ def sass_listing(name: str) -> dict[str, list[tuple[int, str, str]]]:
     ``cuobjdump -sass`` beside ``nvcc``. A device function that is not
     inlined is compiled into each kernel that calls it, after the caller's
     code, and reached by CALL."""
-    lib = build(name)
-    tool = Path(_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    sass = sass_text(name)
     out: dict[str, list[tuple[int, str, str]]] = {}
     body = None
     for line in sass.splitlines():

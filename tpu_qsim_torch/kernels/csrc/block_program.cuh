@@ -176,6 +176,18 @@ struct QubitBit {
   }
 };
 
+// run_block's op boundaries, for a measurement build (grid_sweep.cu's
+// stamp and marked instances): NoStamp everywhere else, which compiles to
+// nothing. Stamp(slot): slot 2 + o is the start of op o, 2 + n_ops the
+// last store's start and 3 + n_ops its end; slots 0 and 1 are the
+// caller's (the block's wait and its first load). Stamp::mark<id>() marks
+// where the op loop and an op class's code start in the SASS.
+struct NoStamp {
+  __device__ __forceinline__ void operator()(int) const {}
+  template <int ID>
+  __device__ __forceinline__ void mark() const {}
+};
+
 __device__ __forceinline__ void cmul(float& r, float& i, float2 c) {
   const float a = r, b = i;
   r = fmaf(c.x, a, -c.y * b);
@@ -313,13 +325,18 @@ __device__ __forceinline__ void lane_swap(Regs& x, const Ctrl& ctrl, int b) {
   case 2: CALL(2); break;    \
   case 3: CALL(3); break;
 
+// The SASS markers of the op classes (Stamp::mark, the measurement build).
+enum OpMark { MARK_LOOP = 0, MARK_SWAP, MARK_SWAP_LANE, MARK_DENSE1, MARK_DENSE1_LANE, MARK_DIAG };
+
+template <class Stamp>
 __device__ __forceinline__ void reg_op(Regs& x, const int4 d0,
                                        const int4 d1, const int* op,
                                        const float2* coef, unsigned lane,
-                                       unsigned cta_g) {
+                                       unsigned cta_g, const Stamp& stamp) {
   const int flags = d0.x;
   const float2* u = coef + d0.y;
   if (flags & D_DIAG) {
+    stamp.template mark<MARK_DIAG>();
     reg_diag(x, op, flags, d1.w, u, cta_g);
     return;
   }
@@ -327,17 +344,19 @@ __device__ __forceinline__ void reg_op(Regs& x, const int4 d0,
   const int target = d1.z;
   if (flags & D_SWAP) {
     if (!(flags & D_LANE)) {
-#define QSIM_CALL(P) reg_swap<P>(x, ctrl)
+#define QSIM_CALL(P) stamp.template mark<MARK_SWAP>(); reg_swap<P>(x, ctrl)
       switch (target) { QSIM_POS_CASES(QSIM_CALL) }
 #undef QSIM_CALL
     } else {
+      stamp.template mark<MARK_SWAP_LANE>();
       lane_swap(x, ctrl, target);
     }
   } else if (!(flags & D_LANE)) {
-#define QSIM_CALL(P) reg_dense1<P>(x, u, ctrl)
+#define QSIM_CALL(P) stamp.template mark<MARK_DENSE1>(); reg_dense1<P>(x, u, ctrl)
     switch (target) { QSIM_POS_CASES(QSIM_CALL) }
 #undef QSIM_CALL
   } else {
+    stamp.template mark<MARK_DENSE1_LANE>();
     lane_dense1(x, u, ctrl, lane, target);
   }
 }
@@ -402,7 +421,7 @@ struct BlockShape {
 // them hold no values and only share the barriers and the shared-memory ops
 // (load_first must skip them too).
 template <int MAXM, bool STREAM, bool SPARE = false, class Scratch, class LoadFirst,
-          class Store>
+          class Store, class Stamp = NoStamp>
 __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           float* __restrict__ im,
                                           const int* __restrict__ table,
@@ -411,7 +430,8 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
                                           unsigned cta_g, float* sr, float* si,
                                           const Scratch& scratch,
                                           LoadFirst&& load_first,
-                                          const Store& store) {
+                                          const Store& store,
+                                          const Stamp& stamp = Stamp()) {
   const int n_ops = shape.n_ops;
   const int kbits = shape.kbits;
   const unsigned size = shape.size;
@@ -435,6 +455,8 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
         read_smem = true;
       }
       for (; o < n_ops; ++o) {
+        stamp(2 + o);
+        stamp.template mark<MARK_LOOP>();
         const int* op = table + SWEEP_HEADER + o * OP_HEADER;
         const int4* dp = reinterpret_cast<const int4*>(desc + o * DESC_WORDS);
         const int4 d0 = __ldg(dp), d1 = __ldg(dp + 1);
@@ -450,10 +472,11 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
         }
         if ((cta_g & (unsigned)d1.x) != (unsigned)d1.y) continue;
         if (!(d0.x & D_REG)) break;
-        if (holds) reg_op(x, d0, d1, op, coef, lane, cta_g);
+        if (holds) reg_op(x, d0, d1, op, coef, lane, cta_g, stamp);
       }
       if (o == n_ops) {
         if (!holds) return;
+        stamp(2 + n_ops);
         unsigned gm[R];
 #pragma unroll
         for (int b = 0; b < R; ++b) gm[b] = store.bits(x.rm[b]);
@@ -469,6 +492,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
             im[g] = x.i[v];
           }
         }
+        stamp(3 + n_ops);
         return;
       }
       if (read_smem) __syncthreads();
@@ -477,6 +501,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
     }
     // a run of shared-memory ops
     for (; o < n_ops; ++o) {
+      stamp(2 + o);
       const int* op = table + SWEEP_HEADER + o * OP_HEADER;
       const int flags = desc[o * DESC_WORDS];
       if (flags & D_REMAP) {
@@ -489,6 +514,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
       __syncthreads();
     }
     if (o == n_ops) {
+      stamp(2 + n_ops);
 #pragma unroll 4
       for (unsigned l = threadIdx.x; l < size; l += blockDim.x) {
         const unsigned g = store.at(l);
@@ -500,24 +526,27 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
           im[g] = si[l];
         }
       }
+      stamp(3 + n_ops);
       return;
     }
   }
 }
 
 // run_block storing to the block's own slots, in place.
-template <int MAXM, bool STREAM, bool SPARE = false, class Scratch, class LoadFirst>
-__device__ __forceinline__ void run_block(float* __restrict__ re,
-                                          float* __restrict__ im,
-                                          const int* __restrict__ table,
-                                          const BlockShape& shape,
-                                          const float2* __restrict__ coef,
-                                          unsigned cta_g, float* sr, float* si,
-                                          const Scratch& scratch,
-                                          LoadFirst&& load_first) {
+template <int MAXM, bool STREAM, bool SPARE = false, class Scratch, class LoadFirst,
+          class Stamp = NoStamp>
+__device__ __forceinline__ void run_block_in_place(float* __restrict__ re,
+                                                   float* __restrict__ im,
+                                                   const int* __restrict__ table,
+                                                   const BlockShape& shape,
+                                                   const float2* __restrict__ coef,
+                                                   unsigned cta_g, float* sr, float* si,
+                                                   const Scratch& scratch,
+                                                   LoadFirst&& load_first,
+                                                   const Stamp& stamp = Stamp()) {
   run_block<MAXM, STREAM, SPARE>(re, im, table, shape, coef, cta_g, sr, si,
                                  scratch, load_first,
-                                 BlockStore{shape.blk, shape.a, table + 16, cta_g});
+                                 BlockStore{shape.blk, shape.a, table + 16, cta_g}, stamp);
 }
 
 }  // namespace qsim

@@ -54,15 +54,13 @@ __device__ __forceinline__ unsigned step_bits(unsigned step, int n_inact,
 // c, c + gridDim.x, ...; while it runs one step's ops, the next step's block
 // streams into the second buffer (pr, pi) with cp.async, so loads overlap
 // the ops; the last store goes from registers straight to device memory.
-// The narrow instance runs at 64 registers, so that two CTAs of
-// MAX_THREADS fit an SM where shared memory allows (128 registers were 10%
-// slower at 28 qubits on the H100); the wide one at 128, which the tiled op
-// needs (at 64 it spilled and took 1.8x the time).
-template <int MAXM>
-__global__ void __launch_bounds__(MAX_THREADS, MAXM <= NARROW_CORE ? 2 : 1)
-grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
-                  const int* __restrict__ table,
-                  const float2* __restrict__ coef) {
+// `stamp_at(j, steps, n_ops, g)` gives the CTA's step j (its share g of the
+// global index) a block_program.cuh stamp: NoStamp, which compiles to
+// nothing, but in the measurement build.
+template <int MAXM, class StampAt>
+__device__ __forceinline__ void sweep(float* __restrict__ re, float* __restrict__ im,
+                                      const int* __restrict__ table,
+                                      const float2* __restrict__ coef, const StampAt& stamp_at) {
   QSIM_DYNAMIC_SHARED(float4, smem4);
   check_core_width<MAXM>(table);
   if (table[HEADER_REG_BITS] != R) __trap();
@@ -85,42 +83,157 @@ grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
   if (step < steps)
     prefetch_block(pr, pi, re, im, size, blk, a, active,
                    step_bits(step, n_inact, inact));
-  for (; step < steps; step += gridDim.x) {
-    run_block<MAXM, true>(re, im, table, shape, coef, step_bits(step, n_inact, inact),
-                          sr, si, scratch, [&](Regs& x) {
+  for (unsigned j = 0; step < steps; step += gridDim.x, ++j) {
+    const auto stamp = stamp_at(j, steps, shape.n_ops, step_bits(step, n_inact, inact));
+    stamp(0);
+    run_block_in_place<MAXM, true>(re, im, table, shape, coef, step_bits(step, n_inact, inact),
+                                   sr, si, scratch, [&](Regs& x) {
       cp_async_wait<0>();
       __syncthreads();  // the step's block is in (pr, pi); (sr, si) is free
       x.load(pr, pi);
+      stamp(1);
       __syncthreads();  // every thread has its values: prefetch the next
       if (step + gridDim.x < steps)
         prefetch_block(pr, pi, re, im, size, blk, a, active,
                        step_bits(step + gridDim.x, n_inact, inact));
-    });
+    }, stamp);
   }
 }
 
+struct Unstamped {
+  __device__ __forceinline__ NoStamp operator()(unsigned, unsigned, int, unsigned) const {
+    return {};
+  }
+};
+
+// The narrow instance runs at 64 registers, so that two CTAs of
+// MAX_THREADS fit an SM where shared memory allows (128 registers were 10%
+// slower at 28 qubits on the H100); the wide one at 128, which the tiled op
+// needs (at 64 it spilled and took 1.8x the time).
 template <int MAXM>
-int launch(float* state, long long dim, const int* table, const float* coef,
-           int kbits, long long steps, int threads, cudaStream_t stream) {
-  size_t smem = (size_t)4 * sizeof(float) << kbits;  // block and prefetch
+__global__ void __launch_bounds__(MAX_THREADS, MAXM <= NARROW_CORE ? 2 : 1)
+grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
+                  const int* __restrict__ table,
+                  const float2* __restrict__ coef) {
+  sweep<MAXM>(re, im, table, coef, Unstamped());
+}
+
+#ifdef QSIM_STAMPS
+// The measurement build (kernels/floor.py --stamps, kernels/sass_census.py
+// --classes), which no main path builds or launches: the same sweep with
+//  - StampRows: thread 0 of CTAs below `ctas` writes clock64() at the op
+//    boundaries (block_program.cuh's slots) of `steps` of its steps,
+//    spread evenly over its run, and the step's share of the global index
+//    after them: a row of n_ops + 5 values a step at
+//    at[(cta * steps + j) * (n_ops + 5)];
+//  - Marks (compiled, never launched): a pmevent where the op loop and each
+//    op class's code start, for the SASS census.
+struct ClockStamp {
+  long long* row;  // null: not stamped
+  __device__ __forceinline__ void operator()(int slot) const {
+    if (row) row[slot] = clock64();
+  }
+  template <int ID>
+  __device__ __forceinline__ void mark() const {}
+};
+struct StampRows {
+  long long* at;
+  int ctas, steps;
+  __device__ __forceinline__ ClockStamp operator()(unsigned j, unsigned n_steps, int n_ops,
+                                                   unsigned g) const {
+    const unsigned every = n_steps / gridDim.x / (steps > 0 ? steps : 1);
+    const unsigned stride = every > 0 ? every : 1;
+    if (threadIdx.x != 0 || (int)blockIdx.x >= ctas || j % stride != 0 ||
+        (int)(j / stride) >= steps)
+      return {nullptr};
+    long long* row = at + ((long long)blockIdx.x * steps + j / stride) * (n_ops + 5);
+    row[n_ops + 4] = g;
+    return {row};
+  }
+};
+struct MarkStamp {
+  __device__ __forceinline__ void operator()(int) const {}
+  template <int ID>
+  __device__ __forceinline__ void mark() const {
+    pm_marker<ID>();
+  }
+};
+struct Marks {
+  __device__ __forceinline__ MarkStamp operator()(unsigned, unsigned, int, unsigned) const {
+    return {};
+  }
+};
+
+template <int MAXM, class StampAt>
+__global__ void __launch_bounds__(MAX_THREADS, MAXM <= NARROW_CORE ? 2 : 1)
+grid_sweep_stamp_kernel(float* __restrict__ re, float* __restrict__ im,
+                        const int* __restrict__ table, const float2* __restrict__ coef,
+                        const StampAt stamp_at) {
+  sweep<MAXM>(re, im, table, coef, stamp_at);
+}
+template __global__ void grid_sweep_stamp_kernel<NARROW_CORE, Marks>(float*, float*, const int*,
+                                                                     const float2*, const Marks);
+template __global__ void grid_sweep_stamp_kernel<MAX_CORE, Marks>(float*, float*, const int*,
+                                                                  const float2*, const Marks);
+#endif
+
+// The dynamic shared memory of an instance: the block and its prefetch, and
+// the wide instance's tile scratch.
+template <int MAXM>
+size_t block_smem(int kbits) {
+  size_t smem = (size_t)4 * sizeof(float) << kbits;
   if (MAXM > NARROW_CORE) smem += tile_scratch_bytes(1u << kbits);
-  cudaError_t err = cudaFuncSetAttribute(
-      grid_sweep_kernel<MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  return smem;
+}
+
+// Launch `kernel` on as many CTAs as the card keeps resident at `smem`
+// bytes each (at most `steps`).
+template <class... StampAt>
+int launch(void (*kernel)(float*, float*, const int*, const float2*, StampAt...), float* state,
+           long long dim, const int* table, const float* coef, long long steps, int threads,
+           size_t smem, cudaStream_t stream, StampAt... stamp_at) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, grid_sweep_kernel<MAXM>, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long resident = (long long)per_sm * sms;
   const unsigned grid = (unsigned)(steps < resident ? steps : resident);
-  return (int)launch_kernel(grid_sweep_kernel<MAXM>, grid, threads, smem, stream, state,
-                            state + dim, table, reinterpret_cast<const float2*>(coef));
+  return (int)launch_kernel(kernel, grid, threads, smem, stream, state, state + dim, table,
+                            reinterpret_cast<const float2*>(coef), stamp_at...);
 }
+
+bool valid_launch(int kbits, int max_core, int* threads) {
+  *threads = kbits >= LANE_BITS + R ? 1 << (kbits - R) : 0;
+  return max_core <= MAX_CORE && *threads >= 32 && *threads <= MAX_THREADS &&
+         threads_fit_core(*threads, max_core);
+}
+
+#ifdef QSIM_STAMPS
+// The stamp instance at `one_per_sm` (0 or 1): a CTA takes the most shared
+// memory a CTA may have, so that one fits an SM.
+template <int MAXM>
+int stamp_launch(float* state, long long dim, const int* table, const float* coef, int kbits,
+                 long long steps, int threads, cudaStream_t stream, StampRows rows,
+                 int one_per_sm) {
+  size_t smem = block_smem<MAXM>(kbits);
+  if (one_per_sm) {
+    int dev = 0, most = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    if ((size_t)most > smem) smem = most;
+  }
+  return launch(grid_sweep_stamp_kernel<MAXM, StampRows>, state, dim, table, coef, steps,
+                threads, smem, stream, rows);
+}
+#endif
 
 }  // namespace
 
@@ -135,17 +248,38 @@ extern "C" int grid_sweep_launch(float* state, long long dim,
                                  const int* table, const float* coef,
                                  int kbits, long long steps, int max_core,
                                  void* stream) {
-  const int threads = kbits >= LANE_BITS + R ? 1 << (kbits - R) : 0;
-  if (max_core > MAX_CORE || threads < 32 || threads > MAX_THREADS ||
-      !threads_fit_core(threads, max_core))
-    return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  if (!valid_launch(kbits, max_core, &threads)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return max_core <= NARROW_CORE
-             ? launch<NARROW_CORE>(state, dim, table, coef, kbits, steps,
-                                   threads, s)
-             : launch<MAX_CORE>(state, dim, table, coef, kbits, steps, threads,
-                                s);
+             ? launch(grid_sweep_kernel<NARROW_CORE>, state, dim, table, coef, steps, threads,
+                      block_smem<NARROW_CORE>(kbits), s)
+             : launch(grid_sweep_kernel<MAX_CORE>, state, dim, table, coef, steps, threads,
+                      block_smem<MAX_CORE>(kbits), s);
 }
+
+#ifdef QSIM_STAMPS
+// The stamp instance (kernels/floor.py --stamps): grid_sweep_launch's sweep,
+// with clock64() rows of `stamp_steps` steps (spread over each CTA's run) of
+// CTAs below `stamp_ctas` written to `stamps` (int64, zeroed by the caller),
+// at as many CTAs an SM as fit, or with `one_per_sm` one.
+extern "C" int grid_sweep_stamp_launch(float* state, long long dim, const int* table,
+                                       const float* coef, int kbits, long long steps,
+                                       int max_core, long long* stamps, int stamp_ctas,
+                                       int stamp_steps, int one_per_sm, void* stream) {
+  int threads = 0;
+  if (!valid_launch(kbits, max_core, &threads) || stamp_ctas < 0 || stamp_steps < 0 ||
+      (one_per_sm != 0 && one_per_sm != 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const StampRows rows{stamps, stamp_ctas, stamp_steps};
+  return max_core <= NARROW_CORE
+             ? stamp_launch<NARROW_CORE>(state, dim, table, coef, kbits, steps, threads, s, rows,
+                                         one_per_sm)
+             : stamp_launch<MAX_CORE>(state, dim, table, coef, kbits, steps, threads, s, rows,
+                                      one_per_sm);
+}
+#endif
 
 extern "C" const char* grid_sweep_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

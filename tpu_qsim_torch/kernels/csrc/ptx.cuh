@@ -163,6 +163,14 @@ __device__ __forceinline__ void fence_operands(uint32_t (&f)[4][4]) {
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i / 4][i % 4])::"memory");
 }
 
+// A performance-monitor event of id ID (0-15): the measurement build's marker
+// of where an op class's code starts, found in the SASS as PMTRIG
+// (kernels/sass_census.py --classes); no main path builds it.
+template <int ID>
+__device__ __forceinline__ void pm_marker() {
+  asm volatile("pmevent %0;" ::"n"(ID) : "memory");
+}
+
 // a word of device memory, read with acquire order at GPU scope
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;

@@ -159,7 +159,7 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
             prefetch_block(pr, pi, re, im, shape.size, shape.blk, shape.a,
                            sub + 16, unit_g | deposit_bits(t, outside));
           for (; t < n_tiles; t += members) {
-            run_block<NARROW_CORE, false, SPARE>(
+            run_block_in_place<NARROW_CORE, false, SPARE>(
                 re, im, sub, shape, sc, unit_g | deposit_bits(t, outside), sr,
                 si, scratch, [&](Regs& x) {
                   cp_async_wait<0>();
@@ -176,7 +176,7 @@ sweep_kernel(float* __restrict__ re, float* __restrict__ im,
           for (unsigned t = part.index; t < n_tiles; t += members) {
             const unsigned tile_g = unit_g | deposit_bits(t, outside);
             __syncthreads();  // the last tile's reads of (sr, si) are done
-            run_block<NARROW_CORE, false>(
+            run_block_in_place<NARROW_CORE, false>(
                 re, im, sub, shape, sc, tile_g, sr, si, scratch, [&](Regs& x) {
                   x.load_global(re, im, shape.blk, shape.a, sub + 16, tile_g);
                 });

@@ -2,8 +2,8 @@
 time split into streaming, exposed compute and cost per op.
 
     python -m tpu_qsim_torch.kernels.floor [--vpu N] [--decompose N]
-        [--scale N --flavor {reg,lane,extctrl}] [--plan-only [--rate T]]
-        [--device cpu]
+        [--scale N --flavor {reg,lane,extctrl}] [--stamps N]
+        [--plan-only [--rate T]] [--device cpu]
 
 The port of ``benchmarks/benchmark_floor.py``. Modes:
 
@@ -30,10 +30,20 @@ The port of ``benchmarks/benchmark_floor.py``. Modes:
   bit: a warp shuffle), ``extctrl`` (the control an inactive high bit: a
   CTA-uniform test). Each op's descriptor flags are checked, so the planner
   cannot move an op into another class.
+* ``--stamps N`` (the card only): the grid sweep's stamp instance
+  (``csrc/grid_sweep.cu`` built with ``QSIM_STAMPS``, library
+  ``grid_sweep_stamps``, which no main path builds or launches) on each
+  sweep of the production plan and on ``--scale``'s 32 CNOTs of each
+  flavor: thread 0 of 64 CTAs writes ``clock64()`` at each op boundary of 8
+  of its steps, spread over its run; printed per sweep as warp 0's cycles a
+  step (the wait for its block, the ops, the last store) and the median
+  cycles of an op of each class (``op_class``), at full occupancy and at one
+  CTA an SM: an op's latency against the SM's throughput.
 * ``--plan-only`` (no card): the float32, select, shuffle and shared-memory
   instructions per amplitude of each register-op class, counted by hand
-  from the op semantics in ``csrc/block_program.cuh`` (a model: nothing
-  ties the count to the compiled grid sweep) and cross-checked against
+  from the op semantics in ``csrc/block_program.cuh``, and the op loop's
+  own instructions an op (its decode, from ``sass_census --classes`` on the
+  card) over a thread's 16 amplitudes; a model, cross-checked against
   ``fused_circuit.min_flops``, and the model's N = 28 floor per op and per
   sweep of the production plan at a rate (``--rate``, T float32
   instructions/s, measured by ``--vpu``; else the data sheet's 67 TFLOP/s,
@@ -420,8 +430,157 @@ def scale(n: int, flavor: str, device=None, ks=SCALE_KS) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --stamps: clock64() at each op boundary of sampled CTAs
+# ---------------------------------------------------------------------------
+
+STAMP_CTAS = 64        # CTAs whose thread 0 stamps (spread over the SMs)
+STAMP_STEPS = 8        # steps of each, spread over its run
+STAMP_EXTRA = 5        # a row's slots past the ops: see grid_sweep.cu's ClockStamp
+OCCUPANCIES = {"full": 0, "one_cta_per_sm": 1}
+
+
+def op_class(d: np.ndarray) -> str:
+    """The class of the op with descriptor ``d``, as the stamps and the SASS
+    census group ops: ``remap``, ``smem`` (an op in shared memory),
+    ``diag1``/``diag2``/``diag_wide``, ``swap``/``dense1`` with ``_lane``
+    for a lane target, ``_ctrl`` for block-local controls and ``_ext`` for
+    out-of-block ones."""
+    flags = int(d[0])
+    if flags & D_REMAP:
+        return "remap"
+    if not flags & D_REG:
+        return "smem"
+    if flags & D_DIAG:
+        if flags & D_WIDE_DIAG:
+            return "diag_wide"
+        return f"diag{int(d[7]) & 0xFF}"
+    name = "swap" if flags & D_SWAP else "dense1"
+    if flags & D_LANE:
+        name += "_lane"
+    if int(d[2]):
+        name += "_ctrl"
+    if int(d[4]):
+        name += "_ext"
+    return name
+
+
+def stamp_rows(prog: GridSweepProgram, x: torch.Tensor, one_per_sm: int,
+               ctas: int = STAMP_CTAS, steps: int = STAMP_STEPS) -> list[np.ndarray]:
+    """Run ``prog`` on ``x`` (in place) through the grid sweep's stamp
+    instance (``csrc/grid_sweep.cu`` built with ``QSIM_STAMPS``), at as
+    many CTAs an SM as fit or (``one_per_sm`` 1) one; each sweep's stamps as
+    a (ctas, steps, n_ops + STAMP_EXTRA) int64 array, rows never written 0.
+    Each launch counts in ``LAUNCHES["grid_sweep_stamps"]``."""
+    from . import _build
+
+    lib = _build.library("grid_sweep_stamps")
+    out = []
+    for (ints, coef), lay, table in zip(prog._tables_on(x.device), prog.layouts, prog.tables):
+        n_ops = int(table.ints[0])
+        buf = torch.zeros((ctas, steps, n_ops + STAMP_EXTRA), dtype=torch.int64, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.grid_sweep_stamp_launch(
+                x.data_ptr(), 1 << lay.n, ints.data_ptr(), coef.data_ptr(), lay.kbits,
+                1 << len(lay.inactive), table.max_core, buf.data_ptr(), ctas, steps, one_per_sm,
+                stream)
+        _build.check("grid_sweep_stamps", lib, err, "grid_sweep stamp launch")
+        LAUNCHES["grid_sweep_stamps"] += 1
+        out.append(buf.cpu().numpy())
+    return out
+
+
+def stamp_summary(table: OpTable, rows: np.ndarray) -> dict:
+    """Cycles of warp 0 of each stamped step: the wait for its block and
+    first load (slots 0-1), each op (slot 2 + o to the next boundary) by
+    class, and the last store; an op whose out-of-block controls fail on
+    the step's block (the row's last slot holds its share of the global
+    index) is counted apart, as ``skipped``."""
+    n_ops = int(table.ints[0])
+    descs = descriptors(table)
+    classes = [op_class(d) for d in descs]
+    ext = [(int(d[4]) & 0xFFFFFFFF, int(d[5]) & 0xFFFFFFFF) for d in descs]
+    by_class: dict[str, list[int]] = {}
+    wait, ops, store = [], [], []
+    for row in rows.reshape(-1, rows.shape[-1]):
+        if not row[0]:
+            continue
+        cta_g = int(row[-1]) & 0xFFFFFFFF
+        wait.append(int(row[1] - row[0]))
+        ops.append(int(row[2 + n_ops] - row[2]) if n_ops else 0)
+        store.append(int(row[3 + n_ops] - row[2 + n_ops]))
+        for o in range(n_ops):
+            dt = int(row[3 + o] - row[2 + o])
+            name = classes[o] if (cta_g & ext[o][0]) == ext[o][1] else "skipped"
+            by_class.setdefault(name, []).append(dt)
+    med = (lambda v: float(np.median(v)) if v else None)
+    return {"steps": len(wait), "wait_cycles": med(wait), "ops_cycles": med(ops),
+            "store_cycles": med(store), "ops": n_ops,
+            "class_cycles": {k: med(v) for k, v in sorted(by_class.items())},
+            "class_counts": {k: len(v) for k, v in sorted(by_class.items())}}
+
+
+def stamp_programs(n: int) -> dict:
+    """The programs ``--stamps`` runs: each sweep of the production plan of
+    ``random_circuit(n, 100, seed)``, and ``--scale``'s 32 CNOTs of each
+    flavor."""
+    progs = decompose_programs(n)
+    out = {f"sweep{i}": p for i, p in enumerate(progs["sweeps"])}
+    out.update({f"scale_{f}": scale_program(n, f, SCALE_KS[-1]) for f in SCALE_FLAVORS})
+    return out
+
+
+def stamps(n: int, device=None) -> dict:
+    """``--stamps``: each of :func:`stamp_programs` through the stamp
+    instance at full occupancy and at one CTA an SM (latency against
+    throughput), summarised per sweep and per op class in cycles of warp 0;
+    with the SM clock read under load."""
+    dev = ap.resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("--stamps reads clock64() on the card: it needs a CUDA device")
+    x = ap.initial_state(n, np.float32, device=dev)
+    out = {"n": n, "device": str(dev), "ctas": STAMP_CTAS, "steps": STAMP_STEPS, "programs": {}}
+    progs = stamp_programs(n)
+    for name, prog in progs.items():
+        res = {}
+        for occ, one_per_sm in OCCUPANCIES.items():
+            stamp_rows(prog, x, one_per_sm)           # warm-up
+            rows = stamp_rows(prog, x, one_per_sm)
+            res[occ] = [stamp_summary(t, r) for t, r in zip(prog.tables, rows)]
+        out["programs"][name] = res
+    for _ in range(200):
+        progs["sweep0"].run(x)
+    out["sm_clock_mhz"], out["sm_clock_max_mhz"] = sm_clocks()
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def print_stamps(r: dict) -> None:
+    for name, res in r["programs"].items():
+        for occ, sweeps in res.items():
+            for i, s in enumerate(sweeps):
+                classes = ", ".join(f"{k} {v:.0f} (x{s['class_counts'][k]})"
+                                    for k, v in s["class_cycles"].items())
+                print(f"{r['n']}q stamps {name}[{i}] {occ}: {s['steps']} steps, cycles a step: wait "
+                      f"{s['wait_cycles']:.0f}, {s['ops']} ops {s['ops_cycles']:.0f}, store "
+                      f"{s['store_cycles']:.0f}; median cycles an op: {classes}", flush=True)
+    print(f"SM clock under load {r['sm_clock_mhz']:.0f} MHz (max {r['sm_clock_max_mhz']:.0f})",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 # --plan-only: instructions per amplitude of each register-op class
 # ---------------------------------------------------------------------------
+
+# The op loop's own instructions a thread issues for a register op before
+# its class's code starts (its descriptor loads, tests and dispatch): the
+# fewest of each class in the narrow grid sweep's SASS, as ``sass_census
+# --classes`` counts them in the measurement build's marked instance
+# (``chip_smoke.py`` fails where the build no longer has these counts).
+# Work of the compiled loop, not of the function: only ``loop_census``
+# (the loop model) counts it, never a bound.
+DECODE = {"diag": 31, "swap": 62, "swap_lane": 62, "dense1": 61, "dense1_lane": 61}
+
 
 def op_census(d: np.ndarray) -> dict | None:
     """Instructions per amplitude of the register op with descriptor ``d``,
@@ -459,6 +618,29 @@ def op_census(d: np.ndarray) -> dict | None:
     return c
 
 
+def decode_class(d: np.ndarray) -> str | None:
+    """``DECODE``'s key for the register op with descriptor ``d`` (None for
+    a remap or an op in shared memory)."""
+    flags = int(d[0])
+    if flags & D_REMAP or not flags & D_REG:
+        return None
+    if flags & D_DIAG:
+        return "diag"
+    return ("swap" if flags & D_SWAP else "dense1") + ("_lane" if flags & D_LANE else "")
+
+
+def loop_census(d: np.ndarray, decode: dict = DECODE) -> dict | None:
+    """The loop model: :func:`op_census` plus INT, the op's decode
+    (``decode``, a thread's instructions over its 16 amplitudes; integer
+    pipe), which the compiled op loop issues and the function does not
+    need."""
+    c = op_census(d)
+    if c is not None:
+        key = decode_class(d)
+        c["INT"] = decode[key] / 16 if key else 0
+    return c
+
+
 def census_flops(c: dict) -> int:
     return c["FMUL"] + 2 * c["FFMA"]
 
@@ -472,10 +654,10 @@ def ctrl_share(d: np.ndarray) -> float:
 def op_floor_s(c: dict, amps: float, instr_per_s: float, alu: str = "alu") -> float:
     """The model's least seconds of ``c``'s instructions on ``amps``
     amplitudes: the larger of their issue (one instruction a lane a clock)
-    and each pipe's share of the float32 rate (``PIPE_SHARE``; selects at
-    ``PIPE_SHARE[alu]``)."""
+    and each pipe's share of the float32 rate (``PIPE_SHARE``; selects, and
+    a loop census's decode, at ``PIPE_SHARE[alu]``)."""
     fp32 = c["FMUL"] + c["FFMA"]
-    sel = c["SEL"]
+    sel = c["SEL"] + c.get("INT", 0)
     mio = c["SHFL"] + c["LDS"] + c["STS"]
     lanes = max(fp32 + sel + mio, fp32 / PIPE_SHARE["fp32"], sel / PIPE_SHARE[alu],
                 mio / PIPE_SHARE["mio"])
@@ -501,34 +683,42 @@ def census_classes(n: int = 28) -> dict:
     return out
 
 
-def plan_floor(prog: GridSweepProgram, instr_per_s: float) -> list[dict]:
+def plan_floor(prog: GridSweepProgram, instr_per_s: float, decode: dict = DECODE) -> list[dict]:
     """Per sweep of ``prog``: its bytes time, and the model's floor of its
     register ops and remaps (each op's census on its share of CTAs), with
     selects at half (``ops_ms``) and at the full float32 rate
-    (``ops_fast_sel_ms``); a shared-memory op is counted, not priced."""
+    (``ops_fast_sel_ms``); the same with each op's decode (``decode``;
+    ``loop_ms``, ``loop_fast_sel_ms``: the loop model); a shared-memory op
+    is counted, not priced."""
     amps = 1 << prog.num_qubits
     out = []
     for table in prog.tables:
-        ops_s, fast_s, smem_ops, n_ops = 0.0, 0.0, 0, 0
+        ms = {"ops_ms": 0.0, "ops_fast_sel_ms": 0.0, "loop_ms": 0.0, "loop_fast_sel_ms": 0.0}
+        smem_ops, n_ops = 0, 0
         for d in descriptors(table):
             c = op_census(d)
             if c is None:
                 smem_ops += 1
                 continue
             n_ops += 1
-            ops_s += op_floor_s(c, amps * ctrl_share(d), instr_per_s)
-            fast_s += op_floor_s(c, amps * ctrl_share(d), instr_per_s, "alu_fast")
-        out.append({"entries": n_ops, "smem_ops": smem_ops, "ops_ms": ops_s * 1e3,
-                    "ops_fast_sel_ms": fast_s * 1e3,
+            on = amps * ctrl_share(d)
+            for key, census in (("ops", c), ("loop", loop_census(d, decode))):
+                ms[f"{key}_ms"] += op_floor_s(census, on, instr_per_s) * 1e3
+                ms[f"{key}_fast_sel_ms"] += op_floor_s(census, on, instr_per_s, "alu_fast") * 1e3
+        out.append({"entries": n_ops, "smem_ops": smem_ops, **ms,
                     "bytes_ms": 16 * amps / HBM_BYTES_PER_S * 1e3})
     return out
 
 
-def plan_only(n: int = 28, tinstr_per_s: float | None = None) -> dict:
+def plan_only(n: int = 28, tinstr_per_s: float | None = None, decode: dict = DECODE) -> dict:
     """``--plan-only``: the census of each class, the model's floor per op
     at n qubits, and the production plan's floor per sweep, at
     ``tinstr_per_s`` (T float32 instructions/s) or the data sheet's; each
-    floor with selects at half and at the full float32 rate."""
+    floor with selects at half and at the full float32 rate. Sums over the
+    sweeps: the ops floor, the bound (each sweep's larger of its bytes and
+    its ops floor, ``max_bytes_ops_ms``) and the loop model (its larger of
+    bytes and the ops with their decode, ``decode`` or ``DECODE``,
+    ``loop_model_ms``), each as [full-rate selects, half-rate]."""
     if tinstr_per_s is None:
         rate, source = FP32_FLOP_PER_S / 2, "data sheet: 67 TFLOP/s of FMAs = 33.5 T instructions/s"
     else:
@@ -536,19 +726,31 @@ def plan_only(n: int = 28, tinstr_per_s: float | None = None) -> dict:
     classes = census_classes(n)
     rows = {}
     for name, cls in classes.items():
-        c = cls["census"]
+        c, loop = cls["census"], loop_census(cls["descriptor"], decode)
         amps = (1 << n) * cls["share"]
-        rows[name] = {**c, "share": cls["share"], "flops": census_flops(c),
-                      "min_flops": cls["min_flops"],
+        rows[name] = {**c, "decode": loop["INT"], "share": cls["share"],
+                      "flops": census_flops(c), "min_flops": cls["min_flops"],
                       "floor_us": op_floor_s(c, amps, rate) * 1e6,
-                      "floor_fast_sel_us": op_floor_s(c, amps, rate, "alu_fast") * 1e6}
+                      "floor_fast_sel_us": op_floor_s(c, amps, rate, "alu_fast") * 1e6,
+                      "loop_us": op_floor_s(loop, amps, rate) * 1e6,
+                      "loop_fast_sel_us": op_floor_s(loop, amps, rate, "alu_fast") * 1e6}
     prog = GridSweepProgram(random_circuit(n, NUM_GATES, seed=SEED))
-    sweeps = plan_floor(prog, rate)
+    sweeps = plan_floor(prog, rate, decode)
+
+    def total(key):
+        return sum(s[key] for s in sweeps)
+
+    def over_bytes(key):
+        return [sum(max(s["bytes_ms"], s[f"{key}_fast_sel_ms"]) for s in sweeps),
+                sum(max(s["bytes_ms"], s[f"{key}_ms"]) for s in sweeps)]
+
     return {"n": n, "tinstr_per_s": rate / 1e12, "rate_source": source,
             "model": "hand count of block_program.cuh's instructions; the select rate is assumed",
-            "classes": rows, "plan": sweeps, "plan_ops_ms": sum(s["ops_ms"] for s in sweeps),
-            "plan_ops_fast_sel_ms": sum(s["ops_fast_sel_ms"] for s in sweeps),
-            "plan_bytes_ms": sum(s["bytes_ms"] for s in sweeps)}
+            "classes": rows, "plan": sweeps, "plan_ops_ms": total("ops_ms"),
+            "plan_ops_fast_sel_ms": total("ops_fast_sel_ms"), "plan_bytes_ms": total("bytes_ms"),
+            "max_bytes_ops_ms": over_bytes("ops"), "plan_loop_ms": total("loop_ms"),
+            "plan_loop_fast_sel_ms": total("loop_fast_sel_ms"),
+            "loop_model_ms": over_bytes("loop")}
 
 
 # ---------------------------------------------------------------------------
@@ -584,6 +786,7 @@ def main() -> None:
     parser.add_argument("--decompose", type=int, default=None, metavar="N")
     parser.add_argument("--scale", type=int, default=None, metavar="N")
     parser.add_argument("--flavor", choices=SCALE_FLAVORS, default="reg")
+    parser.add_argument("--stamps", type=int, default=None, metavar="N")
     parser.add_argument("--plan-only", action="store_true")
     parser.add_argument("--rate", type=float, default=None,
                         help="T float32 instructions/s for --plan-only (from --vpu)")
@@ -597,13 +800,21 @@ def main() -> None:
             print(f"{name:12s} per amplitude: FMUL {c['FMUL']} FFMA {c['FFMA']} SEL {c['SEL']} "
                   f"SHFL {c['SHFL']} LDS {c['LDS']} STS {c['STS']}; {c['flops']} flops "
                   f"(min_flops {c['min_flops']:g}); on {c['share']:g} of the CTAs; "
-                  f"28q model floor {c['floor_fast_sel_us']:.1f}-{c['floor_us']:.1f} us/op")
+                  f"28q model floor {c['floor_fast_sel_us']:.1f}-{c['floor_us']:.1f} us/op; "
+                  f"loop model (decode {c['decode']:g}) {c['loop_fast_sel_us']:.1f}-"
+                  f"{c['loop_us']:.1f} us/op")
         for i, s in enumerate(r["plan"]):
             print(f"28q plan sweep[{i}]: {s['entries']} register entries, {s['smem_ops']} "
                   f"shared-memory ops: ops floor {s['ops_fast_sel_ms']:.4f}-{s['ops_ms']:.4f} ms, "
-                  f"bytes {s['bytes_ms']:.4f} ms")
+                  f"bytes {s['bytes_ms']:.4f} ms; loop model {s['loop_fast_sel_ms']:.4f}-"
+                  f"{s['loop_ms']:.4f} ms")
+        lo, hi = r["max_bytes_ops_ms"]
+        llo, lhi = r["loop_model_ms"]
         print(f"28q plan: ops floor {r['plan_ops_fast_sel_ms']:.4f}-{r['plan_ops_ms']:.4f} ms, "
-              f"bytes {r['plan_bytes_ms']:.4f} ms")
+              f"bytes {r['plan_bytes_ms']:.4f} ms; sum per sweep of max(bytes, ops floor) "
+              f"{lo:.4f}-{hi:.4f} ms; loop model (ops with their decode) "
+              f"{r['plan_loop_fast_sel_ms']:.4f}-{r['plan_loop_ms']:.4f} ms, over the bytes "
+              f"{llo:.4f}-{lhi:.4f} ms")
         print(json.dumps(r, default=float))
         return
     dev = ap.resolve_device(args.device)
@@ -624,6 +835,10 @@ def main() -> None:
               f"({100 * r['streaming_share']:.1f}%), sum of sweeps {r['sum_of_sweeps_ms']:.4f} ms, "
               f"bytes bound {r['bytes_ms']:.4f} ms; exposed compute {r['exposed_ms']:.4f} ms = "
               f"{r['exposed_us_per_gate']:.2f} us/gate", flush=True)
+        print(json.dumps(r), flush=True)
+    if args.stamps:
+        r = stamps(args.stamps, device=dev)
+        print_stamps(r)
         print(json.dumps(r), flush=True)
     if args.scale:
         r = scale(args.scale, args.flavor, device=dev)
