@@ -41,17 +41,21 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
    qubits 10-17 (the grid planner refuses it), ``random_circuit(26, 40,
    seed=43)`` through ``StateVectorSimulator(26).run`` then readout,
-   counted (only ``low_sweep``/``high_sweep``), its stages as planned (one
-   tile stage per sweep but the low sweep with the 8-qubit core: tile,
-   unit, tile), against its plain version (1e-7, 1 - fidelity <= 1e-5), and
-   each sweep kernel against its plain version on one input (1e-7);
+   counted (only ``low_sweep``/``high_sweep``/``unit_stage``), its stages as
+   planned (one tile stage per sweep but the low sweep with the 8-qubit
+   core: tile, unit, tile) and its launches (each run of tile stages one
+   launch of the instance for narrow cores, the unit stage alone on the
+   wide instance), against its plain version (1e-7, 1 - fidelity <= 1e-5),
+   and each launch against the plain version of its gates on one input
+   (1e-7);
    ``random_circuit(26, 100, seed=42)`` through the sweeps (at most 6 tile
    stages) and the grid-sweep programs agrees within 1e-6;
 8. dense cores of 7-10 qubits through ``run`` (the tiled op): the whole
    circuit at 12 qubits, and a 10-qubit core at 10 (its tiled op on more
    threads than the tile has), against the oracle, segments at 22 (7
    qubits on 15-21), the grid sweep at 26 (on qubits 0..k-1) and the low
-   sweep at 26 (9 and 10 qubits) against their plain versions (1e-6);
+   sweep at 26 (9 qubits on the tiled op, 10 through the dense pass)
+   against their plain versions (1e-6);
 8b. dense cores of 12 qubits, the split route: ``random_circuit(n, 40,
     seed=42)``, a 12-qubit dense gate on qubits 0-11, ``random_circuit(n,
     40, seed=43)`` through ``StateVectorSimulator(n).run``, counted: at 16
@@ -106,8 +110,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
 11. timing with CUDA events (median of 5 after a warm-up) of the 28-qubit
     grid-sweep run, the whole-circuit route at 12, 16 and 18 qubits, the
     segment kernel at 19 (the run's one launch, and each segment launched
-    alone) and the 26-qubit sweeps runs (each sweep, each
-    kernel's share, and the grid sweep on the same random circuit), beside
+    alone) and the 26-qubit sweeps runs (each sweep, each launch beside its
+    bound, each kernel's share, the unit stage beside one ``torch.matmul``
+    of its core, and the grid sweep on the same random circuit), beside
     the plain versions, the torch engine (the route below 20 qubits before
     these kernels) and the bound; and the cost of one 6- to 10-qubit dense
     op in a low sweep and a grid sweep at 26 qubits beside its flops bound
@@ -116,8 +121,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     against the matmul (1e-7), k = 5 to 11: its bounds are the flops over
     float32 FMAs and this design's, three TF32 tensor-core products per
     real one; for k >= 7 the dense pass of the same core on the same state
-    beside it (a second yardstick, checked against the matmul at 1e-7; the
-    route never sends it a core below 12 qubits). Below 20 qubits a
+    beside it (checked against the matmul at 1e-7; the sweeps route takes
+    it for cores of 10 and 11 qubits, and that route's one-op run is checked
+    against the matmul too). Below 20 qubits a
     kernel's time is its device time, from CUDA-graph replays of its
     launches (many per event pair); the eager time through the Python
     wrappers is printed beside it;
@@ -204,14 +210,14 @@ from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gr
 from tpu_qsim_torch.kernels.dense_pass import MIN_PASS_CORE, DensePass, core_operand, dense_pass, pass_instance
 from tpu_qsim_torch.kernels import floor, sass_census
 from tpu_qsim_torch.kernels.fused_circuit import (
-    MAX_SWEEP_BITS, WholeCircuitProgram, as_pgates, build_op_table, merge_1q_chains,
-    tiled_op_sass,
+    MAX_SWEEP_BITS, NARROW_CORE, WholeCircuitProgram, as_pgates, build_op_table,
+    merge_1q_chains, tiled_op_sass,
 )
 from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, resident_ctas
-from tpu_qsim_torch.kernels.sweeps import SweepProgram, build_sweep_run
+from tpu_qsim_torch.kernels.sweeps import MIN_SWEEP_PASS_CORE, SweepProgram, build_sweep_run
 from tpu_qsim_torch.kernels.time_run import kron_gate
 from tpu_qsim_torch.parallel import ShardedBatchedSimulator, ShardedStateVectorSimulator, make_mesh
 from tpu_qsim_torch.ranks import run_ranks
@@ -974,39 +980,62 @@ def phase_22q_sweeps_oracle() -> dict:
     return {"max_abs_err": err}
 
 
+SWEEP_KEYS = ("low_sweep", "high_sweep", "unit_stage")
+
+
+def launch_key(kind: str, route: str) -> str:
+    """The ``LAUNCHES`` key of a sweep launch of ``route`` in a sweep of
+    ``kind``."""
+    return {"tile": f"{kind}_sweep", "mixed": f"{kind}_sweep", "unit": "unit_stage",
+            "pass": "dense_pass"}[route]
+
+
 def phase_sweeps_main() -> dict:
     """26q, the sweeps main path: a circuit the grid planner refuses (an
-    8-qubit dense gate on qubits 10-17) through the simulator, counted; each
-    sweep kernel against its plain version on one input."""
+    8-qubit dense gate on qubits 10-17) through the simulator, counted; its
+    stages and its launches as planned (each run of tile stages one launch
+    on the instance for narrow cores, the unit stage alone on the wide
+    one); each launch against the plain version of its gates on one input."""
     n = N_SWEEPS
     c = wide_core_circuit(n, 8, 10)
     check(grid_planner_refuses(c), "the grid planner took the sweeps main-path circuit")
-    res = phase_main(n, "sweeps", ("low_sweep", "high_sweep"), circuit=c)
+    res = phase_main(n, "sweeps", SWEEP_KEYS, circuit=c)
     prog = res["prog"]
     kinds = prog.sweep_kinds
-    want = {f"{k}_sweep": kinds.count(k) for k in ("low", "high")}
-    check(res["launches"] == want, f"launches {res['launches']} for sweeps {kinds}")
+    routes = [[ln.route for ln in sweep] for sweep in prog.launches]
+    want = collections.Counter(launch_key(k, r) for k, rs in zip(kinds, routes) for r in rs)
+    check(res["launches"] == {key: want[key] for key in SWEEP_KEYS},
+          f"launches {res['launches']} for sweeps {kinds} routes {routes}")
     stages = [[st.kind for st in sweep] for sweep in prog.stages]
+    instances = [["narrow" if ln.max_core <= NARROW_CORE else "wide" for ln in sweep]
+                 for sweep in prog.launches]
     log(f"phase {n}q_sweeps_stages: tile_bits={prog.tile_bits} stages={stages} "
-        f"ops={[[len(st.gates) for st in sweep] for sweep in prog.stages]}")
+        f"ops={[[len(st.gates) for st in sweep] for sweep in prog.stages]} "
+        f"launches={routes} instances={instances}")
     check(stages == [["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]],
           f"sweeps main path stages {stages}")
-    step_err = {"low_sweep": 0.0, "high_sweep": 0.0}
+    check(routes == [["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]],
+          f"sweeps main path launches {routes}")
+    check(instances == [["narrow"], ["narrow", "wide", "narrow"], ["narrow"], ["narrow"]],
+          f"sweeps main path instances {instances}")
+    step_err = {key: 0.0 for key in SWEEP_KEYS}
     t0 = time.perf_counter()
     x = random_planes(n, 5)
     for i, kind in enumerate(kinds):
-        got = prog.launch(x.clone(), i)
-        want_i = prog.step_plain(x, i)
-        e, _ = compare(got, want_i)
-        step_err[f"{kind}_sweep"] = max(step_err[f"{kind}_sweep"], e)
-        del got
-        x = want_i
+        for j, ln in enumerate(prog.launches[i]):
+            got = prog.launch_one(x.clone(), i, j)
+            want_ij = prog.launch_plain(x, i, j)
+            e, _ = compare(got, want_ij)
+            key = launch_key(kind, ln.route)
+            step_err[key] = max(step_err[key], e)
+            del got
+            x = want_ij
     del x
     log(f"phase {n}q_sweep_vs_plain: wall_s={time.perf_counter() - t0:.3f} "
-        f"max_abs_err={step_err} (tol 1e-7) sweeps={kinds} "
+        f"max_abs_err={step_err} (tol 1e-7) sweeps={kinds} launches={routes} "
         f"ops={[len(g) for g in prog.sweep_gates]} max_core={[t.max_core for t in prog.tables]} "
         f"active={[lay.active for lay in prog.layouts]}")
-    check(max(step_err.values()) <= 1e-7, f"sweep kernels vs plain {step_err}")
+    check(max(step_err.values()) <= 1e-7, f"sweep launches vs plain {step_err}")
     res["step_err"] = step_err
     res["circuit"] = c
     return res
@@ -1072,6 +1101,11 @@ def phase_wide_cores() -> dict:
         check(ran == engine and sum(launches.values()) >= 1 and err <= 1e-6,
               f"{k}-qubit core at {n}q: engine {ran} (want {engine}), "
               f"launches {launches}, error {err}")
+        if engine == "sweeps":   # the unit stage: the tiled op below 10 qubits, else the pass
+            via_pass = k >= MIN_SWEEP_PASS_CORE
+            check(launches.get("dense_pass", 0) == int(via_pass)
+                  and launches.get("unit_stage", 0) == int(not via_pass),
+                  f"{k}-qubit unit stage at {n}q: launches {launches}")
         errs[f"{n}q_{k}"] = err
     return errs
 
@@ -1288,50 +1322,129 @@ def phase_timing_segmented(prog: SegmentedProgram) -> dict:
             "torch_engine_ms": engine_ms, "kernels": kernels, **b}
 
 
+def core_matmul(gate, n: int, x: torch.Tensor):
+    """A dense gate on contiguous ascending qubits lo..lo+k-1 as one
+    ``torch.matmul`` on the complex64 view (2^(n-lo-k), 2^k, 2^lo) of the
+    planes ``x``: (the call, its result). The gate's first qubit is its
+    matrix index's MSB and the view's lowest core bit, so U's indices are
+    bit-reversed for the view."""
+    qubits = tuple(gate.qubits)
+    k, lo = len(qubits), qubits[0]
+    check(qubits == tuple(range(lo, lo + k)), f"core on {qubits}: not contiguous")
+    rev = [int(f"{i:0{k}b}"[::-1], 2) for i in range(1 << k)]
+    u = torch.from_numpy(np.asarray(gate.u)[np.ix_(rev, rev)].astype(np.complex64)).cuda()
+    z = torch.complex(x[0], x[1]).view(1 << (n - lo - k), 1 << k, 1 << lo)
+    return (lambda: torch.matmul(u, z)), torch.matmul(u, z).reshape(-1)
+
+
 def sweeps_timing(prog, label: str) -> dict:
-    """One sweeps program at 26q: the run, each sweep, each kernel's share,
-    beside the plain versions and the bound."""
+    """One sweeps program at 26q: the run, each sweep, each launch, each
+    kernel's share, beside the plain versions and the bound. A kind of
+    sweep's bound is its function's: one pass of the state's bytes per
+    sweep (a read and a write; a dense pass's core besides), or all its
+    stages' operations (a unit stage's and a dense pass's core on the tensor
+    cores in 3xTF32, the rest float32), whichever is longer. It is split
+    between the sweeps' launches, so that the kernels' shares add up to it:
+    each launch takes its own operations and, where the bytes are longer,
+    a share of the difference by its stages. ``launch_passes_ms`` is what
+    the launches cost as launched instead, a pass of bytes each (or its
+    operations). For a unit stage's launch also one ``torch.matmul`` of its
+    core (TF32 off)."""
     n = prog.num_qubits
     x = random_planes(n, 2)
     ms = median_ms(lambda: prog.run(x))
     plain_ms = median_ms(lambda: prog.run_plain(x), reps=3)
-    per, per_plain = [], []
-    for i in range(prog.num_sweeps):
-        per.append(median_ms(lambda: prog.launch(x, i), reps=3))
-        per_plain.append(median_ms(lambda: prog.step_plain(x, i), reps=3))
+    per = [median_ms(lambda: prog.launch(x, i), reps=3) for i in range(prog.num_sweeps)]
+    pass_bytes_ms = 16 * (1 << n) / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for i, kind in enumerate(prog.sweep_kinds):
+        for j, ln in enumerate(prog.launches[i]):
+            if ln.route == "pass":
+                core = ln.step.flops()
+                rest = 0.0
+                launch_bytes_ms = ln.step.bytes_moved() / HBM_BYTES_PER_S * 1e3
+            else:
+                # a unit stage's core: three TF32 tensor-core products per real one
+                core = sum(build_op_table(st.gates, st.layout, MAX_SWEEP_BITS).flops_per_amp
+                           for st in ln.stages if st.kind == "unit") * (1 << n)
+                rest = ln.table.flops_per_amp * (1 << n) - core
+                launch_bytes_ms = pass_bytes_ms
+            row = {"sweep": i, "launch": j, "key": launch_key(kind, ln.route), "route": ln.route,
+                   "stages": [[st.kind, len(st.gates)] for st in ln.stages],
+                   "ms": median_ms(lambda: prog.launch_one(x, i, j), reps=3),
+                   "plain_ms": median_ms(lambda: prog.launch_plain(x, i, j), reps=3),
+                   "flops_ms": (3 * core / TF32_FLOP_PER_S + rest / FP32_FLOP_PER_S) * 1e3,
+                   "fp32_flops_ms": (core + rest) / FP32_FLOP_PER_S * 1e3,
+                   "extra_bytes_ms": launch_bytes_ms - pass_bytes_ms}
+            row["launch_passes_ms"] = max(launch_bytes_ms, row["flops_ms"])
+            if ln.route == "unit":
+                allow = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    call, y = core_matmul(ln.stages[0].gates[0], n, x)
+                    got = prog.launch_one(x.clone(), i, j)
+                    row["library_max_abs_err"] = float(torch.max(torch.abs(
+                        torch.complex(got[0], got[1]).reshape(-1) - y)))
+                    del got, y
+                    row["library_ms"] = median_ms(call)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = allow
+                check(row["library_max_abs_err"] <= 1e-7,
+                      f"unit stage vs torch.matmul {row['library_max_abs_err']} > 1e-7")
+            rows.append(row)
     del x
+    # each kind's bound (one pass a sweep, or its operations), split between
+    # its launches: their operations, and the bytes' excess by their stages
+    for kind in ("low", "high"):
+        mine = [r for r in rows if prog.sweep_kinds[r["sweep"]] == kind]
+        stages = sum(len(r["stages"]) for r in mine)
+        bytes_ms = (prog.sweep_kinds.count(kind) * pass_bytes_ms
+                    + sum(r["extra_bytes_ms"] for r in mine))
+        for flops, out in (("flops_ms", "bound_ms"), ("fp32_flops_ms", "fp32_bound_ms")):
+            excess = max(0.0, bytes_ms - sum(r[flops] for r in mine))
+            for r in mine:
+                r[f"{out}_bytes_part"] = excess * len(r["stages"]) / stages
+                r[out] = r[flops] + r[f"{out}_bytes_part"]
     b = bound(prog.bytes_moved(), prog.flops())
-    # the flops of each sweep's unit stages (the tiled op: three TF32
-    # tensor-core products per real multiply-add) and of the rest (float32)
+    # the flops of each sweep's unit stages (three TF32 tensor-core products
+    # per real multiply-add) and of the rest (float32)
     tiled = [sum(build_op_table(st.gates, st.layout, MAX_SWEEP_BITS).flops_per_amp
                  for st in stages if st.kind == "unit") * (1 << n) for stages in prog.stages]
     flops = [t.flops_per_amp * (1 << n) for t in prog.tables]
-
-    def ops_ms(idx, tensor_cores):
-        t = sum(tiled[i] for i in idx) if tensor_cores else 0.0
-        return (3 * t / TF32_FLOP_PER_S + (sum(flops[i] for i in idx) - t) / FP32_FLOP_PER_S) * 1e3
-
-    all_sweeps = range(prog.num_sweeps)
-    b["tf32x3_bound_ms"] = max(b["bytes_ms"], ops_ms(all_sweeps, True))
+    ops_ms = (3 * sum(tiled) / TF32_FLOP_PER_S + (sum(flops) - sum(tiled)) / FP32_FLOP_PER_S) * 1e3
+    b["tf32x3_bound_ms"] = max(b["bytes_ms"], ops_ms)
     kernels = {}
-    for kind in ("low", "high"):
-        idx = [i for i, k in enumerate(prog.sweep_kinds) if k == kind]
-        bytes_ms = len(idx) * 16 * (1 << n) / HBM_BYTES_PER_S * 1e3
-        flops_ms = ops_ms(idx, True)
-        kernels[f"{kind}_sweep"] = {
-            "ms": sum(per[i] for i in idx), "plain_ms": sum(per_plain[i] for i in idx),
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "fp32_bound_ms": max(bytes_ms, ops_ms(idx, False)),
-            "per_launch_ms": [per[i] for i in idx]}
+    for key in SWEEP_KEYS:
+        mine = [r for r in rows if r["key"] == key]
+        if not mine:
+            continue
+        part = sum(r["bound_ms_bytes_part"] for r in mine)
+        bound_ms = sum(r["bound_ms"] for r in mine)
+        kernels[key] = {
+            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if part >= bound_ms - part else "operations",
+            "library_ms": sum(r["library_ms"] for r in mine) if key == "unit_stage" else None,
+            "fp32_bound_ms": sum(r["fp32_bound_ms"] for r in mine),
+            "launch_passes_ms": sum(r["launch_passes_ms"] for r in mine),
+            "per_launch_ms": [r["ms"] for r in mine]}
+    for r in rows:
+        log(f"phase timing_sweeps: {label} n={n} sweep[{r['sweep']}] launch {r['launch']} "
+            f"{r['key']} ({r['route']}, stages {r['stages']}): ms={r['ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} (flops_ms={r['flops_ms']:.4f} + bytes' share "
+            f"{r['bound_ms_bytes_part']:.4f}) launch_passes_ms={r['launch_passes_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f}"
+            + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else ""))
     log(f"phase timing_sweeps: {label} n={n} sweeps={prog.sweep_kinds} "
+        f"launches={[[ln.route for ln in sw] for sw in prog.launches]} "
         f"ops={[len(g) for g in prog.sweep_gates]} max_core={[t.max_core for t in prog.tables]} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.4f} "
         f"tf32x3_bound_ms={b['tf32x3_bound_ms']:.4f} "
         f"bytes_ms={b['bytes_ms']:.4f} flops_ms={b['flops_ms']:.4f} "
         f"per_sweep_ms={[round(t, 4) for t in per]} geometry={prog.geometry} "
         f"per_kernel={json.dumps(kernels)}")
-    return {"ms": ms, "plain_ms": plain_ms, "kernels": kernels, **b}
+    return {"ms": ms, "plain_ms": plain_ms, "kernels": kernels, "per_sweep_ms": per,
+            "per_launch": rows, **b}
 
 
 def phase_timing_sweeps(main_prog, cross: dict) -> dict:
@@ -1366,7 +1479,10 @@ def phase_timing_dense_op() -> dict:
     ``torch.matmul`` of the core on the complex64 view of the same state
     (TF32 off), timed without and with the planes-to-complex64 copies, and
     for k >= 7 the dense pass of the same core on the same state (a second
-    yardstick: the route sends it no core below 12 qubits)."""
+    yardstick; the sweeps route takes it for unit stages from
+    ``MIN_SWEEP_PASS_CORE`` qubits: the crossover of the low sweep holding
+    the core alone and the pass is printed beside it, and the route's run
+    of the one-op circuit is checked against the matmul)."""
     n = N_SWEEPS
     x = random_planes(n, 3)
     allow = torch.backends.cuda.matmul.allow_tf32
@@ -1378,9 +1494,14 @@ def phase_timing_dense_op() -> dict:
             gate = "h" if k == 1 else _dense_gate(k)
             # qubits 17-k..16: a moving mid qubit (16) makes it a low sweep
             qubits = tuple(range(17 - k, 17))
-            sprog = SweepProgram(tq.Circuit(n).add(gate, *qubits))
+            # the tiled op forced (the sweep in one launch), and the route's program
+            sprog = SweepProgram(tq.Circuit(n).add(gate, *qubits), _one_launch=True)
+            route = SweepProgram(tq.Circuit(n).add(gate, *qubits))
             gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)), WIDE_GRID)
             check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
+            check([ln.route for ln in route.launches[0]]
+                  == ["pass" if k >= MIN_SWEEP_PASS_CORE else "unit" if k >= 5 else "tile"],
+                  f"{k}-qubit one-op sweep launches {route.launches[0]}")
             one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
             if k == 1:
                 continue
@@ -1395,6 +1516,8 @@ def phase_timing_dense_op() -> dict:
             want = torch.matmul(u, z).reshape(-1)
             got = sprog.run(x.clone())
             err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - want)))
+            got = route.run(x.clone())
+            route_err = float(torch.max(torch.abs(torch.complex(got[0], got[1]) - want)))
             del got
             pass_err = pass_ms = None
             if k >= MIN_PASS_CORE:
@@ -1422,18 +1545,25 @@ def phase_timing_dense_op() -> dict:
                    "bound_ms": bound(0, flops)["flops_ms"],
                    "tf32x3_bound_ms": bound(0, 3 * flops, TF32_FLOP_PER_S)["flops_ms"],
                    "matmul_ms": mm_ms, "matmul_with_copy_ms": mm_copy_ms,
-                   "max_abs_err_vs_matmul": err}
+                   "max_abs_err_vs_matmul": err, "one_op_low_sweep_ms": one_op[k][0],
+                   "route": route.launches[0][0].route,
+                   "route_max_abs_err_vs_matmul": route_err}
             if pass_ms is not None:
                 row.update(dense_pass_ms=pass_ms, dense_pass_max_abs_err_vs_matmul=pass_err)
             rows[k] = row
             log(f"phase timing_dense_op: n={n} k={k} {json.dumps(row)}")
             check(err <= 1e-7, f"{k}-qubit op vs torch.matmul {err} > 1e-7")
+            check(route_err <= 1e-7, f"{k}-qubit op's route vs torch.matmul {route_err} > 1e-7")
             check(pass_err is None or pass_err <= 1e-7,
                   f"{k}-qubit dense pass vs torch.matmul {pass_err} > 1e-7")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
     del x
     log(f"phase timing_dense_op: one_op_ms(low_sweep, grid_sweep)={one_op}")
+    faster = [k for k, r in rows.items() if "dense_pass_ms" in r
+              and r["dense_pass_ms"] < r["one_op_low_sweep_ms"]]
+    log(f"phase timing_dense_op: the dense pass beats the low sweep holding the core alone "
+        f"at k = {faster}; the sweeps route takes it from k = {MIN_SWEEP_PASS_CORE}")
     return rows
 
 
@@ -2066,7 +2196,9 @@ def main() -> int:
             "fault1_22q_max_abs_err": fault1["max_abs_err"],
             "cross_engine_max_abs_err": fallback["cross_err"],
         })
-    for name, line in (("low_sweep", 292), ("high_sweep", 370)):
+    # unit_stage: the low sweep's unit stage, launched alone on the wide
+    # instance (its tiled op, ops.cuh); its library call one torch.matmul
+    for name, line in (("low_sweep", 292), ("high_sweep", 370), ("unit_stage", 292)):
         k = t_sweeps["main"]["kernels"][name]
         kernels.append({
             "name": name,
@@ -2079,7 +2211,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": None,
+            "library_ms": k["library_ms"],
+            "per_launch_ms": k["per_launch_ms"],
             "run_ms": t_sweeps["main"]["ms"],
             "run_bound_ms": t_sweeps["main"]["bound_ms"],
             "run_fidelity": sweeps["fidelity"],
@@ -2088,6 +2221,7 @@ def main() -> int:
             "oracle_22q_max_abs_err": sweeps_oracle["max_abs_err"],
             "cross_engine_max_abs_err": cross["cross_err"],
             "fp32_bound_ms": k["fp32_bound_ms"],
+            "launch_passes_ms": k["launch_passes_ms"],
             "run_tf32x3_bound_ms": t_sweeps["main"]["tf32x3_bound_ms"],
             "wide_op_ms": t_sweeps["wide_op_ms"],
             "wide_core_max_abs_err": wide,

@@ -15,7 +15,9 @@ the demo (``python -m tpu_qsim_torch``) runs on the card, and the floor
 certificate's rotation-chain kernel runs against its plain version. The
 tiled dense op (cores of 5-11 qubits) runs on each kernel that holds it,
 also with fewer groups than a warp tile, and its SASS holds tensor-core
-products and no float32 FMA: 125 cases.
+products and no float32 FMA. A sweep's launches (tile runs, its unit
+stage alone, from 10 qubits the dense pass) run each against the plain
+version of its gates: 128 cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -249,11 +251,11 @@ def test_narrow_and_wide_instances_agree(cuda_device, kernel):
         y = x.clone()
         if kernel == "sweep":
             prog = ts.SweepProgram(c)
-            for (ints, coef), kind, lay, t in zip(prog._tables_on(cuda_device), prog.sweep_kinds,
-                                                  prog.layouts, prog.tables):
-                assert t.max_core <= 4
-                fn = ts.low_sweep if kind == "low" else ts.high_sweep
-                fn(y, ints, coef, lay, prog.geometry, max_core or t.max_core)
+            for i, (tables, launches) in enumerate(zip(prog._tables_on(cuda_device),
+                                                       prog.launches)):
+                for t, ln in zip(tables, launches):
+                    assert ln.route == "tile" and ln.max_core <= 4
+                    prog.launch_table(y, i, t, max_core or ln.max_core, "tile")
         elif kernel == "grid_sweep":
             prog = tgs.GridSweepProgram(c)
             for (ints, coef), lay, t in zip(prog._tables_on(cuda_device), prog.layouts,
@@ -313,6 +315,35 @@ def test_sweep_geometries_agree(cuda_device, geometry):
     assert float((got - want).abs().max()) <= 1e-7
 
 
+@pytest.mark.parametrize("n,k,lo", [(22, 8, 9), (22, 10, 7), (24, 11, 6)])
+def test_sweeps_route_launches_match_plain(cuda_device, n, k, lo):
+    # a unit stage between tile stages: each launch (tile runs on the narrow
+    # instance, the unit stage alone on the wide one, or from
+    # MIN_SWEEP_PASS_CORE qubits the dense pass) against the plain version
+    # of its gates, and the run against the plan before the split (one
+    # launch a sweep, the tiled op)
+    c = _dense_core_circuit(n, k, lo)
+    prog = ts.SweepProgram(c)
+    one = ts.SweepProgram(c, _one_launch=True)
+    x = _random_planes(n, k, cuda_device)
+    reset_launches()
+    y = x.clone()
+    for i in range(prog.num_sweeps):
+        for j, ln in enumerate(prog.launches[i]):
+            got = prog.launch_one(y.clone(), i, j)
+            want = prog.launch_plain(y, i, j)
+            assert float((got - want).abs().max()) <= 1e-6, (i, j, ln.route)
+            y = want
+    routes = [ln.route for sw in prog.launches for ln in sw]
+    core = "pass" if k >= ts.MIN_SWEEP_PASS_CORE else "unit"
+    assert routes.count(core) == 1 and "mixed" not in routes
+    assert LAUNCHES["dense_pass"] == int(core == "pass")
+    assert LAUNCHES["unit_stage"] == int(core == "unit")
+    got = prog.run(x.clone())
+    assert float((got - one.run(x.clone())).abs().max()) <= 1e-6
+    assert float((got - prog.run_plain(x)).abs().max()) <= 1e-6
+
+
 def _dense_core_circuit(n: int, k: int, lo: int) -> tq.Circuit:
     """A k-qubit dense gate on qubits lo..lo+k-1 between two random layers."""
     c = tq.random_circuit(n, 40, seed=k)
@@ -359,8 +390,12 @@ def _tiled_case(kernel: str, n: int, k: int, qubits: tuple[int, ...], seed: int)
         u = np.eye(1 << len(qubits), dtype=np.complex128)
         u[-(1 << k):, -(1 << k):] = core
     c = tq.Circuit(n).append(Gate(f"tiled{k}", tuple(qubits), matrix_bytes=u.tobytes()))
-    prog = {"whole_circuit": fc.WholeCircuitProgram, "low_sweep": ts.SweepProgram,
-            "high_sweep": ts.SweepProgram, "grid_sweep": tgs.GridSweepProgram,
+    # the sweeps: the tiled op at every width (the route sends unit stages
+    # of MIN_SWEEP_PASS_CORE+ qubits to the dense pass; one launch a sweep
+    # keeps them)
+    sweeps = lambda c: ts.SweepProgram(c, _one_launch=True)   # noqa: E731
+    prog = {"whole_circuit": fc.WholeCircuitProgram, "low_sweep": sweeps,
+            "high_sweep": sweeps, "grid_sweep": tgs.GridSweepProgram,
             "segment": seg.SegmentedProgram}[kernel](c)
     if kernel.endswith("_sweep") and kernel != "grid_sweep":
         assert prog.sweep_kinds == [kernel.split("_")[0]]

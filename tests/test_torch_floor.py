@@ -141,6 +141,49 @@ def test_decompose_variants(n):
     assert sum(len(s.gates) for s in progs["plan"]) == sum(len(g) for g in prod.sweep_gates)
 
 
+@pytest.mark.parametrize("one_launch", [True, False])
+def test_sweeps_streaming_variant(one_launch):
+    # --sweeps: each launch's stages with their ops removed keep the
+    # launch's stage count and tile layouts, and the kernel's reading of
+    # them (the sweeps mirror) changes nothing; the CPU run times the plain
+    # version of every launch
+    from tpu_qsim_torch.circuit import Gate
+    from tpu_qsim_torch.kernels import sweeps as ts
+
+    from test_torch_dense_op import dense_unitary
+    from test_torch_sweeps import emulate_sweep as emulate_sweeps_table
+
+    n, params = 12, ts.SweepParams(k_bits=2, rb_bits=2)
+    c = random_circuit(n, 30, seed=1)
+    u = dense_unitary(6, np.random.default_rng(6)).tobytes()
+    c.append(Gate("floor_sweeps_core6", tuple(range(4, 10)), matrix_bytes=u))
+    c.extend(random_circuit(n, 30, seed=2).gates)
+    prog = ts.SweepProgram(c, params, _one_launch=one_launch)
+    x = _unit_planes(n, seed=7)
+    count = 0
+    for launches, lay, bits in zip(prog.launches, prog.layouts, prog.tile_bits):
+        for ln in launches:
+            zero = ts.streaming_stages(ln.stages, lay, bits)
+            assert [st.kind for st in zero] == ["tile"] * len(ln.stages)
+            assert all(not st.gates for st in zero)
+            for a, b in zip(ln.stages, zero):
+                if a.kind == "tile":
+                    assert (a.layout, a.outside) == (b.layout, b.outside)
+            table = ts.sweep_table(zero, lay, bits)
+            assert int(table.ints[0]) == len(ln.stages) and table.max_core == 0
+            re, im = x[0].astype(np.float64), x[1].astype(np.float64)
+            emulate_sweeps_table(re, im, table)
+            np.testing.assert_array_equal(re, x[0])
+            np.testing.assert_array_equal(im, x[1])
+            count += 1
+    r = floor.sweeps_decompose(device="cpu", params=params, circuit=c, one_launch=one_launch)
+    assert [(row["sweep"], row["launch"], row["route"]) for row in r["launches"]] == [
+        (i, j, ln.route) for i, launches in enumerate(prog.launches)
+        for j, ln in enumerate(launches)]
+    assert len(r["launches"]) == count
+    assert ("unit" in {row["route"] for row in r["launches"]}) != one_launch
+
+
 def test_program_plan_keyword():
     c = random_circuit(12, 40, seed=3)
     prog = tgs.GridSweepProgram(c)

@@ -86,15 +86,36 @@ def unit_ops(table: fc.OpTable) -> list[np.ndarray]:
             for d in desc.reshape(-1, ts.STAGE_WORDS) if d[0] == ts.STAGE_UNIT]
 
 
+def emulate_launches(prog, psi: np.ndarray) -> np.ndarray:
+    """``psi`` after the program's launches as the numpy mirrors run them:
+    each table through ``emulate_sweep`` at its launch's group bits, each
+    dense pass through ``emulate_dense_pass``."""
+    from test_torch_dense_pass import emulate_dense_pass
+    from tpu_qsim_torch.kernels.dense_pass import core_operand
+
+    re, im = psi.real.copy(), psi.imag.copy()
+    for launches, geometry in zip(prog.launches, host.sweep_geometry(prog)):
+        for launch, geo in zip(launches, geometry):
+            if launch.table is None:
+                step = launch.step
+                y = emulate_dense_pass((re + 1j * im).astype(np.complex64),
+                                       core_operand(step.core, step.targets), step.tmask,
+                                       step.cmask)
+                re, im = y.real.astype(np.float64), y.imag.astype(np.float64)
+            else:
+                emulate_sweep(re, im, launch.table, geo[2])
+    return re + 1j * im
+
+
 def sweeps_case(c: tq.Circuit, params: ts.SweepParams,
-                geometry: ts.SweepGeometry = ts.SweepGeometry()):
-    prog = ts.SweepProgram(c, params, geometry)
+                geometry: ts.SweepGeometry = ts.SweepGeometry(), **route):
+    """``c`` through the host-built kernels as ``SweepProgram.run`` launches
+    them (``route``: ``SweepProgram``'s keywords), against the plain
+    version, the oracle and the launches' mirror."""
+    prog = ts.SweepProgram(c, params, geometry, **route)
     psi = random_state(c.num_qubits, np.random.default_rng(c.num_qubits + len(c.gates)))
     got = host.run_sweeps(prog, psi)
-    re, im = psi.real.copy(), psi.imag.copy()
-    for table, (_, _, group_bits) in zip(prog.tables, host.sweep_geometry(prog)):
-        emulate_sweep(re, im, table, group_bits)
-    check(got, prog, c, psi, re + 1j * im)
+    check(got, prog, c, psi, emulate_launches(prog, psi))
     return prog
 
 
@@ -129,7 +150,7 @@ def test_sweeps_small_tiles(threads, in_flight, core):
             c.append(g)
     prog = sweeps_case(c, ts.SweepParams(k_bits=2, rb_bits=4),
                        ts.SweepGeometry(threads=threads, in_flight=in_flight))
-    geometry = host.sweep_geometry(prog)
+    geometry = [geo for row in host.sweep_geometry(prog) for geo in row if geo is not None]
     assert max(group_bits for _, _, group_bits in geometry) >= 1
     assert max(lay.kbits - int(t.ints[ts.HEADER_TILE_BITS])
                for t, lay in zip(prog.tables, prog.layouts)) >= 2
@@ -155,9 +176,13 @@ def test_sweeps_one_core(k, control, ring, groups):
     ctrl = {"none": (), "local": (0,), "ext": (n - 1,)}[control]
     u = under_control(dense_unitary(k, np.random.default_rng(600 + k)), ctrl)
     c = tq.Circuit(n).append(Gate(f"host_sweep_core{k}", ctrl + targets, matrix_bytes=u.tobytes()))
-    prog = sweeps_case(c, ts.SweepParams(k_bits=2, rb_bits=rb))
+    # the wide instance's tiled op at every width, 10 qubits too (the route
+    # sends a unit stage of 10+ qubits to the dense pass: the sweep in one
+    # launch keeps it on the tiled op)
+    prog = sweeps_case(c, ts.SweepParams(k_bits=2, rb_bits=rb), _one_launch=True)
     assert prog.sweep_kinds == ["low"]
-    (threads, _, _), = host.sweep_geometry(prog)
+    assert [ln.route for ln in prog.launches[0]] == ["mixed"]
+    ((threads, _, _),), = host.sweep_geometry(prog)
     (op,) = unit_ops(prog.tables[0])
     assert (bool(op[3]), bool(op[5])) == (control == "local", control == "ext")
     assert tile_shape(op, prog.layouts[0].kbits, 32 * threads) == (ring, groups)
@@ -240,3 +265,58 @@ def test_whole_circuit_tiles_in_turn(k, ctas, ring, groups):
     assert tile_shape(op, n, 32 * prog.threads) == (ring, groups)
     tiles = (1 << (n - k)) // groups
     assert tiles > ctas
+
+
+# (n, rb_bits, k, lo): a k-qubit core on qubits lo..lo+k-1 (one of them a
+# mid bit: a low sweep) between random layers; its unit stage runs alone on
+# the wide instance (k < 10) or through the dense pass (k = 10: at 13
+# qubits its tiled op would need more threads than the unit's tiles have),
+# the tile stages around it on the instance for narrow cores
+SPLIT_CASES = [(12, 2, 6, 4), (13, 2, 8, 2), (13, 2, 10, 1)]
+
+
+@pytest.mark.parametrize("n,rb,k,lo", SPLIT_CASES)
+def test_split_launches_match_one_launch_mirror(n, rb, k, lo):
+    params = ts.SweepParams(k_bits=2, rb_bits=rb)
+    u = dense_unitary(k, np.random.default_rng(900 + k)).tobytes()
+    c = tq.random_circuit(n, 30, seed=k)
+    c.append(Gate(f"host_split_core{k}", tuple(range(lo, lo + k)), matrix_bytes=u))
+    for g in tq.random_circuit(n, 30, seed=k + 1).gates:
+        c.append(g)
+    prog = ts.SweepProgram(c, params)
+    routes = [[ln.route for ln in launches] for launches in prog.launches]
+    core_route = "pass" if k >= ts.MIN_SWEEP_PASS_CORE else "unit"
+    (i,) = [i for i, r in enumerate(routes) if core_route in r]
+    assert prog.sweep_kinds[i] == "low" and "mixed" not in sum(routes, [])
+    assert routes[i].count(core_route) == 1 and set(routes[i]) == {"tile", core_route}
+    psi = random_state(n, np.random.default_rng(n + k))
+    got = host.run_sweeps(prog, psi)
+    # the one-launch mirror: each sweep's whole table, every stage in one
+    # launch, the unit stage on the tiled op (on as many threads as it needs)
+    re, im = psi.real.copy(), psi.imag.copy()
+    for table, bits in zip(prog.tables, prog.tile_bits):
+        emulate_sweep(re, im, table, 0, max(1 << (bits - REG_BITS), (1 << table.max_core) // 4))
+    check(got, prog, c, psi, re + 1j * im)
+    np.testing.assert_allclose(got, emulate_launches(prog, psi), atol=MIRROR_TOL, rtol=0)
+
+
+def test_tile_launches_take_the_tiles_of_a_sweep_with_a_wide_core(monkeypatch):
+    # a geometry of more threads than a wide core's launch may take
+    # (WIDE_THREADS; on the card 1024 against 512, here 128 against 64): the
+    # sweep's tiles are the wide launch's, and the runs of tile stages
+    # around its unit stage launch at those threads too (at the geometry's
+    # they would trap on the table's tile bits)
+    monkeypatch.setattr(ts, "WIDE_THREADS", 64)
+    n = 14
+    u = dense_unitary(6, np.random.default_rng(960)).tobytes()
+    c = tq.random_circuit(n, 30, seed=61)
+    c.append(Gate("host_wide_geometry_core6", tuple(range(3, 9)), matrix_bytes=u))
+    for g in tq.random_circuit(n, 30, seed=62).gates:
+        c.append(g)
+    prog = sweeps_case(c, ts.SweepParams(k_bits=2, rb_bits=4),
+                       ts.SweepGeometry(threads=128, in_flight=2))
+    (i,) = [i for i, sw in enumerate(prog.launches) if any(ln.route == "unit" for ln in sw)]
+    assert "tile" in [ln.route for ln in prog.launches[i]]
+    assert prog.geometries[i].threads == 64 and prog.tile_bits[i] == 10
+    assert {geo[0] for geo in host.sweep_geometry(prog)[i]} == {64}
+    assert any(g.threads == 128 for g in prog.geometries)

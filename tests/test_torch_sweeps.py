@@ -381,6 +381,49 @@ def test_plan_stages_cut_each_sweep_in_order(name):
             ["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]]
 
 
+@pytest.mark.parametrize("k,lo", [(8, 10), (9, 8), (10, 7), (11, 6)])
+def test_main_path_launches(k, lo):
+    # the 26q sweeps main path (k = 8 on 10-17) and its wider cores: the
+    # plan is the parent's, its sweeps' stages cut into launches: each run of
+    # tile stages one launch on the instance for narrow cores, the unit
+    # stage alone on the wide instance, or from MIN_SWEEP_PASS_CORE qubits
+    # through the dense pass on the gate's state qubits (planning only)
+    from tpu_qsim_torch.kernels.time_run import wide_circuit
+
+    c = _main_path_circuit() if k == 8 else wide_circuit(26, k, lo)
+    prog = ts.SweepProgram(c)
+    one = ts.SweepProgram(c, _one_launch=True)
+    assert prog.sweep_kinds == one.sweep_kinds
+    assert [[(st.kind, len(st.gates), st.layout, st.outside) for st in sw] for sw in prog.stages] == [
+        [(st.kind, len(st.gates), st.layout, st.outside) for st in sw] for sw in one.stages]
+    for stages, launches, table in zip(prog.stages, prog.launches, prog.tables):
+        assert [st for ln in launches for st in ln.stages] == stages
+        for ln in launches:
+            if ln.route == "tile":
+                assert ln.table.max_core <= fc.NARROW_CORE
+                assert all(st.kind == "tile" for st in ln.stages)
+            else:
+                (st,) = ln.stages
+                assert st.kind == "unit"
+                assert ln.max_core == k and table.max_core == k
+                assert (ln.route == "pass") == (k >= ts.MIN_SWEEP_PASS_CORE)
+                if ln.route == "pass":     # the gate's state qubits, not block bits
+                    assert ln.step.targets == tuple(range(lo, lo + k)) and ln.table is None
+        # no two tile launches side by side
+        routes = [ln.route for ln in launches]
+        assert all(a != b for a, b in zip(routes, routes[1:]))
+    if k == 8:
+        assert prog.sweep_kinds == ["high", "low", "high", "low"]
+        assert [[ln.route for ln in sw] for sw in prog.launches] == [
+            ["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]]
+        assert [[ln.route for ln in sw] for sw in one.launches] == [["mixed"]] * 4
+    # a sweep in one launch takes its whole table, not a copy
+    for sw, table in zip(one.launches, one.tables):
+        assert [ln.table for ln in sw] == [table] and sw[0].table is table
+    for sw, table in zip(prog.launches, prog.tables):
+        assert (sw[0].table is table) == (len(sw) == 1)
+
+
 def test_sweep_tables_at_full_width():
     # 26 qubits: a low block of 21 bits and a high block of 20, planned only
     c = tq.random_circuit(26, 100, seed=42)
@@ -453,8 +496,8 @@ def test_cpu_program_runs_plain_version_without_launching():
     x = tq.apply.initial_state(12, np.float32, device="cpu")
     np.testing.assert_array_equal(prog.run(x).numpy(), prog.run_plain(x).numpy())
     assert LAUNCHES["low_sweep"] == LAUNCHES["high_sweep"] == 0
-    ints, coef = prog._tables_on(torch.device("cpu"))[0]
-    for wrapper in (ts.low_sweep, ts.high_sweep):
+    ints, coef = prog._tables_on(torch.device("cpu"))[0][0]
+    for wrapper in (ts.low_sweep, ts.high_sweep, ts.unit_stage):
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(x, ints, coef, prog.layouts[0])
     with pytest.raises(ValueError, match="float32"):

@@ -228,17 +228,26 @@ def prepare(run: HostRun, name: str, *args) -> int:
     return resident(name, *args)
 
 
-def sweep_geometry(prog) -> list[tuple[int, int, int]]:
-    """(threads, groups, group_bits) of each sweep's launch, as
-    ``sweeps._sweep`` sizes it."""
+def sweep_geometry(prog) -> list[list[tuple[int, int, int] | None]]:
+    """Per sweep, (threads, groups, group_bits) of each of its launches
+    (``SweepProgram.launches``), as ``sweeps._sweep`` sizes it for the
+    launch's instance at the sweep's geometry (``SweepProgram.geometries``);
+    None for a dense pass."""
     from tpu_qsim_torch.kernels import sweeps as ts
     from tpu_qsim_torch.kernels.fused_circuit import NARROW_CORE
 
     out = []
-    for table, lay in zip(prog.tables, prog.layouts):
-        threads = ts.sweep_threads(prog.geometry, table.max_core, lay.kbits)
-        ctas = resident("sweep_prepare", threads, int(table.max_core > NARROW_CORE), 0)
-        out.append((threads, *ts.launch_grid(lay, prog.geometry, table.max_core, ctas)))
+    for launches, lay, geo in zip(prog.launches, prog.layouts, prog.geometries):
+        row = []
+        for launch in launches:
+            if launch.table is None:
+                row.append(None)
+                continue
+            core = launch.max_core
+            threads = ts.sweep_threads(geo, core, lay.kbits)
+            ctas = resident("sweep_prepare", threads, int(core > NARROW_CORE), 0)
+            row.append((threads, *ts.launch_grid(lay, geo, core, ctas)))
+        out.append(row)
     return out
 
 
@@ -270,18 +279,35 @@ def run_grid_sweep(prog, psi: np.ndarray) -> np.ndarray:
 
 
 def run_sweeps(prog, psi: np.ndarray) -> np.ndarray:
-    """``SweepProgram.run``: one cooperative ``sweep_launch`` a sweep, at
-    :func:`sweep_geometry`."""
+    """``SweepProgram.run``: each sweep's launches in order, a cooperative
+    ``sweep_launch`` at :func:`sweep_geometry` for each table, a
+    ``dense_pass_launch`` into a new buffer for each pass."""
+    from tpu_qsim_torch.kernels import dense_pass as dp
     from tpu_qsim_torch.kernels.fused_circuit import NARROW_CORE
 
     run = HostRun()
     state = run.buffer(planes(psi))
-    for kind, table, lay, (threads, groups, group_bits) in zip(
-            prog.sweep_kinds, prog.tables, prog.layouts, sweep_geometry(prog)):
-        prepare(run, "sweep_prepare", threads, int(table.max_core > NARROW_CORE), 0)
-        run.call("sweep_launch", int(kind == "high"), state, 1 << lay.n, run.buffer(table.ints),
-                 run.buffer(table.coef), lay.kbits, run.buffer(_garbage(groups, np.int32)),
-                 groups, group_bits, threads, table.max_core, 0, None)
+    n = prog.num_qubits
+    for kind, launches, lay, geometry in zip(prog.sweep_kinds, prog.launches, prog.layouts,
+                                             sweep_geometry(prog)):
+        for launch, geo in zip(launches, geometry):
+            if launch.table is None:
+                step = launch.step
+                out = run.buffer(_garbage((2, 1 << n), np.float32))
+                cmask = step.cmask
+                instance = dp.INSTANCE_CODE[dp.pass_instance(step.k, n - step.k - len(step.controls))]
+                run.call("dense_pass_launch", state, out, 1 << n,
+                         run.buffer(dp.core_operand(step.core, step.targets)), step.k, step.tmask,
+                         cmask, cmask, instance, None)
+                state = out
+                continue
+            threads, groups, group_bits = geo
+            table = launch.table
+            prepare(run, "sweep_prepare", threads, int(table.max_core > NARROW_CORE), 0)
+            run.call("sweep_launch", int(kind == "high"), state, 1 << lay.n,
+                     run.buffer(table.ints), run.buffer(table.coef), lay.kbits,
+                     run.buffer(_garbage(groups, np.int32)), groups, group_bits, threads,
+                     table.max_core, 0, None)
     run_checked(run)
     return complex_of(run.arrays[state.index])
 

@@ -32,9 +32,18 @@
 //     It is a counter in device memory per group, zeroed by the launcher,
 //     under the cooperative launch's guarantee that every CTA of the grid is
 //     resident at once (no -rdc, no grid.sync()).
-// A unit is touched once per stage, but while its group works on it it stays
-// in L2 (at most 50 MB in flight), so device memory sees about one read and
-// one write of the state per sweep.
+// A unit is touched once per stage. Only where the units in flight fit in the
+// L2 does it stay there between stages: at 26 qubits 8 units of 16 MB do not,
+// and a launch of three stages streamed the state three times on the H100
+// (fewer units in flight ran slower). The host (sweeps.py::plan_launches)
+// launches a sweep's stages apart where their instances differ, which on the
+// H100 ran faster also where the units fit in L2 (22-24 qubits): each run of
+// tile stages on the instance for narrow cores (two CTAs an SM), each unit
+// stage alone on the wide instance (one CTA an SM, the tiled op's 128
+// registers a thread), and a unit stage of 10 or 11 qubits not here at all
+// but through dense_pass.cu; device memory sees a read and a write of the
+// state per launch. A launch may still hold several stages (the
+// whole-circuit route's, a run of tile stages).
 //
 // The sweep's table (sweeps.py::sweep_table) starts with the unit's layout as
 // build_op_table writes it (low, blk = n - 5 and no active bits, the 5 top
@@ -64,10 +73,10 @@
 // gives the narrow register program 128 registers instead of 64 and 1.2 KB
 // of spills, ran the route no faster on the H100.)
 //
-// Bound on this card: device-memory bytes, 16 B per amplitude per sweep
+// Bound on this card: device-memory bytes, 16 B per amplitude per launch
 // (both planes read and written once; 0.32 ms at 26 qubits and 3.35 TB/s),
-// or the flops of a wide core. The design pays above that one L2 pass over
-// the unit and one barrier per stage, not per op (the design before this one
+// or the flops of a wide core. The design pays above that one pass over the
+// unit and one barrier per stage, not per op (the design before this one
 // paid them per op: 59 L2 passes for random_circuit(26, 100), now 5).
 
 #include <cuda_runtime.h>

@@ -48,14 +48,16 @@ def pass_instance(k: int, log2_groups: int) -> str:
     return "large" if tiles >= LARGE_MIN_CTAS else "medium"
 
 
-def pass_core(g: PGate) -> tuple | None:
-    """(controls, core, core qubits) of a gate that needs a dense pass: a
-    dense gate whose peeled core is wider than ``MAX_DENSE_QUBITS``; None for
-    any other gate."""
-    if len(g.qubits) <= MAX_DENSE_QUBITS or _is_diagonal(g.u):
+def pass_core(g: PGate, wider_than: int = MAX_DENSE_QUBITS) -> tuple | None:
+    """(controls, core, core qubits) of a gate that takes a dense pass: a
+    dense gate whose peeled core is wider than ``wider_than`` qubits (the
+    split route: ``MAX_DENSE_QUBITS``; the sweeps route takes its unit
+    stages of ``sweeps.MIN_SWEEP_PASS_CORE`` qubits and more here too); None
+    for any other gate."""
+    if len(g.qubits) <= wider_than or _is_diagonal(g.u):
         return None
     ctrls, core, qs = _peel_controls(g.u, tuple(g.qubits))
-    return (tuple(ctrls), core, tuple(qs)) if len(qs) > MAX_DENSE_QUBITS else None
+    return (tuple(ctrls), core, tuple(qs)) if len(qs) > wider_than else None
 
 
 def core_operand(core: np.ndarray, qubits: tuple[int, ...]) -> np.ndarray:
@@ -150,13 +152,15 @@ def dense_pass(
 
 
 class DensePass:
-    """One gate whose peeled core is wider than ``MAX_DENSE_QUBITS``, as a
-    step of a split run: ``run`` maps (2, 2^n) float32 planes to new planes,
-    through :func:`dense_pass` on a CUDA tensor and :meth:`run_plain` on a
-    CPU one."""
+    """One gate whose peeled core takes a dense pass (``found``, what
+    :func:`pass_core` gives for it; by default the split route's, wider than
+    ``MAX_DENSE_QUBITS``), as a step of a split run or a sweep's unit stage:
+    ``run`` maps (2, 2^n) float32 planes to new planes, through
+    :func:`dense_pass` on a CUDA tensor and :meth:`run_plain` on a CPU
+    one."""
 
-    def __init__(self, gate: PGate, n: int):
-        found = pass_core(gate)
+    def __init__(self, gate: PGate, n: int, found: tuple | None = None):
+        found = found or pass_core(gate)
         if found is None:
             raise ValueError(f"gate on {gate.qubits} has no core wider than {MAX_DENSE_QUBITS} qubits")
         self.num_qubits = n

@@ -2,7 +2,7 @@
 time split into streaming, exposed compute and cost per op.
 
     python -m tpu_qsim_torch.kernels.floor [--vpu N] [--decompose N]
-        [--scale N --flavor {reg,lane,extctrl}] [--stamps N]
+        [--scale N --flavor {reg,lane,extctrl}] [--stamps N] [--sweeps N]
         [--plan-only [--rate T]] [--device cpu]
 
 The port of ``benchmarks/benchmark_floor.py``. Modes:
@@ -39,6 +39,11 @@ The port of ``benchmarks/benchmark_floor.py``. Modes:
   step (the wait for its block, the ops, the last store) and the median
   cycles of an op of each class (``op_class``), at full occupancy and at one
   CTA an SM: an op's latency against the SM's throughput.
+* ``--sweeps N``: the sweeps main path at N qubits (``time_run.wide_circuit(N,
+  8, 10)``: an 8-qubit core among random gates) launch by launch, each sweep
+  in one launch and then as the route plans its launches: each launch as planned and with every stage's ops removed (the same stages,
+  tiles, barriers and instance: streaming plus barriers), the difference
+  its exposed compute.
 * ``--plan-only`` (no card): the float32, select, shuffle and shared-memory
   instructions per amplitude of each register-op class, counted by hand
   from the op semantics in ``csrc/block_program.cuh``, and the op loop's
@@ -349,6 +354,61 @@ def decompose(n: int, device=None, seed: int = SEED) -> dict:
         "streaming_share": zero / full, "sweep_bytes_ms": sweep_bytes_ms,
         "bytes_ms": sweep_bytes_ms * len(gates), "state": state,
     }
+
+
+def sweeps_decompose(n: int = 26, device=None, params=None, circuit: Circuit | None = None,
+                     one_launch: bool = False) -> dict:
+    """``--sweeps``: the sweeps main path (``time_run.wide_circuit(n, 8,
+    10)``, or ``circuit`` at ``params``) launch by launch, as the route
+    plans them or (``one_launch``) each sweep in one launch: each launch's ms as planned and with every stage's ops
+    removed (``sweeps.streaming_stages``: the same stages, tiles, barriers,
+    instance and geometry), so that each splits into streaming plus
+    barriers and exposed compute (the difference); beside them the bytes of
+    one pass (a read and a write of the state). On the CPU the plain
+    versions (the launch's gates, and a copy of the state), by the host
+    clock."""
+    from .sweeps import SweepParams, SweepProgram, streaming_stages, sweep_table
+    from .time_run import wide_circuit
+
+    dev = ap.resolve_device(device)
+    prog = SweepProgram(wide_circuit(n, 8, 10) if circuit is None else circuit,
+                        SweepParams() if params is None else params, _one_launch=one_launch)
+    x = random_planes(prog.num_qubits, SEED, dev)
+    rows = []
+    for i, kind in enumerate(prog.sweep_kinds):
+        for j, launch in enumerate(prog.launches[i]):
+            row = {"sweep": i, "kind": kind, "launch": j, "route": launch.route,
+                   "stages": [[st.kind, len(st.gates)] for st in launch.stages]}
+            if launch.route == "pass":
+                row["ms"] = median_ms(lambda: (prog.launch_one if dev.type == "cuda"
+                                               else prog.launch_plain)(x, i, j), dev)
+                rows.append(row)
+                continue
+            lay, bits = prog.layouts[i], prog.tile_bits[i]
+            zero = sweep_table(streaming_stages(launch.stages, lay, bits), lay, bits)
+            if dev.type == "cuda":
+                zero_dev = (torch.from_numpy(zero.ints).to(dev), torch.from_numpy(zero.coef).to(dev))
+
+                def stream(i=i, z=zero_dev, launch=launch):
+                    prog.launch_table(x, i, z, launch.max_core, launch.route)
+
+                def full(i=i, j=j):
+                    prog.launch_one(x, i, j)
+            else:
+                def stream():
+                    x.clone()
+
+                def full(i=i, j=j):
+                    prog.launch_plain(x, i, j)
+            row["ms"] = median_ms(full, dev)
+            row["streaming_ms"] = median_ms(stream, dev)
+            row["exposed_ms"] = row["ms"] - row["streaming_ms"]
+            rows.append(row)
+    bytes_ms = 16 * (1 << prog.num_qubits) / HBM_BYTES_PER_S * 1e3
+    return {"n": prog.num_qubits, "device": str(dev), "one_launch": one_launch, "launches": rows,
+            "pass_bytes_ms": bytes_ms, "geometry": str(prog.geometry),
+            "ms": sum(r["ms"] for r in rows),
+            "streaming_ms": sum(r.get("streaming_ms", r["ms"]) for r in rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +847,7 @@ def main() -> None:
     parser.add_argument("--scale", type=int, default=None, metavar="N")
     parser.add_argument("--flavor", choices=SCALE_FLAVORS, default="reg")
     parser.add_argument("--stamps", type=int, default=None, metavar="N")
+    parser.add_argument("--sweeps", type=int, default=None, metavar="N")
     parser.add_argument("--plan-only", action="store_true")
     parser.add_argument("--rate", type=float, default=None,
                         help="T float32 instructions/s for --plan-only (from --vpu)")
@@ -836,6 +897,19 @@ def main() -> None:
               f"bytes bound {r['bytes_ms']:.4f} ms; exposed compute {r['exposed_ms']:.4f} ms = "
               f"{r['exposed_us_per_gate']:.2f} us/gate", flush=True)
         print(json.dumps(r), flush=True)
+    if args.sweeps:
+        for one in (True, False):
+            r = sweeps_decompose(args.sweeps, device=dev, one_launch=one)
+            for row in r["launches"]:
+                split = (f", streaming only {row['streaming_ms']:.4f} ms, exposed "
+                         f"{row['exposed_ms']:.4f} ms" if "streaming_ms" in row else "")
+                print(f"{r['n']}q sweeps ({'one launch a sweep' if one else 'as the route plans'}) "
+                      f"sweep[{row['sweep']}] {row['kind']} launch {row['launch']} "
+                      f"({row['route']}, stages {row['stages']}): {row['ms']:.4f} ms{split} "
+                      f"(a pass's bytes {r['pass_bytes_ms']:.4f})", flush=True)
+            print(f"{r['n']}q sweeps ({'one launch a sweep' if one else 'as the route plans'}): "
+                  f"{r['ms']:.4f} ms, streaming only {r['streaming_ms']:.4f} ms", flush=True)
+            print(json.dumps(r), flush=True)
     if args.stamps:
         r = stamps(args.stamps, device=dev)
         print_stamps(r)

@@ -15,21 +15,29 @@ global index. :func:`plan_sweeps` is a copy of the JAX planner (frontier
 scheduling, a SWAP across the two regions as 3 CNOTs) and gives the same
 plans gate by gate at the same :class:`SweepParams`.
 
-Each sweep is one launch of ``csrc/sweep.cu`` (:func:`low_sweep`,
-:func:`high_sweep`) over the flat ``(2, 2^n)`` planes, in place: a part is
-the view of the top K bits, so the TPU engine's ``to_parts``/``from_parts``
-staging copies have no counterpart. The relabelings of the TPU kernels
-(``_relabel_low``, ``_relabel_high``) are the sweeps' :class:`BlockLayout`
-s, whose codes name block bits or, as ``EXT + q``, state bit q outside the
-block. The block (a *unit*: a part or a step) is 2^17-2^21 slots of device
-memory; the kernel keeps the units in flight in L2 (:class:`SweepGeometry`,
-chosen on the card with ``python -m tpu_qsim_torch.kernels.tune_sweeps``).
+A sweep runs as launches of ``csrc/sweep.cu`` (:func:`low_sweep`,
+:func:`high_sweep`, :func:`unit_stage`) over the flat ``(2, 2^n)`` planes,
+in place: a part is the view of the top K bits, so the TPU engine's
+``to_parts``/``from_parts`` staging copies have no counterpart. The
+relabelings of the TPU kernels (``_relabel_low``, ``_relabel_high``) are
+the sweeps' :class:`BlockLayout` s, whose codes name block bits or, as
+``EXT + q``, state bit q outside the block. The block (a *unit*: a part or
+a step) is 2^17-2^21 slots of device memory; a launch keeps several units
+in flight (:class:`SweepGeometry`, chosen on the card with ``python -m
+tpu_qsim_torch.kernels.tune_sweeps``).
 :func:`plan_stages` cuts a sweep's ops into stages: runs of ops that fit in
 a 2^T-slot tile, each run as one grid-sweep register table over the tile's
 bits (``gridsweeps.register_table``) that the kernel applies tile by tile
 in one pass over the unit, and dense cores of ``TILE_CORE`` qubits or more,
 each a pass of ops.cuh's tiled op over the whole unit. :func:`sweep_table`
-joins a sweep's stages into the kernel's table.
+joins stages into the kernel's table. :func:`plan_launches` cuts a sweep's
+stages into launches, each run at the occupancy that suits it: a run of
+tile stages on the instance for narrow cores (two CTAs an SM), a unit stage
+alone on the wide instance (one CTA an SM: the tiled op's 128 registers a
+thread), and a unit stage of ``MIN_SWEEP_PASS_CORE`` qubits or more through
+the dense pass (``dense_pass.py``) on the gate's state qubits. On the H100
+the 26-qubit main path's low sweep (tile, unit, tile) ran 0.42 ms faster
+split than in one launch, and fewer units in flight were slower (PERF.md).
 """
 
 from __future__ import annotations
@@ -233,7 +241,9 @@ def high_layout(
 # Units a sweep keeps in flight when its geometry does not fix the count: as
 # many as fit in half the H100's 50 MB L2, and at least MIN_IN_FLIGHT (with
 # tile passes, 4 or 8 units of 16 MB at 26 qubits ran faster than 1 or 2 on
-# the H100, 8 by 1-2%: PERF.md)
+# the H100, 8 by 1-2%; a launch of three stages too, though 8 such units
+# overflow the L2: 4.37-4.44 ms at 8 against 4.62-4.72 at 4, 4.94-5.02 at 2
+# and 5.54-5.63 at 1: PERF.md)
 L2_BUDGET = 24 << 20
 MIN_IN_FLIGHT = 8
 
@@ -366,17 +376,8 @@ def plan_stages(
     bits = set(lanes)
 
     def close() -> None:
-        if not run:
-            return
-        tile = set(bits)
-        for q in unit_bits:
-            if len(tile) >= tile_bits:
-                break
-            tile.add(q)
-        blk = min(set(range(tile_bits + 1)) - tile)
-        layout = BlockLayout(unit.n, blk, tuple(sorted(q for q in tile if q >= blk)))
-        outside = sum(1 << q for q in unit_bits if q not in tile)
-        stages.append(Stage("tile", list(run), layout, outside))
+        if run:
+            stages.append(tile_stage(list(run), bits, unit, tile_bits))
 
     for g in gates:
         mv = moving_qubits(g.u, g.qubits)
@@ -393,6 +394,34 @@ def plan_stages(
         bits |= mv
     close()
     return stages
+
+
+def tile_stage(gates: list[PGate], bits, unit: BlockLayout, tile_bits: int) -> Stage:
+    """A tile stage of ``gates`` whose moving bits (with the lane bits) are
+    ``bits``: those bits padded with the unit's lowest others to
+    ``tile_bits``."""
+    unit_bits = [*range(unit.blk_bits), *unit.active]
+    tile = set(bits)
+    for q in unit_bits:
+        if len(tile) >= tile_bits:
+            break
+        tile.add(q)
+    blk = min(set(range(tile_bits + 1)) - tile)
+    layout = BlockLayout(unit.n, blk, tuple(sorted(q for q in tile if q >= blk)))
+    outside = sum(1 << q for q in unit_bits if q not in tile)
+    return Stage("tile", gates, layout, outside)
+
+
+def streaming_stages(stages: list[Stage], unit: BlockLayout, tile_bits: int) -> list[Stage]:
+    """``stages`` with their ops removed, for the streaming-only measurement
+    (``floor --sweeps``): each tile stage keeps its tiles and no op; a unit
+    stage becomes a tile stage of no op, one pass over the unit as its tiled
+    op makes. A launch of them at the sweep's instance keeps its passes, its
+    tiles and the group barriers between stages."""
+    from .gridsweeps import LANE_BITS as TILE_LANE_BITS
+
+    return [Stage("tile", [], st.layout, st.outside) if st.kind == "tile"
+            else tile_stage([], range(TILE_LANE_BITS), unit, tile_bits) for st in stages]
 
 
 def sweep_table(stages: list[Stage], unit: BlockLayout, tile_bits: int) -> OpTable:
@@ -436,8 +465,76 @@ def sweep_table(stages: list[Stage], unit: BlockLayout, tile_bits: int) -> OpTab
                    flops, max_core)
 
 
+@dataclass
+class SweepLaunch:
+    """One launch of a sweep, in the plan's order. ``route`` "tile": a run
+    of tile stages on the instance for narrow cores; "unit": one unit stage
+    alone on the wide instance; "pass": one unit stage's gate through the
+    dense pass (``dense_pass.DensePass``) over the whole state; "mixed": a
+    whole sweep in one launch of the instance for its widest core (the plan
+    before launches were split, which the measurements compare with).
+    ``table`` is ``sweep.cu``'s (None for a pass), ``step`` the pass (None
+    for the others)."""
+
+    route: str
+    stages: list[Stage]
+    table: OpTable | None = None
+    step: object | None = None
+
+    @property
+    def max_core(self) -> int:
+        return self.table.max_core if self.table is not None else self.step.k
+
+
+# A unit stage whose core (controls peeled) has this many qubits or more
+# runs through the dense pass over the whole state, not the wide instance's
+# tiled op: on the H100 the pass took 8.3803 / 15.0828 ms at k = 10 / 11 on
+# a 26-qubit state against 10.0425 / 36.8317 for a low sweep holding the
+# core alone, and tied at k = 9 (5.1486 against 5.0910; PERF.md)
+MIN_SWEEP_PASS_CORE = 10
+
+
+def plan_launches(
+    stages: list[Stage], unit: BlockLayout, tile_bits: int, table: OpTable,
+) -> list[SweepLaunch]:
+    """Cut a sweep's stages (``table`` their :func:`sweep_table`), in order,
+    into launches: a unit stage whose core has ``MIN_SWEEP_PASS_CORE``
+    qubits or more is a dense pass, any other a launch of its own on the
+    wide instance, and each run of tile stages between them one launch on
+    the instance for narrow cores. (On the H100 a sweep with a unit stage ran
+    split 8-16% faster than in one launch at 23-26 qubits and in a 22-qubit
+    low sweep, also where its units in flight fit in L2, and as fast in a
+    22-qubit high sweep, whose whole state fits there: PERF.md.)"""
+    from .dense_pass import DensePass, pass_core
+
+    out: list[SweepLaunch] = []
+    run: list[Stage] = []
+
+    def close() -> None:
+        if run:
+            whole = len(run) == len(stages)
+            out.append(SweepLaunch("tile", list(run),
+                                   table if whole else sweep_table(run, unit, tile_bits)))
+            run.clear()
+
+    for st in stages:
+        if st.kind == "tile":
+            run.append(st)
+            continue
+        close()
+        (g,) = st.gates
+        found = pass_core(g, MIN_SWEEP_PASS_CORE - 1)
+        if found is not None:
+            out.append(SweepLaunch("pass", [st], step=DensePass(g, unit.n, found)))
+        else:
+            out.append(SweepLaunch("unit", [st], sweep_table([st], unit, tile_bits)))
+    close()
+    return out
+
+
 def _sweep(
-    name: str,
+    key: str,
+    high: bool,
     state: torch.Tensor,
     ints: torch.Tensor,
     coef: torch.Tensor,
@@ -449,9 +546,8 @@ def _sweep(
 
     if check_kernel_inputs(state, ints, coef) != layout.n:
         raise ValueError(f"state must be (2, 2^{layout.n}) planes")
-    high = name == "high_sweep"
     if len(layout.active) > (MAX_ACTIVE_TOPS if high else 0):
-        raise ValueError(f"{name} takes no block with active bits {layout.active}")
+        raise ValueError(f"{key} takes no block with active bits {layout.active}")
     if layout.kbits > MAX_SWEEP_BITS:
         raise ValueError(f"a block of 2^{layout.kbits} slots exceeds 2^{MAX_SWEEP_BITS}")
     lib = _build.library("sweep")
@@ -468,8 +564,8 @@ def _sweep(
             coef.data_ptr(), layout.kbits, barriers.data_ptr(), groups,
             group_bits, threads, max_core, 0, stream,
         )
-    _build.check("sweep", lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
+    _build.check("sweep", lib, err, f"{key} launch")
+    LAUNCHES[key] += 1
     return state
 
 
@@ -484,12 +580,13 @@ def low_sweep(
     """Launch the low-sweep kernel on ``state`` (in place).
 
     ``ints``/``coef`` are the device copies of the sweep's
-    :func:`sweep_table` over :func:`low_layout` for ``geometry``,
-    ``max_core`` its widest dense core (the kernel instance for narrow cores
-    is launched when it is at most 4). Launches on the current stream
-    without synchronizing and raises on a refused launch.
+    :func:`sweep_table` over :func:`low_layout` for ``geometry`` (or of a
+    launch's stages, :func:`plan_launches`), ``max_core`` its widest dense
+    core (the kernel instance for narrow cores is launched when it is at most
+    4). Launches on the current stream without synchronizing and raises on a
+    refused launch.
     """
-    return _sweep("low_sweep", state, ints, coef, layout, geometry, max_core)
+    return _sweep("low_sweep", False, state, ints, coef, layout, geometry, max_core)
 
 
 def high_sweep(
@@ -502,17 +599,39 @@ def high_sweep(
 ) -> torch.Tensor:
     """Launch the high-sweep kernel on ``state`` (in place), as
     :func:`low_sweep` over a :func:`high_layout`."""
-    return _sweep("high_sweep", state, ints, coef, layout, geometry, max_core)
+    return _sweep("high_sweep", True, state, ints, coef, layout, geometry, max_core)
+
+
+def unit_stage(
+    state: torch.Tensor,
+    ints: torch.Tensor,
+    coef: torch.Tensor,
+    layout: BlockLayout,
+    geometry: SweepGeometry = SweepGeometry(),
+    max_core: int = MAX_DENSE_QUBITS,
+    high: bool = False,
+) -> torch.Tensor:
+    """Launch the sweep kernel's wide instance on ``state`` (in place) for a
+    table of one unit stage (a launch of route "unit"), over a
+    :func:`low_layout` or, with ``high``, a :func:`high_layout`; counted
+    apart, as ``LAUNCHES["unit_stage"]``."""
+    return _sweep("unit_stage", high, state, ints, coef, layout, geometry, max_core)
 
 
 class SweepProgram:
     """Planned sweep pipeline for one circuit.
 
     ``run`` maps (2, 2^n) float32 planes to planes: on a CUDA tensor it
-    launches one kernel per sweep, in place; on a CPU tensor it runs the
-    plain version, :meth:`run_plain`. Each sweep's gates are the planner's,
-    with same-qubit 1q runs merged (:func:`merge_1q_chains`), cut into
-    :attr:`stages` (:func:`plan_stages`) of :attr:`tile_bits` tiles.
+    makes each sweep's launches (:attr:`launches`, :func:`plan_launches`)
+    in order on the current stream, in place but for a dense pass, which
+    writes a new state; on a CPU tensor it runs the plain version,
+    :meth:`run_plain`. Each sweep's gates are the planner's, with same-qubit
+    1q runs merged (:func:`merge_1q_chains`), cut into :attr:`stages`
+    (:func:`plan_stages`) of :attr:`tile_bits` tiles, each launched at
+    its sweep's :attr:`geometries` (the threads of its tiles). With
+    ``_one_launch`` (for the measurements that compare with it) each sweep
+    is one launch of its whole :attr:`tables` entry instead, every unit
+    stage through the wide instance's tiled op.
     """
 
     def __init__(
@@ -520,6 +639,8 @@ class SweepProgram:
         circuit: Circuit,
         params: SweepParams = SweepParams(),
         geometry: SweepGeometry = SweepGeometry(),
+        *,
+        _one_launch: bool = False,
     ):
         n = circuit.num_qubits
         if n <= params.blk_bits + params.k_bits:
@@ -537,17 +658,28 @@ class SweepProgram:
             for s in plan
         ]
         self.tile_bits: list[int] = []
+        self.geometries: list[SweepGeometry] = []
         self.stages: list[list[Stage]] = []
         self.tables: list[OpTable] = []
+        self.launches: list[list[SweepLaunch]] = []
         for gates, lay in zip(self.sweep_gates, self.layouts):
             widest = max((len(moving_qubits(g.u, g.qubits)) for g in gates), default=0)
             bits = sweep_tile_bits(geometry, widest, lay.kbits)
+            # every launch of the sweep holds its tiles: a run of tile stages
+            # too takes the threads of a sweep with a wide core
+            geo = SweepGeometry(sweep_threads(geometry, widest, lay.kbits), geometry.in_flight)
             stages = plan_stages(gates, lay, bits)
             table = sweep_table(stages, lay, bits)
-            check_tile(table.max_core, sweep_threads(geometry, table.max_core, lay.kbits))
+            launches = ([SweepLaunch("mixed", stages, table)] if _one_launch
+                        else plan_launches(stages, lay, bits, table))
+            for launch in launches:
+                if launch.table is not None:
+                    check_tile(launch.max_core, geo.threads)
             self.tile_bits.append(bits)
+            self.geometries.append(geo)
             self.stages.append(stages)
             self.tables.append(table)
+            self.launches.append(launches)
         self._device_tables: dict[torch.device, list] = {}
 
     @property
@@ -555,22 +687,46 @@ class SweepProgram:
         return len(self.sweep_kinds)
 
     def _tables_on(self, device: torch.device) -> list:
+        """Per sweep, the device copies (ints, coef) of each launch's table
+        (None for a pass), made once per device."""
         tabs = self._device_tables.get(device)
         if tabs is None:
-            tabs = [
-                (torch.from_numpy(t.ints).to(device),
-                 torch.from_numpy(t.coef).to(device))
-                for t in self.tables
-            ]
+            tabs = [[None if ln.table is None else
+                     (torch.from_numpy(ln.table.ints).to(device),
+                      torch.from_numpy(ln.table.coef).to(device))
+                     for ln in launches] for launches in self.launches]
             self._device_tables[device] = tabs
         return tabs
 
+    def launch_table(self, state: torch.Tensor, i: int, tables: tuple,
+                     max_core: int, route: str) -> torch.Tensor:
+        """Launch sweep ``i``'s kernel on the CUDA ``state`` (in place) with
+        the device ``tables`` (ints, coef) of a launch of ``route`` "tile",
+        "unit" or "mixed" (its wrapper and count), the instance for
+        ``max_core``."""
+        high = self.sweep_kinds[i] == "high"
+        ints, coef = tables
+        geo = self.geometries[i]
+        if route == "unit":
+            return unit_stage(state, ints, coef, self.layouts[i], geo, max_core, high)
+        fn = high_sweep if high else low_sweep
+        return fn(state, ints, coef, self.layouts[i], geo, max_core)
+
+    def launch_one(self, state: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        """Launch ``j`` of sweep ``i`` on the CUDA ``state``: in place, or for
+        a pass a new state, which it returns."""
+        launch = self.launches[i][j]
+        if launch.route == "pass":
+            return launch.step.run(state)
+        tables = self._tables_on(state.device)[i][j]
+        return self.launch_table(state, i, tables, launch.max_core, launch.route)
+
     def launch(self, state: torch.Tensor, i: int) -> torch.Tensor:
-        """Sweep ``i``'s kernel on the CUDA ``state``, in place."""
-        ints, coef = self._tables_on(state.device)[i]
-        fn = low_sweep if self.sweep_kinds[i] == "low" else high_sweep
-        return fn(state, ints, coef, self.layouts[i], self.geometry,
-                  self.tables[i].max_core)
+        """Sweep ``i``'s launches on the CUDA ``state``; returns the state
+        they leave (``state`` itself unless one is a dense pass)."""
+        for j in range(len(self.launches[i])):
+            state = self.launch_one(state, i, j)
+        return state
 
     def run(self, state: torch.Tensor) -> torch.Tensor:
         check_planes(state, self.num_qubits, "sweep")
@@ -580,7 +736,7 @@ class SweepProgram:
             raise ValueError(f"no sweep kernel for device {state.device}")
         state = state.contiguous()
         for i in range(self.num_sweeps):
-            self.launch(state, i)
+            state = self.launch(state, i)
         return state
 
     __call__ = run
@@ -596,6 +752,11 @@ class SweepProgram:
         """Sweep ``i``'s plain version: its gates through the torch engine,
         in the order the kernel applies them."""
         return apply_pgates(state, self.sweep_gates[i])
+
+    def launch_plain(self, state: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        """Launch ``j`` of sweep ``i``'s plain version: its stages' gates
+        through the torch engine."""
+        return apply_pgates(state, [g for st in self.launches[i][j].stages for g in st.gates])
 
     def flops(self) -> float:
         """Real flops one run needs (from the op tables)."""

@@ -2,6 +2,7 @@
 
     python -m tpu_qsim_torch.kernels.tune_sweeps [--qubits 26 ...] [--gates 100]
         [--candidate THREADS,IN_FLIGHT ...] [--core K,LO]
+        [--launches {one,split}] [--instances]
 
 For each n and each (threads per CTA, parts or steps in flight) candidate
 (a thread holds 16 amplitudes of a tile, so 256 / 512 / 1024 threads make
@@ -15,7 +16,14 @@ the card's clocks shows as a difference between the two passes. With
 ``--core K,LO`` the same is done for ``random_circuit(n, 40, seed=42)``, a
 random K-qubit dense gate on qubits LO..LO+K-1 and ``random_circuit(n, 40,
 seed=43)`` (``--core 8,10`` at 26 qubits: the sweeps main path), whose
-wide core takes a unit stage. Needs a CUDA card.
+wide core takes a unit stage; ``--launches one`` plans each sweep as one
+launch (its unit stages among its tile stages, on the wide instance), the
+route's ``split`` (the default) launches each unit stage alone. With
+``--instances`` (and ``--core``), for each sweep with a unit stage: the
+sweep as one launch and as the route splits it, each of the split
+launches, and its tile stages alone (one table) through the instance for
+narrow cores and, the same table forced, through the wide one. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ import torch
 
 from .. import apply as ap
 from ..circuit import random_circuit
-from .sweeps import SweepGeometry, SweepProgram, resident_ctas
+from .fused_circuit import MAX_DENSE_QUBITS
+from .sweeps import SweepGeometry, SweepProgram, resident_ctas, sweep_table
 
 CANDIDATES = [
     (256, 1), (256, 2), (256, 0), (512, 1), (512, 2),
@@ -52,6 +61,37 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(out)
 
 
+def instances(c, card: str, geometry: SweepGeometry = SweepGeometry()) -> list[dict]:
+    """``--instances``: each sweep of ``c`` that holds a unit stage, as one
+    launch (its cores through the tiled op), as the route splits it, each
+    split launch, and its tile stages alone (one table) through the narrow
+    and the wide instance."""
+    n = c.num_qubits
+    one = SweepProgram(c, geometry=geometry, _one_launch=True)
+    split = SweepProgram(c, geometry=geometry)
+    x = ap.initial_state(n, np.float32, device="cuda")
+    rows = []
+    for i, (stages, lay, bits) in enumerate(zip(one.stages, one.layouts, one.tile_bits)):
+        if all(st.kind == "tile" for st in stages):
+            continue
+        tiles = sweep_table([st for st in stages if st.kind == "tile"], lay, bits)
+        t = (torch.from_numpy(tiles.ints).cuda(), torch.from_numpy(tiles.coef).cuda())
+        row = {"card": card, "qubits": n, "sweep": i, "kind": one.sweep_kinds[i],
+               "stages": [[st.kind, len(st.gates)] for st in stages],
+               "one_launch_ms": _median_ms(lambda: one.launch(x, i)),
+               "split_ms": _median_ms(lambda: split.launch(x, i)),
+               "split_launch_ms": [_median_ms(lambda j=j: split.launch_one(x, i, j))
+                                   for j in range(len(split.launches[i]))],
+               "split_routes": [ln.route for ln in split.launches[i]],
+               "tile_stages_narrow_ms": _median_ms(
+                   lambda: one.launch_table(x, i, t, tiles.max_core, "tile")),
+               "tile_stages_wide_ms": _median_ms(
+                   lambda: one.launch_table(x, i, t, MAX_DENSE_QUBITS, "tile"))}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main() -> None:
     ap_ = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap_.add_argument("--qubits", type=int, action="append", default=None)
@@ -61,6 +101,10 @@ def main() -> None:
                      help="time only these geometries (repeatable)")
     ap_.add_argument("--core", default=None, metavar="K,LO",
                      help="also time a circuit with a K-qubit core on LO..LO+K-1")
+    ap_.add_argument("--launches", choices=("one", "split"), default="split",
+                     help="one launch a sweep, or its unit stages launched alone")
+    ap_.add_argument("--instances", action="store_true",
+                     help="time the --core circuit's unit-stage sweeps by launch and instance")
     args = ap_.parse_args()
     candidates = CANDIDATES if args.candidate is None else [
         tuple(int(v) for v in text.split(",")) for text in args.candidate
@@ -87,7 +131,8 @@ def main() -> None:
             c = wide_circuit(n, *core)
         try:
             progs = {
-                cand: SweepProgram(c, geometry=SweepGeometry(cand[0], cand[1] or None))
+                cand: SweepProgram(c, geometry=SweepGeometry(cand[0], cand[1] or None),
+                                   _one_launch=args.launches == "one")
                 for cand in candidates
             }
         except ValueError as e:     # e.g. the core straddles the mid and top bits
@@ -105,7 +150,7 @@ def main() -> None:
                 per = [_median_ms(lambda: prog.launch(state, i), 3)
                        for i in range(prog.num_sweeps)]
                 row = {"circuit": label, "qubits": n, "threads": cand[0],
-                       "in_flight": cand[1], "ms": ms,
+                       "in_flight": cand[1], "launches": args.launches, "ms": ms,
                        "per_sweep_ms": per, "kinds": prog.sweep_kinds,
                        "ops": [len(g) for g in prog.sweep_gates],
                        "stages": [[len(st.gates) for st in sw] for sw in prog.stages],
@@ -117,6 +162,8 @@ def main() -> None:
         print(json.dumps({"card": card, "circuit": label, "qubits": n,
                           "gates": args.gates, "best": best}), flush=True)
         del x0, plain
+        if args.instances and core is not None:
+            instances(c, card)
 
 
 if __name__ == "__main__":
