@@ -50,12 +50,12 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    (1e-7);
    ``random_circuit(26, 100, seed=42)`` through the sweeps (at most 6 tile
    stages) and the grid-sweep programs agrees within 1e-6;
-8. dense cores of 7-10 qubits through ``run`` (the tiled op): the whole
-   circuit at 12 qubits, and a 10-qubit core at 10 (its tiled op on more
+8. dense cores of 7-10 qubits through ``run`` (the tiled op up to 9
+   qubits, 10 through the dense pass between the row's pieces): the whole
+   circuit at 12 qubits, and a 9-qubit core at 10 (its tiled op on more
    threads than the tile has), against the oracle, segments at 22 (7
    qubits on 15-21), the grid sweep at 26 (on qubits 0..k-1) and the low
-   sweep at 26 (9 qubits on the tiled op, 10 through the dense pass)
-   against their plain versions (1e-6);
+   sweep at 26 against their plain versions (1e-6);
 8b. dense cores of 12 qubits, the split route: ``random_circuit(n, 40,
     seed=42)``, a 12-qubit dense gate on qubits 0-11, ``random_circuit(n,
     40, seed=43)`` through ``StateVectorSimulator(n).run``, counted: at 16
@@ -67,6 +67,19 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     beside both at 16 and 22 qubits, with two bounds and the share of each:
     the float32 FMAs' (any design without tensor cores) and this design's
     (three TF32 tensor-core products per real one);
+8c. the route by width: cores of 10 and 11 qubits on the grid and
+    segmented rows take the dense pass between the row's pieces. At 26
+    qubits ``random_circuit(26, 40, seed=42)``, a seeded k-qubit unitary on
+    qubits 0..k-1, ``random_circuit(26, 40, seed=43)`` for k = 8 (the grid
+    sweep's tiled op) and k = 10 (grid pieces and a pass); built the same
+    way, a 10-qubit core on qubits 9-18 of 19 (segmented pieces), on 12-21
+    of 22 and an 11-qubit core on 17-27 of 28 (grid pieces; before the
+    route refused, refused and on the torch engine): each through
+    ``StateVectorSimulator(n).run``, engines and launches asserted, against
+    its plain version and (up to 26 qubits) the complex128 oracle (1e-6;
+    the 26-qubit ones computed in two worker processes from the start of
+    the run), timed, with the peak device memory of one run over the
+    state's;
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
@@ -184,8 +197,10 @@ the device JSON; the exit code is 0 only if every phase passed.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import math
+import multiprocessing
 import os
 import resource
 import shutil
@@ -1071,15 +1086,17 @@ def phase_wide_cores() -> dict:
     """Dense cores of 7-10 qubits through ``run`` on every kernel: the
     whole circuit at 12q against the oracle, segments (22q, qubits 15-21),
     the grid sweep (26q, qubits 0..k-1) and the low sweep (26q, qubits
-    17-k..16) against their plain version."""
+    17-k..16) against their plain version; a 10-qubit core takes the dense
+    pass between the row's pieces (the route by width)."""
     errs = {}
     for n, k, lo, engine in ((12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
-                             (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit"),
-                             (10, 10, 0, "whole_circuit"),
+                             (12, 9, 3, "whole_circuit"),
+                             (12, 10, 2, "whole_circuit+dense_pass"),
+                             (10, 9, 0, "whole_circuit"),
                              (22, 7, 15, "segmented"), (26, 7, 0, "grid_sweep"),
                              (26, 8, 0, "grid_sweep"), (26, 9, 0, "grid_sweep"),
-                             (26, 10, 0, "grid_sweep"), (26, 9, 8, "sweeps"),
-                             (26, 10, 7, "sweeps")):
+                             (26, 10, 0, "grid_sweep+dense_pass"), (26, 9, 8, "sweeps"),
+                             (26, 10, 7, "grid_sweep+dense_pass")):
         t0 = time.perf_counter()
         c = wide_core_circuit(n, k, lo)
         reset_launches()
@@ -1186,6 +1203,115 @@ def phase_dense_pass() -> dict:
             del x, z, um
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+    return out
+
+
+# The route by width: (name, qubits, core width, lowest core qubit, engines
+# of the split; None: one program holding the core in its tiled op)
+ROUTE_CASES = (
+    ("26q_grid_wide_k8", 26, 8, 0, None),
+    ("26q_grid_wide_k10", 26, 10, 0, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    ("19q_dense10_on_9", 19, 10, 9, ["segmented", "dense_pass", "segmented"]),
+    ("22q_dense10_on_12", 22, 10, 12, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    ("28q_dense11_on_17", 28, 11, 17, ["grid_sweep", "dense_pass", "grid_sweep"]),
+)
+ROUTE_ORACLE_QUBITS = 26     # the complex128 host oracle up to this size
+ROUTE_ORACLE_WORKERS = 22    # from this size the oracle runs in a worker process
+
+
+def route_oracle(n: int, k: int, lo: int) -> np.ndarray:
+    """The complex128 host oracle's state after ``wide_circuit(n, k, lo)``
+    (run in a worker process)."""
+    from tpu_qsim_torch.kernels.time_run import wide_circuit
+
+    ref = tq.CPUReferenceSimulator(n)
+    ref.run(wide_circuit(n, k, lo))
+    return ref.state
+
+
+def start_route_oracles() -> tuple:
+    """The host oracles of the large ``ROUTE_CASES``, started in worker
+    processes (a 26-qubit one takes minutes of host time) while the card
+    runs the phases before them: (pool, {name: future})."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    futures = {name: pool.submit(route_oracle, n, k, lo) for name, n, k, lo, _ in ROUTE_CASES
+               if ROUTE_ORACLE_WORKERS <= n <= ROUTE_ORACLE_QUBITS}
+    return pool, futures
+
+
+def phase_route_by_width(oracles: tuple) -> dict:
+    """Cores of 10 and 11 qubits on the grid and segmented rows: each of
+    ``ROUTE_CASES`` (``random_circuit(n, 40, seed=42)``, a seeded k-qubit
+    unitary on qubits lo..lo+k-1, ``random_circuit(n, 40, seed=43)``)
+    through ``StateVectorSimulator(n).run``, counted (the pieces' kernel and
+    one dense pass, or the grid sweep alone at k = 8), against its plain
+    version and the complex128 oracle (1e-6 each), timed (device time from
+    CUDA-graph replays below 20 qubits), with the peak device memory of one
+    run beside the state's own bytes: the pass writes a new state."""
+    from tpu_qsim_torch.kernels.time_run import wide_circuit
+
+    pool, futures = oracles
+    out = {}
+    for name, n, k, lo, engines in ROUTE_CASES:
+        t0 = time.perf_counter()
+        c = wide_circuit(n, k, lo)
+        reset_launches()
+        sim = tq.StateVectorSimulator(n, seed=1)
+        sim.run(c)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        _, prog = sim.compiled_run(c)
+        if engines is None:
+            check(sim.engine == "grid_sweep" and launches == {"grid_sweep": prog.num_sweeps}
+                  and max(t.max_core for t in prog.tables) == k,
+                  f"{name} ran on {sim.engine}, launches {launches}")
+        else:
+            piece = {"grid_sweep": "grid_sweep", "segmented": "segment"}[engines[0]]
+            check(prog.engines == engines and sim.engine == f"{engines[0]}+dense_pass",
+                  f"{name} ran on {sim.engine} {getattr(prog, 'engines', None)}")
+            check(launches.get("dense_pass") == 1 and launches.get(piece, 0) >= 2
+                  and set(launches) == {piece, "dense_pass"}, f"{name} launches {launches}")
+        x0 = ap.initial_state(n, np.float32, device="cuda")
+        err_plain, fid = compare(sim.state_planes, prog.run_plain(x0))
+        err_oracle = None
+        if n <= ROUTE_ORACLE_QUBITS:
+            t1 = time.perf_counter()
+            if name in futures:
+                psi = futures.pop(name).result(timeout=900)
+                want = torch.from_numpy(np.stack([psi.real, psi.imag])).to(sim.device)
+                del psi
+            else:
+                want = oracle_planes(c, sim.device)
+            err_oracle, _ = compare(sim.state_planes, want)
+            del want
+            oracle_s = time.perf_counter() - t1   # for a worker's oracle, the wait for it
+        del sim
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = prog.run(x0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del y
+        state = [x0]
+
+        def step():
+            state[0] = prog.run(state[0])
+
+        ms = graph_ms(step) if n < 20 else median_ms(step)
+        row = {"engine": "+".join(engines) if engines else "grid_sweep", "launches": launches,
+               "ms": ms, "max_abs_err_vs_plain": err_plain, "fidelity": fid,
+               "max_abs_err_vs_oracle": err_oracle,
+               "peak_gib_over_state": peak / 2 ** 30, "state_gib": 8 * (1 << n) / 2 ** 30}
+        log(f"phase {name}: wall_s={time.perf_counter() - t0:.3f} "
+            f"oracle_s={oracle_s if err_oracle is not None else None} {json.dumps(row)}")
+        check(err_plain <= 1e-6, f"{name} vs plain {err_plain} > 1e-6")
+        check(err_oracle is None or err_oracle <= 1e-6, f"{name} vs oracle {err_oracle} > 1e-6")
+        out[name] = row
+        del state, x0, prog
+        torch.cuda.empty_cache()
+    pool.shutdown()
     return out
 
 
@@ -2088,6 +2214,14 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build = phase_build()
+    oracles = start_route_oracles()
+    try:
+        return run_phases(card, build, oracles)
+    finally:
+        oracles[0].shutdown(cancel_futures=True)
+
+
+def run_phases(card: str, build: dict, oracles: tuple) -> int:
     phase_20q_oracle()
     phase_whole_circuit_oracle()
     whole = phase_main(N_WHOLE, "whole_circuit", ("whole_circuit",))
@@ -2103,6 +2237,7 @@ def main() -> int:
     cross = phase_sweeps_cross_engine()
     wide = phase_wide_cores()
     passes = phase_dense_pass()
+    route = phase_route_by_width(oracles)
     main_res = phase_28q_main()
     nat = phase_native(main_res)
     flo = phase_floor(main_res)
@@ -2134,6 +2269,8 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "route_by_width": {name: r for name, r in route.items()
+                           if r["launches"].get("grid_sweep")},
         "census_ops_floor_ms": flo["census_ops_floor_ms"],
         "max_bytes_ops_bound_ms": flo["max_bytes_ops_ms"],
         "loop_model_ms": flo["loop_model_ms"],
@@ -2244,6 +2381,7 @@ def main() -> int:
         "fp32_bound_ms": main_pass["fp32_bound_ms"],
         "run_oracle_max_abs_err": main_pass["run_oracle_max_abs_err"],
         "by_qubits": passes,
+        "route_by_width": {name: r for name, r in route.items() if r["launches"].get("dense_pass")},
     })
     vpu = flo["vpu"]
     kernels.append({

@@ -17,7 +17,8 @@ tiled dense op (cores of 5-11 qubits) runs on each kernel that holds it,
 also with fewer groups than a warp tile, and its SASS holds tensor-core
 products and no float32 FMA. A sweep's launches (tile runs, its unit
 stage alone, from 10 qubits the dense pass) run each against the plain
-version of its gates: 128 cases.
+version of its gates, and each row's cut by width (cores of 10 and 11
+qubits take the dense pass): 135 cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -355,14 +356,16 @@ def _dense_core_circuit(n: int, k: int, lo: int) -> tq.Circuit:
 
 @pytest.mark.parametrize("n,k,lo,engine", [
     (12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
-    (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit"),
+    (12, 9, 3, "whole_circuit"), (12, 10, 2, "whole_circuit+dense_pass"),
     (22, 7, 0, "grid_sweep"), (22, 8, 0, "grid_sweep"),
-    (22, 9, 0, "grid_sweep"), (22, 10, 0, "grid_sweep"),
+    (22, 9, 0, "grid_sweep"), (22, 10, 0, "grid_sweep+dense_pass"),
     (22, 7, 15, "segmented"), (22, 8, 14, "segmented"), (22, 9, 13, "segmented"),
     (22, 7, 8, "sweeps"), (24, 7, 12, "sweeps"), (24, 8, 10, "sweeps"),
-    (26, 8, 10, "sweeps"), (22, 10, 7, "sweeps"),
+    (26, 8, 10, "sweeps"), (22, 10, 7, "grid_sweep+dense_pass"),
 ])
 def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
+    # cores of 10 qubits and more take the dense pass between the row's
+    # pieces (the route by width)
     c = _dense_core_circuit(n, k, lo)
     reset_launches()
     sim = tq.StateVectorSimulator(n).run(c)
@@ -543,6 +546,32 @@ def test_simulator_splits_at_a_wide_core(cuda_device):
     assert sim.engine == "whole_circuit+dense_pass"
     assert dict(LAUNCHES) == {"whole_circuit": 2, "dense_pass": 1}
     _, prog = sim.compiled_run(c)
+    want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
+    assert float((sim.state_planes - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n,k,lo,engines", [
+    (20, 10, 0, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    (20, 11, 9, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    (22, 10, 12, ["grid_sweep", "dense_pass", "grid_sweep"]),   # refused before the route
+    (19, 10, 0, ["segmented", "dense_pass", "segmented"]),      # refused before the route
+    (19, 11, 8, ["segmented", "dense_pass", "segmented"]),
+    (16, 10, 6, ["whole_circuit", "dense_pass", "whole_circuit"]),
+    (18, 11, 0, ["whole_circuit", "dense_pass", "whole_circuit"]),
+])
+def test_route_by_width_cuts_each_row(cuda_device, n, k, lo, engines):
+    # every kernel row cuts at cores of 10 and 11 qubits: the pieces'
+    # kernels and one dense pass, against the plain version
+    c = _dense_core_circuit(n, k, lo)
+    reset_launches()
+    sim = tq.StateVectorSimulator(n).run(c)
+    torch.cuda.synchronize()
+    _, prog = sim.compiled_run(c)
+    piece = engines[0]
+    kernel = {"grid_sweep": "grid_sweep", "segmented": "segment",
+              "whole_circuit": "whole_circuit"}[piece]
+    assert prog.engines == engines and sim.engine == f"{piece}+dense_pass"
+    assert set(LAUNCHES) == {kernel, "dense_pass"} and LAUNCHES["dense_pass"] == 1
     want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
 

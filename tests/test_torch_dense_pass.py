@@ -102,8 +102,8 @@ def test_split_orders_pieces_and_passes(n, engine):
 ])
 def test_circuit_without_wide_core_plans_as_before(n, engine, kind):
     c = tq.random_circuit(n, 60, seed=n)
-    if n == 12:   # an 11-qubit core still rides the op table
-        c.append(_gate(tuple(range(11)), seed=11))
+    if n == 12:   # a 9-qubit core still rides the op table (10+ take the pass)
+        c.append(_gate(tuple(range(9)), seed=11))
     assert dispatch.split_at_wide_cores(c) is None
     got, prog = dispatch.plan_run(c, np.float32, CUDA)
     assert got == engine and type(prog) is kind

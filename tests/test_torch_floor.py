@@ -398,6 +398,29 @@ def test_stamp_summary_splits_a_step_by_op_class():
         floor.stamps(14, device="cpu")
 
 
+def test_stamp_summary_splits_a_tiled_op_into_its_phases():
+    # a grid sweep holding one 6-qubit op: its row's tile slots (4 + n_ops
+    # .. 9 + n_ops) split the op, from its start to the next boundary
+    prog = floor.core_program(14, 6)
+    (table,) = prog.tables
+    n_ops = int(table.ints[0])
+    assert floor.op_class(floor.descriptors(table)[n_ops - 1]) == "smem"
+    rows = np.zeros((1, 2, n_ops + floor.STAMP_EXTRA), np.int64)
+    for j in range(2):
+        row = rows[0, j]
+        row[0], row[1] = 1000, 1100
+        row[2:4 + n_ops] = 1100 + 100 * np.arange(1, n_ops + 3)   # op o: 100 cycles
+        start = row[1 + n_ops]                  # the tiled op, the last one
+        row[4 + n_ops:10 + n_ops] = start + np.array([5, 10, 30, 60, 100, 150]) + j
+        row[3 + n_ops - 1] = start + 200        # the store's start: the op's end
+        row[-1] = 0
+    s = floor.stamp_summary(table, rows)
+    assert s["tile_cycles"] == {"call": 5.5, "tables": 5.0, "stage": 20.0, "publish": 30.0,
+                                "product": 40.0, "barrier": 50.0, "after": 49.5}
+    rows[..., 4 + n_ops:10 + n_ops] = 0         # no tiled op stamped
+    assert floor.stamp_summary(table, rows)["tile_cycles"] == {}
+
+
 def test_op_class_names_every_register_class():
     names = {name: floor.op_class(cls["descriptor"]) for name, cls in floor.census_classes(16).items()}
     assert names == {"reg": "swap_ctrl", "lane": "swap_lane_ctrl", "extctrl": "swap_ext",

@@ -39,6 +39,7 @@ def test_port_has_the_slice_modules():
         "kernels.fused_circuit", "kernels.sweeps", "kernels.gridsweeps",
         "kernels.segmented", "kernels.dispatch", "kernels._build", "kernels.dense_pass",
         "kernels.time_run", "kernels.tune_grid", "kernels.tune_small", "kernels.tune_sweeps",
+        "kernels.tune_route",
         "kernels.floor", "kernels.sass_census",
         "shardmap_engine", "parallel", "ranks", "utils", "qasm", "stabilizer", "__main__",
         "native", "fixture_corpus",

@@ -75,15 +75,16 @@ def test_op_table_takes_wide_cores_column_major(k):
 
 def test_core_past_the_limit_raises_naming_it():
     # since the tiled op, cores of 9 and 10 qubits plan on the whole-circuit
-    # kernel at 12 qubits and match the JAX package's oracle; what is
-    # refused, naming the limit, is a core wider than a kernel's block (a
-    # segment keeps 5 of its at most 14 bits in place)
+    # kernel at 12 qubits and match the JAX package's oracle (planned
+    # directly: the route by width sends a 10-qubit core to the dense
+    # pass); what is refused, naming the limit, is a core wider than a
+    # kernel's block (a segment keeps 5 of its at most 14 bits in place)
     assert fc.MAX_DENSE_QUBITS == 11
     n = 12
     for k, qubits in ((9, (11, 0, 7, 3, 9, 1, 5, 2, 10)), (10, tuple(range(2, 12)))):
         c = _between_random(n, (_dense(k), qubits))
-        engine, prog = dispatch.plan_run(c, np.float32, CUDA)
-        assert engine == "whole_circuit" and prog.table.max_core == k
+        prog = fc.WholeCircuitProgram(c)
+        assert prog.table.max_core == k
         psi = random_state(n, np.random.default_rng(k))
         np.testing.assert_allclose(emulate_whole_circuit(psi, prog), jax_oracle(c, psi),
                                    atol=TOL, rtol=0)
@@ -165,8 +166,9 @@ PARENT_THREADS = {10: 512, 11: 512, 12: 512, 13: 512, 14: 256, 15: 256, 16: 512,
 def test_whole_circuit_takes_every_core_it_took(n):
     # every core width the cluster kernel's geometry took still plans, on the
     # lowest and the highest qubits, as a unit stage whose CTAs have the
-    # threads its tiled op needs; at 10 qubits the widest run through the
-    # mirror against the oracle
+    # threads its tiled op needs (the program planned directly: the route by
+    # width sends cores of 10 and 11 qubits to the dense pass); at 10 qubits
+    # the widest run through the mirror against the oracle
     from tpu_qsim_torch.kernels.time_run import kron_gate
 
     kmax = min(n, fc.MAX_DENSE_QUBITS, (4 * PARENT_THREADS[n]).bit_length() - 1)
@@ -174,8 +176,8 @@ def test_whole_circuit_takes_every_core_it_took(n):
         for lo in (0, n - k):
             gate = kron_gate(tuple(range(lo, lo + k)), seed=k)
             c = tq.Circuit(n).h(0).cnot(0, n - 1).append(gate).h(n - 1)
-            engine, prog = dispatch.plan_run(c, np.float32, CUDA)
-            assert engine == "whole_circuit" and prog.table.max_core == k
+            prog = fc.WholeCircuitProgram(c)
+            assert prog.table.max_core == k
             assert (1 << k) <= 4 * prog.threads <= 4 * ts.WIDE_THREADS
             assert [st.kind for st in prog.stages].count("unit") == 1
             if n == 10 and k >= 9 and lo == 0:
@@ -281,10 +283,13 @@ def test_dispatch_raises_when_every_engine_refuses():
     spins on this circuit: at 16 block bits its stage_min of 12 admits at
     most 4 incoming qubits per segment, and the gate brings 6.)
 
-    Still refused, naming each engine's refusal: a 10-qubit core on qubits
-    12-21 of 22, wider than any segment's 14 - 5 = 9 bits. The JAX package
-    cannot run it either: its grid and sweep planners refuse it, and its
-    segmented planner spins (10 qubits > 16 - 7)."""
+    Refused until the route by width, naming each engine's refusal: a
+    10-qubit core on qubits 12-21 of 22, wider than any segment's 14 - 5 = 9
+    bits (the JAX package cannot run it either: its grid and sweep planners
+    refuse it, and its segmented planner spins, 10 qubits > 16 - 7). Since
+    the grid and segmented rows send cores of 10 qubits and more to the
+    dense pass, it runs: the pieces on their engines (the 8-qubit core's on
+    segments), the core as a pass, against the oracle."""
     n = 22
     c = tq.Circuit(n).h(0).add(_dense(8), *range(14, 22)).cnot(0, n - 1)
     engine, prog = dispatch.plan_run(c, np.float32, CUDA)
@@ -294,12 +299,20 @@ def test_dispatch_raises_when_every_engine_refuses():
     psi = random_state(n, np.random.default_rng(22))
     np.testing.assert_allclose(emulate_segments(psi, prog), jax_oracle(c, psi), atol=TOL, rtol=0)
 
-    c10 = tq.Circuit(n).add(_dense(10), *range(12, 22))
-    with pytest.raises(ValueError) as err:
-        dispatch.plan_run(c10, np.float32, CUDA)
+    c10 = tq.Circuit(n).h(0).add(_dense(8), *range(14, 22)).add(_dense(10), *range(12, 22))
+    c10.cnot(0, n - 1)
+    with pytest.raises(ValueError) as err:   # the rows' engines, without the split
+        dispatch._plan_piece(c10, "grid_sweep")
     msg = str(err.value)
     for name in ("grid_sweep:", "sweeps:", "segmented:"):
         assert name in msg
+    engine, prog = dispatch.plan_run(c10, np.float32, CUDA)
+    assert engine == "segmented+dense_pass+grid_sweep"
+    assert prog.engines == ["segmented", "dense_pass", "grid_sweep"]
+    assert prog.steps[1].k == 10
+    x = tq.apply.from_complex(psi, np.float32, "cpu")
+    np.testing.assert_allclose(tq.apply.to_complex(prog.run_plain(x)), jax_oracle(c10, psi),
+                               atol=TOL, rtol=0)
     # above the segmented engine's range the torch engine takes it
     c28 = tq.Circuit(28).add(_dense(8), *range(20, 28))
     assert dispatch.plan_run(c28, np.float32, CUDA) == ("torch", None)

@@ -181,11 +181,13 @@ struct QubitBit {
 // nothing. Stamp(slot): slot 2 + o is the start of op o, 2 + n_ops the
 // last store's start and 3 + n_ops its end; slots 0 and 1 are the
 // caller's (the block's wait and its first load). Stamp::mark<id>() marks
-// where the op loop and an op class's code start in the SASS.
+// where the op loop and an op class's code start in the SASS;
+// Stamp::tile() is what a tiled op stamps its own boundaries with.
 struct NoStamp {
   __device__ __forceinline__ void operator()(int) const {}
   template <int ID>
   __device__ __forceinline__ void mark() const {}
+  __device__ __forceinline__ NoTileStamp tile() const { return {}; }
 };
 
 __device__ __forceinline__ void cmul(float& r, float& i, float2 c) {
@@ -510,7 +512,7 @@ __device__ __forceinline__ void run_block(float* __restrict__ re,
       }
       if (flags & D_REG) break;
       apply_op<MAXM>(BlockSlots{sr, si}, op, coef, kbits, cta_g, Part{0, 0u},
-                     scratch);
+                     scratch, stamp.tile());
       __syncthreads();
     }
     if (o == n_ops) {

@@ -123,18 +123,31 @@ grid_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
 // --classes), which no main path builds or launches: the same sweep with
 //  - StampRows: thread 0 of CTAs below `ctas` writes clock64() at the op
 //    boundaries (block_program.cuh's slots) of `steps` of its steps,
-//    spread evenly over its run, and the step's share of the global index
-//    after them: a row of n_ops + 5 values a step at
-//    at[(cta * steps + j) * (n_ops + 5)];
+//    spread evenly over its run, then at a tiled op's own boundaries
+//    (ops.cuh's TileStamp slots, 4 + n_ops to 9 + n_ops; the last tiled
+//    op's), and the step's share of the global index after them: a row of
+//    n_ops + 11 values a step at at[(cta * steps + j) * (n_ops + 11)];
 //  - Marks (compiled, never launched): a pmevent where the op loop and each
 //    op class's code start, for the SASS census.
+constexpr int STAMP_EXTRA = 11;  // a row's slots past the ops
+struct TileClock {
+  static constexpr bool ON = true;
+  long long* at;  // null: not stamped
+  __device__ __forceinline__ void operator()(int i) const {
+    if (at) at[i] = clock64();
+  }
+};
 struct ClockStamp {
   long long* row;  // null: not stamped
+  int n_ops;
   __device__ __forceinline__ void operator()(int slot) const {
     if (row) row[slot] = clock64();
   }
   template <int ID>
   __device__ __forceinline__ void mark() const {}
+  __device__ __forceinline__ TileClock tile() const {
+    return {row ? row + n_ops + 4 : nullptr};
+  }
 };
 struct StampRows {
   long long* at;
@@ -145,10 +158,10 @@ struct StampRows {
     const unsigned stride = every > 0 ? every : 1;
     if (threadIdx.x != 0 || (int)blockIdx.x >= ctas || j % stride != 0 ||
         (int)(j / stride) >= steps)
-      return {nullptr};
-    long long* row = at + ((long long)blockIdx.x * steps + j / stride) * (n_ops + 5);
-    row[n_ops + 4] = g;
-    return {row};
+      return {nullptr, n_ops};
+    long long* row = at + ((long long)blockIdx.x * steps + j / stride) * (n_ops + STAMP_EXTRA);
+    row[n_ops + STAMP_EXTRA - 1] = g;
+    return {row, n_ops};
   }
 };
 struct MarkStamp {
@@ -157,6 +170,7 @@ struct MarkStamp {
   __device__ __forceinline__ void mark() const {
     pm_marker<ID>();
   }
+  __device__ __forceinline__ NoTileStamp tile() const { return {}; }
 };
 struct Marks {
   __device__ __forceinline__ MarkStamp operator()(unsigned, unsigned, int, unsigned) const {
@@ -216,7 +230,8 @@ bool valid_launch(int kbits, int max_core, int* threads) {
 
 #ifdef QSIM_STAMPS
 // The stamp instance at `one_per_sm` (0 or 1): a CTA takes the most shared
-// memory a CTA may have, so that one fits an SM.
+// memory a CTA may have (less its static shared memory), so that one fits
+// an SM.
 template <int MAXM>
 int stamp_launch(float* state, long long dim, const int* table, const float* coef, int kbits,
                  long long steps, int threads, cudaStream_t stream, StampRows rows,
@@ -224,11 +239,14 @@ int stamp_launch(float* state, long long dim, const int* table, const float* coe
   size_t smem = block_smem<MAXM>(kbits);
   if (one_per_sm) {
     int dev = 0, most = 0;
+    cudaFuncAttributes attr;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, grid_sweep_stamp_kernel<MAXM, StampRows>);
     if (err != cudaSuccess) return (int)err;
-    if ((size_t)most > smem) smem = most;
+    const size_t room = (size_t)most - attr.sharedSizeBytes;
+    if (room > smem) smem = room;
   }
   return launch(grid_sweep_stamp_kernel<MAXM, StampRows>, state, dim, table, coef, steps,
                 threads, smem, stream, rows);

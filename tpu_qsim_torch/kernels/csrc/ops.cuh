@@ -310,13 +310,26 @@ __device__ __forceinline__ unsigned row_slot(const int* op, int m, unsigned r) {
   return l;
 }
 
-template <class S, int MT>
+// The tiled op's own boundaries, for a measurement build (grid_sweep.cu's
+// stamp instance): NoTileStamp everywhere else, which compiles to nothing.
+// TileStamp(i) at 0: the op's entry; 1: its tables computed, before the
+// first tile; 2: this thread's staging of a tile issued; 3: past the
+// barrier that publishes the tile's X; 4: its warp's products and stores
+// done; 5: past the tile's last barrier (without the ring).
+struct NoTileStamp {
+  static constexpr bool ON = false;
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+template <class S, int MT, class TileStamp = NoTileStamp>
 __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
                                                const float2* coef, int kbits,
-                                               Part part, TileScratch<MT> sc) {
+                                               Part part, TileScratch<MT> sc,
+                                               TileStamp tile_stamp = {}) {
   constexpr int WR = 8 * MT, WG = TILE_GROUPS;
   constexpr int EB = TILE_STAGE_BITS;
   static_assert(MT % 2 == 0, "m-tiles in interleaved pairs");
+  tile_stamp(0);
   // tables every thread computes alike (the staging's bit deltas; a lane's
   // output offsets, the same in every warp), kept out of the product loop's
   // registers
@@ -410,6 +423,7 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
     for (int q = 0; q < 4; ++q) lane_tab[lane][MT + q] = deposit_bits(4u * fq + q, gmask);
   }
   const bool quad = (gmask & 3u) == 3u;
+  tile_stamp(1);
 
   unsigned b = 0;  // the tile's buffer: 0 and 1 in turn with the ring
   if (ring && part.index < n_tiles) {
@@ -420,9 +434,11 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
     const unsigned xs = xs0 + 8u * b * cap;
     if (ring) cp_async_wait<0>();
     else stage(tile, xs);
+    tile_stamp(2);
     // the tile's X is in (and lane_tab); with the ring, every warp is done
     // with the other buffer, which the next tile's copies then take
     __syncthreads();
+    tile_stamp(3);
     if (ring && tile + stride < n_tiles) {
       stage(tile + stride, xs0 + 8u * (b ^ 1u) * cap);
       cp_async_commit();
@@ -520,7 +536,9 @@ __device__ __noinline__ void apply_dense_tiled(const S& s, const int* op,
         }
       }
     }
+    tile_stamp(4);
     if (!ring) __syncthreads();  // the next tile's staging overwrites xs
+    tile_stamp(5);
   }
 }
 
@@ -549,11 +567,13 @@ __device__ __forceinline__ void check_core_width(const int* table) {
 
 // One op of the table. Out-of-block controls (words 5, 6) are uniform over
 // the CTA and skip it whole. `scratch` is the tiled op's TileScratch (only
-// the wide instance reads it).
-template <int MAXM, class S, class Scratch>
+// the wide instance reads it), `tile_stamp` its stamps (a measurement
+// build's).
+template <int MAXM, class S, class Scratch, class TileStamp = NoTileStamp>
 __device__ void apply_op(const S& s, const int* op, const float2* coef,
                          int kbits, unsigned cta_g, Part part,
-                         const Scratch& scratch) {
+                         const Scratch& scratch,
+                         const TileStamp& tile_stamp = TileStamp()) {
   if ((cta_g & (unsigned)op[5]) != (unsigned)op[6]) return;
   if (op[0] == KIND_DIAG) {
     apply_diag(s, op, coef, kbits, cta_g, part);
@@ -566,7 +586,7 @@ __device__ void apply_op(const S& s, const int* op, const float2* coef,
     case 4: apply_dense<4>(s, op, coef, kbits, part); break;
     default:  // only the wide instance has code for these widths
       if constexpr (MAXM > NARROW_CORE)
-        apply_dense_tiled(s, op, coef, kbits, part, scratch);
+        apply_dense_tiled(s, op, coef, kbits, part, scratch, tile_stamp);
       break;
   }
 }

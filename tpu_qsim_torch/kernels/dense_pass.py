@@ -51,9 +51,8 @@ def pass_instance(k: int, log2_groups: int) -> str:
 def pass_core(g: PGate, wider_than: int = MAX_DENSE_QUBITS) -> tuple | None:
     """(controls, core, core qubits) of a gate that takes a dense pass: a
     dense gate whose peeled core is wider than ``wider_than`` qubits (the
-    split route: ``MAX_DENSE_QUBITS``; the sweeps route takes its unit
-    stages of ``sweeps.MIN_SWEEP_PASS_CORE`` qubits and more here too); None
-    for any other gate."""
+    route by width: ``sweeps.MIN_SWEEP_PASS_CORE`` - 1, for the split and
+    for the sweeps' unit stages); None for any other gate."""
     if len(g.qubits) <= wider_than or _is_diagonal(g.u):
         return None
     ctrls, core, qs = _peel_controls(g.u, tuple(g.qubits))
@@ -153,7 +152,7 @@ def dense_pass(
 
 class DensePass:
     """One gate whose peeled core takes a dense pass (``found``, what
-    :func:`pass_core` gives for it; by default the split route's, wider than
+    :func:`pass_core` gives for it; by default a core wider than
     ``MAX_DENSE_QUBITS``), as a step of a split run or a sweep's unit stage:
     ``run`` maps (2, 2^n) float32 planes to new planes, through
     :func:`dense_pass` on a CUDA tensor and :meth:`run_plain` on a CPU

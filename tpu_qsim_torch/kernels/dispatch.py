@@ -10,6 +10,9 @@
 | float32 | 20..26  | cuda   | segmented program, when the grid planner and (at     |
 |         |         |        | 22-26q) the sweep planner refuse                     |
 | float32 | 27..30  | cuda   | torch engine, when the grid planner refuses          |
+| float32 | 10..30  | cuda   | the circuit split at each dense core of 10 qubits    |
+|         |         |        | or more: the rows above for the pieces, the dense    |
+|         |         |        | pass (``csrc/dense_pass.cu``) for each such gate     |
 | any     | any     | any    | torch engine (:mod:`tpu_qsim_torch.apply`)           |
 
 It follows ``tpu_qsim/kernels/dispatch.py`` row by row. The grid planner
@@ -25,13 +28,15 @@ qubits), :func:`plan_run` raises a ValueError that names each refusal. The
 route is decided when a circuit is planned and never changes because a
 build or a launch failed.
 
-On the kernel rows, a gate whose dense core (its controls peeled) is wider
-than ``MAX_DENSE_QUBITS`` splits the circuit: the pieces between such gates
-are planned by this table as circuits of their own, each such gate becomes
-a whole-state pass (``csrc/dense_pass.cu``), and a :class:`SplitProgram`
-runs them in order; the engine's name joins the pieces' engines and
-``dense_pass`` (e.g. ``"whole_circuit+dense_pass"``). The JAX package runs
-such cores inside its kernels.
+On the kernel rows, a gate whose dense core (its controls peeled) has
+``MIN_SWEEP_PASS_CORE`` (10) qubits or more splits the circuit (the route
+by width): the pieces between such gates are planned by this table as
+circuits of their own, each such gate becomes a whole-state pass
+(``csrc/dense_pass.cu``), and a :class:`SplitProgram` runs them in order;
+the engine's name joins the pieces' engines and ``dense_pass`` (e.g.
+``"whole_circuit+dense_pass"``). The sweeps, planned whole, send their unit
+stages of that width to the same pass. The JAX package runs such cores
+inside its kernels.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 from ..circuit import Circuit
 from .fused_circuit import MAX_WHOLE_CIRCUIT_QUBITS, MIN_WHOLE_CIRCUIT_QUBITS
 from .segmented import MAX_SEGMENTED_QUBITS
-from .sweeps import MAX_SWEEP_QUBITS, MIN_SWEEP_QUBITS
+from .sweeps import MAX_SWEEP_QUBITS, MIN_SWEEP_PASS_CORE, MIN_SWEEP_QUBITS
 
 MIN_GRID_QUBITS = 20
 MAX_GRID_QUBITS = 30
@@ -90,8 +95,8 @@ class _TorchPiece:
 
 
 class SplitProgram:
-    """A circuit split at its gates with dense cores wider than
-    ``MAX_DENSE_QUBITS``: ``steps`` are the pieces' programs and the passes
+    """A circuit split at its gates with dense cores of ``MIN_SWEEP_PASS_CORE``
+    qubits or more: ``steps`` are the pieces' programs and the passes
     (:class:`~tpu_qsim_torch.kernels.dense_pass.DensePass`) in circuit order,
     ``engines`` the name of each. ``run`` and ``run_plain`` map (2, 2^n)
     planes through each step's ``run`` or ``run_plain`` in turn."""
@@ -115,19 +120,20 @@ class SplitProgram:
 
 
 def split_at_wide_cores(circuit: Circuit) -> list | None:
-    """The circuit cut at its gates whose dense core is wider than
-    ``MAX_DENSE_QUBITS``: pieces (circuits, empty ones left out) and such
-    gates (``PGate``) in order; None when it has no such gate."""
+    """The circuit cut at its gates whose dense core has
+    ``MIN_SWEEP_PASS_CORE`` qubits or more: pieces (circuits, empty ones left
+    out) and such gates (``PGate``) in order; None when it has no such
+    gate."""
     from .dense_pass import pass_core
-    from .fused_circuit import MAX_DENSE_QUBITS, as_pgates
+    from .fused_circuit import as_pgates
 
     n = circuit.num_qubits
     out: list = []
     piece = Circuit(n)
     for g in circuit.gates:
-        if len(g.qubits) > MAX_DENSE_QUBITS:
+        if len(g.qubits) >= MIN_SWEEP_PASS_CORE:
             (pg,) = as_pgates([g])
-            if pass_core(pg) is not None:
+            if pass_core(pg, MIN_SWEEP_PASS_CORE - 1) is not None:
                 if piece.gates:
                     out.append(piece)
                     piece = Circuit(n)
@@ -154,9 +160,10 @@ def plan_run(
 
 def plan_kernels(circuit: Circuit, engine: str) -> tuple[str, Callable | None]:
     """(engine, program) for ``circuit`` on the kernel row ``engine`` of the
-    table, split at its cores wider than ``MAX_DENSE_QUBITS``; the program
-    is None where the row gives way to the torch engine."""
-    from .dense_pass import DensePass
+    table, split at its cores of ``MIN_SWEEP_PASS_CORE`` qubits or more (the
+    route by width); the program is None where the row gives way to the
+    torch engine."""
+    from .dense_pass import DensePass, pass_core
 
     n = circuit.num_qubits
     parts = split_at_wide_cores(circuit)
@@ -169,15 +176,15 @@ def plan_kernels(circuit: Circuit, engine: str) -> tuple[str, Callable | None]:
             steps.append(_TorchPiece(part) if prog is None else prog)
         else:
             name = "dense_pass"
-            steps.append(DensePass(part, n))
+            steps.append(DensePass(part, n, pass_core(part, MIN_SWEEP_PASS_CORE - 1)))
         engines.append(name)
     split = SplitProgram(steps, engines)
     return split.engine, split
 
 
 def _plan_piece(circuit: Circuit, engine: str) -> tuple[str, Callable | None]:
-    """(engine, program) for a circuit with no core wider than
-    ``MAX_DENSE_QUBITS``, on the kernel row ``engine`` of the table."""
+    """(engine, program) for a circuit with no core of ``MIN_SWEEP_PASS_CORE``
+    qubits or more, on the kernel row ``engine`` of the table."""
     from .fused_circuit import WholeCircuitProgram
     from .gridsweeps import GridSweepProgram
     from .segmented import SegmentedProgram

@@ -2,7 +2,7 @@
 time split into streaming, exposed compute and cost per op.
 
     python -m tpu_qsim_torch.kernels.floor [--vpu N] [--decompose N]
-        [--scale N --flavor {reg,lane,extctrl}] [--stamps N] [--sweeps N]
+        [--scale N --flavor {reg,lane,extctrl}] [--stamps N [--core K ...]] [--sweeps N]
         [--plan-only [--rate T]] [--device cpu]
 
 The port of ``benchmarks/benchmark_floor.py``. Modes:
@@ -38,7 +38,14 @@ The port of ``benchmarks/benchmark_floor.py``. Modes:
   of its steps, spread over its run; printed per sweep as warp 0's cycles a
   step (the wait for its block, the ops, the last store) and the median
   cycles of an op of each class (``op_class``), at full occupancy and at one
-  CTA an SM: an op's latency against the SM's throughput.
+  CTA an SM: an op's latency against the SM's throughput. With ``--core K``
+  (repeatable) it runs instead a grid sweep holding one K-qubit dense op on
+  qubits 0..K-1 (blk 8, 5 active bits), and splits a tiled op (K >= 5) into
+  its phases from its own stamps (``TILE_PHASES``): the op's dispatch and
+  call, its tables (the prologue's bit loops: the staging's and the
+  outputs'), warp 0's staging of X, the barrier that publishes it, warp 0's products
+  and stores, the barrier that ends the tile, and what follows up to the
+  next op boundary.
 * ``--sweeps N``: the sweeps main path at N qubits (``time_run.wide_circuit(N,
   8, 10)``: an 8-qubit core among random gates) launch by launch, each sweep
   in one launch and then as the route plans its launches: each launch as planned and with every stage's ops removed (the same stages,
@@ -495,7 +502,9 @@ def scale(n: int, flavor: str, device=None, ks=SCALE_KS) -> dict:
 
 STAMP_CTAS = 64        # CTAs whose thread 0 stamps (spread over the SMs)
 STAMP_STEPS = 8        # steps of each, spread over its run
-STAMP_EXTRA = 5        # a row's slots past the ops: see grid_sweep.cu's ClockStamp
+STAMP_EXTRA = 11       # a row's slots past the ops: see grid_sweep.cu's ClockStamp
+TILE_SLOTS = 6         # of them, a tiled op's own boundaries (ops.cuh's TileStamp)
+TILE_PHASES = ("call", "tables", "stage", "publish", "product", "barrier", "after")
 OCCUPANCIES = {"full": 0, "one_cta_per_sm": 1}
 
 
@@ -562,6 +571,7 @@ def stamp_summary(table: OpTable, rows: np.ndarray) -> dict:
     ext = [(int(d[4]) & 0xFFFFFFFF, int(d[5]) & 0xFFFFFFFF) for d in descs]
     by_class: dict[str, list[int]] = {}
     wait, ops, store = [], [], []
+    tile: dict[str, list[int]] = {}
     for row in rows.reshape(-1, rows.shape[-1]):
         if not row[0]:
             continue
@@ -573,34 +583,53 @@ def stamp_summary(table: OpTable, rows: np.ndarray) -> dict:
             dt = int(row[3 + o] - row[2 + o])
             name = classes[o] if (cta_g & ext[o][0]) == ext[o][1] else "skipped"
             by_class.setdefault(name, []).append(dt)
+        ts = row[4 + n_ops:4 + n_ops + TILE_SLOTS]
+        if ts.all():   # a tiled op ran: its op o_t holds the stamps
+            o_t = max(o for o in range(n_ops) if row[2 + o] <= ts[0])
+            edges = [row[2 + o_t], *ts, row[3 + o_t]]
+            for name, a, b in zip(TILE_PHASES, edges, edges[1:]):
+                tile.setdefault(name, []).append(int(b - a))
     med = (lambda v: float(np.median(v)) if v else None)
     return {"steps": len(wait), "wait_cycles": med(wait), "ops_cycles": med(ops),
             "store_cycles": med(store), "ops": n_ops,
             "class_cycles": {k: med(v) for k, v in sorted(by_class.items())},
-            "class_counts": {k: len(v) for k, v in sorted(by_class.items())}}
+            "class_counts": {k: len(v) for k, v in sorted(by_class.items())},
+            "tile_cycles": {k: med(v) for k, v in tile.items()}}
 
 
-def stamp_programs(n: int) -> dict:
+def core_program(n: int, k: int) -> GridSweepProgram:
+    """One grid sweep (blk 8, 5 active bits) holding one k-qubit dense op on
+    qubits 0..k-1 (``time_run``'s one-op row; k = 1: an ``h``)."""
+    from .time_run import dense_gate
+
+    gate = "h" if k == 1 else dense_gate(k)
+    return GridSweepProgram(Circuit(n).add(gate, *range(k)), GridParams(8, 5))
+
+
+def stamp_programs(n: int, cores=()) -> dict:
     """The programs ``--stamps`` runs: each sweep of the production plan of
     ``random_circuit(n, 100, seed)``, and ``--scale``'s 32 CNOTs of each
-    flavor."""
+    flavor; with ``cores``, instead a grid sweep holding one k-qubit op for
+    each k (:func:`core_program`)."""
+    if cores:
+        return {f"core{k}": core_program(n, k) for k in cores}
     progs = decompose_programs(n)
     out = {f"sweep{i}": p for i, p in enumerate(progs["sweeps"])}
     out.update({f"scale_{f}": scale_program(n, f, SCALE_KS[-1]) for f in SCALE_FLAVORS})
     return out
 
 
-def stamps(n: int, device=None) -> dict:
+def stamps(n: int, device=None, cores=()) -> dict:
     """``--stamps``: each of :func:`stamp_programs` through the stamp
     instance at full occupancy and at one CTA an SM (latency against
-    throughput), summarised per sweep and per op class in cycles of warp 0;
-    with the SM clock read under load."""
+    throughput), summarised per sweep and per op class in cycles of warp 0
+    (and a tiled op's phases); with the SM clock read under load."""
     dev = ap.resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("--stamps reads clock64() on the card: it needs a CUDA device")
     x = ap.initial_state(n, np.float32, device=dev)
     out = {"n": n, "device": str(dev), "ctas": STAMP_CTAS, "steps": STAMP_STEPS, "programs": {}}
-    progs = stamp_programs(n)
+    progs = stamp_programs(n, cores)
     for name, prog in progs.items():
         res = {}
         for occ, one_per_sm in OCCUPANCIES.items():
@@ -609,7 +638,7 @@ def stamps(n: int, device=None) -> dict:
             res[occ] = [stamp_summary(t, r) for t, r in zip(prog.tables, rows)]
         out["programs"][name] = res
     for _ in range(200):
-        progs["sweep0"].run(x)
+        next(iter(progs.values())).run(x)
     out["sm_clock_mhz"], out["sm_clock_max_mhz"] = sm_clocks()
     torch.cuda.synchronize(dev)
     return out
@@ -621,9 +650,11 @@ def print_stamps(r: dict) -> None:
             for i, s in enumerate(sweeps):
                 classes = ", ".join(f"{k} {v:.0f} (x{s['class_counts'][k]})"
                                     for k, v in s["class_cycles"].items())
+                tile = "".join(f", {k} {v:.0f}" for k, v in s["tile_cycles"].items())
                 print(f"{r['n']}q stamps {name}[{i}] {occ}: {s['steps']} steps, cycles a step: wait "
                       f"{s['wait_cycles']:.0f}, {s['ops']} ops {s['ops_cycles']:.0f}, store "
-                      f"{s['store_cycles']:.0f}; median cycles an op: {classes}", flush=True)
+                      f"{s['store_cycles']:.0f}; median cycles an op: {classes}"
+                      + (f"; tiled op{tile}" if tile else ""), flush=True)
     print(f"SM clock under load {r['sm_clock_mhz']:.0f} MHz (max {r['sm_clock_max_mhz']:.0f})",
           flush=True)
 
@@ -847,6 +878,8 @@ def main() -> None:
     parser.add_argument("--scale", type=int, default=None, metavar="N")
     parser.add_argument("--flavor", choices=SCALE_FLAVORS, default="reg")
     parser.add_argument("--stamps", type=int, default=None, metavar="N")
+    parser.add_argument("--core", type=int, action="append", default=[], metavar="K",
+                        help="--stamps on a grid sweep holding one K-qubit op (repeatable)")
     parser.add_argument("--sweeps", type=int, default=None, metavar="N")
     parser.add_argument("--plan-only", action="store_true")
     parser.add_argument("--rate", type=float, default=None,
@@ -911,7 +944,7 @@ def main() -> None:
                   f"{r['ms']:.4f} ms, streaming only {r['streaming_ms']:.4f} ms", flush=True)
             print(json.dumps(r), flush=True)
     if args.stamps:
-        r = stamps(args.stamps, device=dev)
+        r = stamps(args.stamps, device=dev, cores=tuple(args.core))
         print_stamps(r)
         print(json.dumps(r), flush=True)
     if args.scale:

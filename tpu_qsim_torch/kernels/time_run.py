@@ -21,6 +21,11 @@ Rows (``ROWS``):
 * one k-qubit dense op at 26 qubits (k = 5 to 11) alone in a low sweep
   (qubits 17-k..16) and in a grid sweep (qubits 0..k-1, blk 8, 5 active
   bits: 512 threads), less the same sweep holding one 1-qubit op instead;
+* circuits built the same way with a 10- or 11-qubit core, which the grid
+  and segmented rows send to the dense pass (the 26q grid sweep with a core
+  on qubits 0..k-1, k = 8 and 10; a 10-qubit core on qubits 12-21 of 22 and
+  9-18 of 19, an 11-qubit core on 17-27 of 28; a 10-qubit core on 7-16
+  of 26, which the sweeps took whole before the route by width);
 * a 12-qubit dense gate on qubits 0-11 (a Kronecker product of seeded
   random 1-qubit unitaries), built as above at 16 and 22 qubits: the run
   (whole-circuit or grid-sweep launches around one dense pass), and the
@@ -74,6 +79,16 @@ ROWS = {
     "26q_random_on_grid": (26, 0, 0),
     "16q_dense12_on_0": (16, 12, 0),    # whole circuit + dense pass
     "22q_dense12_on_0": (22, 12, 0),    # grid sweep + dense pass
+    # the route by width: cores of 10+ qubits on the grid and segmented
+    # rows take the dense pass (a checkout without it prints its own route:
+    # the grid's tiled op, a refusal or the torch engine)
+    "26q_grid_dense8_on_0": (26, 8, 0),     # grid sweep, the tiled op
+    "26q_grid_dense10_on_0": (26, 10, 0),   # grid sweep + dense pass
+    "28q_dense11_on_17": (28, 11, 17),      # grid sweep + dense pass
+    "22q_dense10_on_12": (22, 10, 12),      # grid sweep + dense pass
+    "19q_dense10_on_9": (19, 10, 9),        # segments + dense pass
+    "26q_dense10_on_7": (26, 10, 7),        # grid sweep + dense pass (before
+                                            # the route by width: the sweeps)
 }
 # the one-segment rows' gates
 SEGMENT_GATES = {
