@@ -30,12 +30,14 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    the run's plain version (max |d amp| <= 1e-7); GHZ and QFT|0> closed
    forms;
 6. grid fallback: a 6-qubit dense gate at 22 qubits that the grid planner
-   refuses runs on the segmented engine in one launch and matches its plain
-   version (1e-6); ``random_circuit(24, 100, seed=42)`` through the
-   segmented program (more blocks than resident CTAs) and the grid-sweep
-   program agrees within 1e-6; an 8-qubit dense gate on qubits 14-21 of 22
-   (grid and sweeps refuse it) runs on the segmented engine, 6 low bits
-   kept in place, in one launch, against its plain version (1e-6);
+   refuses, planned whole by the grid row's engines, runs on the segmented
+   engine in one launch and matches its plain version (1e-6), and through
+   ``run`` (the route cuts there: grid pieces and a pass) matches it too;
+   ``random_circuit(24, 100, seed=42)`` through the segmented program (more
+   blocks than resident CTAs) and the grid-sweep program agrees within
+   1e-6; an 8-qubit dense gate on qubits 14-21 of 22 (grid and sweeps
+   refuse it) the same way, on the segmented engine 6 low bits kept in
+   place, in one launch;
 7. sweeps engine: ``random_circuit(22, 100, seed=42)`` through
    ``build_sweep_run`` against the oracle (1e-6); 26 qubits, the sweeps main
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
@@ -55,7 +57,9 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    circuit at 12 qubits, and a 9-qubit core at 10 (its tiled op on more
    threads than the tile has), against the oracle, segments at 22 (7
    qubits on 15-21), the grid sweep at 26 (on qubits 0..k-1) and the low
-   sweep at 26 against their plain versions (1e-6);
+   sweep at 26 against their plain versions (1e-6); the segments' and the
+   grid sweep's cases, which the route cuts (``dispatch.GRID_CUTS``), run
+   planned whole and through ``run``;
 8b. dense cores of 12 qubits, the split route: ``random_circuit(n, 40,
     seed=42)``, a 12-qubit dense gate on qubits 0-11, ``random_circuit(n,
     40, seed=43)`` through ``StateVectorSimulator(n).run``, counted: at 16
@@ -68,18 +72,22 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     the float32 FMAs' (any design without tensor cores) and this design's
     (three TF32 tensor-core products per real one);
 8c. the route by width: cores of 10 and 11 qubits on the grid and
-    segmented rows take the dense pass between the row's pieces. At 26
-    qubits ``random_circuit(26, 40, seed=42)``, a seeded k-qubit unitary on
-    qubits 0..k-1, ``random_circuit(26, 40, seed=43)`` for k = 8 (the grid
-    sweep's tiled op) and k = 10 (grid pieces and a pass); built the same
-    way, a 10-qubit core on qubits 9-18 of 19 (segmented pieces), on 12-21
-    of 22 and an 11-qubit core on 17-27 of 28 (grid pieces; before the
-    route refused, refused and on the torch engine): each through
-    ``StateVectorSimulator(n).run``, engines and launches asserted, against
-    its plain version and (up to 26 qubits) the complex128 oracle (1e-6;
-    the 26-qubit ones computed in two worker processes from the start of
-    the run), timed, with the peak device memory of one run over the
-    state's;
+    segmented rows, and on the grid row from 22 qubits cores of 7+ (8+ at
+    27) and every gate the grid planner refuses where the segments or the
+    torch engine would take the circuit, take the dense pass between the
+    row's pieces. At 26 qubits ``random_circuit(26, 40, seed=42)``, a
+    seeded k-qubit unitary on qubits 0..k-1, ``random_circuit(26, 40,
+    seed=43)`` for k = 8 and 10; built the same way, a 10-qubit core on
+    qubits 9-18 of 19 (segmented pieces), on 12-21 of 22 and an 11-qubit
+    core on 17-27 of 28, and the refused cores 9 on 18-26 of 27, 6 on
+    11-16 (widened to 7) and 8 on 20-27 of 28, 7 on 23-29 of 30 (the torch
+    engine ran these whole before) and 8 on 18-25 of 26 (the segments):
+    each through ``StateVectorSimulator(n).run``, engines and launches
+    asserted, against its plain version and (up to 26 qubits) the
+    complex128 oracle (1e-6; the 26-qubit ones computed in worker
+    processes from the start of the run, the phase run late), timed, with
+    the peak device memory of one run over the state's, the pass alone
+    beside its bound and, from 27 qubits, the torch engine's run;
 9. 28 qubits, the grid-sweep main path: ``StateVectorSimulator(28).run``
    then readout, counted; the kernel against its plain torch version
    (max |d amp| <= 1e-7, 1 - fidelity <= 1e-5);
@@ -908,20 +916,16 @@ def phase_grid_fallback() -> dict:
     for g in tq.random_circuit(n, 40, seed=43).gates:
         c.add(g.name, *g.qubits, param=g.param)
     t0 = time.perf_counter()
-    reset_launches()
-    sim = tq.StateVectorSimulator(n, seed=1)
-    sim.run(c)
-    torch.cuda.synchronize()
-    launches, kinds = dict(LAUNCHES), dict(SEGMENT_KINDS)
-    _, prog = sim.compiled_run(c)
-    plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
-    err, _ = compare(sim.state_planes, plain)
-    log(f"phase {n}q_grid_fallback: wall_s={time.perf_counter() - t0:.3f} engine={sim.engine} "
-        f"launches={launches} local_bits={prog.local_bits} max_abs_err={err:.3e} (tol 1e-6)")
-    check(sim.engine == "segmented", f"{n}q fallback ran on {sim.engine}")
+    prog, launches, kinds, got, plain = run_row_whole(c)
+    err, _ = compare(got, plain)
+    route, route_err = run_route_cut(c, plain)
+    log(f"phase {n}q_grid_fallback: wall_s={time.perf_counter() - t0:.3f} "
+        f"launches={launches} local_bits={prog.local_bits} max_abs_err={err:.3e} (tol 1e-6) "
+        f"route={route} route_max_abs_err={route_err:.3e}")
+    check(isinstance(prog, SegmentedProgram), f"{n}q fallback planned {type(prog).__name__}")
     check_one_launch(prog, launches, kinds, f"{n}q grid fallback")
     check(err <= 1e-6, f"{n}q fallback vs plain {err} > 1e-6")
-    del sim, plain
+    del got, plain
 
     n = 24
     t0 = time.perf_counter()
@@ -940,27 +944,52 @@ def phase_grid_fallback() -> dict:
     return {"fallback_err": err, "cross_err": cross}
 
 
+def run_row_whole(c) -> tuple:
+    """The grid row's engines' program for ``c``, planned whole (for a
+    circuit the grid planner refuses: the sweeps or the segments), run on
+    the card from |0..0>, counted: (program, launches, segment kinds,
+    state, plain version's state)."""
+    _, prog = dispatch._plan_piece(c, "grid_sweep")
+    reset_launches()
+    got = prog.run(ap.initial_state(c.num_qubits, np.float32, device="cuda"))
+    torch.cuda.synchronize()
+    launches, kinds = dict(LAUNCHES), dict(SEGMENT_KINDS)
+    plain = prog.run_plain(ap.initial_state(c.num_qubits, np.float32, device="cuda"))
+    return prog, launches, kinds, got, plain
+
+
+def run_route_cut(c, want: torch.Tensor) -> tuple[str, float]:
+    """``c`` through ``run``, where the route cuts it into grid pieces and
+    dense passes (``dispatch.GRID_CUTS``), counted, against ``want``:
+    (engine, max abs err)."""
+    reset_launches()
+    sim = tq.StateVectorSimulator(c.num_qubits, seed=1)
+    sim.run(c)
+    torch.cuda.synchronize()
+    check(sim.engine == "grid_sweep+dense_pass" and set(LAUNCHES) == {"grid_sweep", "dense_pass"},
+          f"{c.num_qubits}q cut ran on {sim.engine}, launches {dict(LAUNCHES)}")
+    err, _ = compare(sim.state_planes, want)
+    check(err <= 1e-6, f"{c.num_qubits}q cut vs the row's plain version {err} > 1e-6")
+    return sim.engine, err
+
+
 def phase_fault1_segmented() -> dict:
     """The 22-qubit circuit with an 8-qubit dense gate on qubits 14-21 (the
     grid and sweep planners refuse it; segments keep 6 low bits in place
-    for it) through ``run`` on the segmented engine, counted, against its
-    plain version."""
+    for it) on the segmented engine, planned whole as the grid row's
+    engines plan it, counted, against its plain version; then through
+    ``run``, which cuts at the gate (grid pieces and a pass)."""
     n = 22
     c = wide_core_circuit(n, 8, 14)
     t0 = time.perf_counter()
-    reset_launches()
-    sim = tq.StateVectorSimulator(n, seed=1)
-    sim.run(c)
-    torch.cuda.synchronize()
-    launches, kinds = dict(LAUNCHES), dict(SEGMENT_KINDS)
-    _, prog = sim.compiled_run(c)
-    plain = prog.run_plain(ap.initial_state(n, np.float32, device="cuda"))
-    err, fid = compare(sim.state_planes, plain)
-    log(f"phase {n}q_fault1_segmented: wall_s={time.perf_counter() - t0:.3f} engine={sim.engine} "
+    prog, launches, kinds, got, plain = run_row_whole(c)
+    err, fid = compare(got, plain)
+    route, route_err = run_route_cut(c, plain)
+    log(f"phase {n}q_fault1_segmented: wall_s={time.perf_counter() - t0:.3f} "
         f"launches={launches} local_bits={prog.local_bits} swap_min={prog.swap_min} "
         f"max_core={max(s.table.max_core for s in prog.steps)} max_abs_err={err:.3e} "
-        f"(tol 1e-6) fidelity={fid:.9f}")
-    check(sim.engine == "segmented", f"{n}q fault-1 circuit ran on {sim.engine}")
+        f"(tol 1e-6) fidelity={fid:.9f} route={route} route_max_abs_err={route_err:.3e}")
+    check(isinstance(prog, SegmentedProgram), f"{n}q fault-1 circuit planned {type(prog).__name__}")
     check_one_launch(prog, launches, kinds, f"{n}q fault-1 circuit")
     check(err <= 1e-6, f"{n}q fault-1 circuit vs plain {err} > 1e-6")
     return {"max_abs_err": err}
@@ -1083,11 +1112,14 @@ def phase_sweeps_cross_engine() -> dict:
 
 
 def phase_wide_cores() -> dict:
-    """Dense cores of 7-10 qubits through ``run`` on every kernel: the
-    whole circuit at 12q against the oracle, segments (22q, qubits 15-21),
-    the grid sweep (26q, qubits 0..k-1) and the low sweep (26q, qubits
-    17-k..16) against their plain version; a 10-qubit core takes the dense
-    pass between the row's pieces (the route by width)."""
+    """Dense cores of 7-10 qubits on every kernel: the whole circuit at 12q
+    against the oracle, segments (22q, qubits 15-21), the grid sweep (26q,
+    qubits 0..k-1) and the low sweep (26q, qubits 17-k..16) against their
+    plain version; a 10-qubit core takes the dense pass between the row's
+    pieces (the route by width), and so do, on the grid row, the segments'
+    and the grid sweep's cores here (``dispatch.GRID_CUTS``): those run
+    twice, the row's program planned whole (the core in its kernel) and
+    through ``run`` (grid pieces and a pass)."""
     errs = {}
     for n, k, lo, engine in ((12, 7, 2, "whole_circuit"), (12, 8, 4, "whole_circuit"),
                              (12, 9, 3, "whole_circuit"),
@@ -1099,6 +1131,20 @@ def phase_wide_cores() -> dict:
                              (26, 10, 7, "grid_sweep+dense_pass")):
         t0 = time.perf_counter()
         c = wide_core_circuit(n, k, lo)
+        if n >= 20 and engine in ("grid_sweep", "segmented"):
+            prog, launches, _, got, plain = run_row_whole(c)
+            err, _ = compare(got, plain)
+            route, route_err = run_route_cut(c, plain)
+            del got, plain
+            log(f"phase wide_core: n={n} k={k} qubits={lo}..{lo + k - 1} whole={engine} "
+                f"wall_s={time.perf_counter() - t0:.3f} launches={launches} "
+                f"max_abs_err={err:.3e} vs plain (tol 1e-6) route={route} "
+                f"route_max_abs_err={route_err:.3e}")
+            kernel = {"grid_sweep": "grid_sweep", "segmented": "segment"}[engine]
+            check(set(launches) == {kernel} and err <= 1e-6,
+                  f"{k}-qubit core at {n}q on {engine}: launches {launches}, error {err}")
+            errs[f"{n}q_{k}"] = err
+            continue
         reset_launches()
         sim = tq.StateVectorSimulator(n, seed=1)
         sim.run(c)
@@ -1207,16 +1253,26 @@ def phase_dense_pass() -> dict:
 
 
 # The route by width: (name, qubits, core width, lowest core qubit, engines
-# of the split; None: one program holding the core in its tiled op)
+# of the split, or the one program that holds the core)
+SPLIT = ["grid_sweep", "dense_pass", "grid_sweep"]
 ROUTE_CASES = (
-    ("26q_grid_wide_k8", 26, 8, 0, None),
-    ("26q_grid_wide_k10", 26, 10, 0, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    ("26q_grid_wide_k8", 26, 8, 0, SPLIT),      # before GRID_CUTS: the tiled op
+    ("26q_grid_wide_k10", 26, 10, 0, SPLIT),
     ("19q_dense10_on_9", 19, 10, 9, ["segmented", "dense_pass", "segmented"]),
-    ("22q_dense10_on_12", 22, 10, 12, ["grid_sweep", "dense_pass", "grid_sweep"]),
-    ("28q_dense11_on_17", 28, 11, 17, ["grid_sweep", "dense_pass", "grid_sweep"]),
+    ("22q_dense10_on_12", 22, 10, 12, SPLIT),
+    ("28q_dense11_on_17", 28, 11, 17, SPLIT),
+    # a gate that the grid planner refuses: cut there above 26q (the torch
+    # engine ran the whole circuit before); the 6-qubit core widened to 7
+    ("27q_dense9_on_18", 27, 9, 18, SPLIT),
+    ("28q_dense6_on_11", 28, 6, 11, SPLIT),
+    ("28q_dense8_on_20", 28, 8, 20, SPLIT),
+    ("30q_dense7_on_23", 30, 7, 23, SPLIT),
+    ("26q_dense8_on_18", 26, 8, 18, SPLIT),     # before GRID_CUTS: the segments
 )
+ROUTE_KERNEL = {"grid_sweep": "grid_sweep", "segmented": "segment"}
 ROUTE_ORACLE_QUBITS = 26     # the complex128 host oracle up to this size
 ROUTE_ORACLE_WORKERS = 22    # from this size the oracle runs in a worker process
+ROUTE_TORCH_QUBITS = 27      # from this size the torch engine is timed beside the run
 
 
 def route_oracle(n: int, k: int, lo: int) -> np.ndarray:
@@ -1234,21 +1290,23 @@ def start_route_oracles() -> tuple:
     processes (a 26-qubit one takes minutes of host time) while the card
     runs the phases before them: (pool, {name: future})."""
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     futures = {name: pool.submit(route_oracle, n, k, lo) for name, n, k, lo, _ in ROUTE_CASES
                if ROUTE_ORACLE_WORKERS <= n <= ROUTE_ORACLE_QUBITS}
     return pool, futures
 
 
 def phase_route_by_width(oracles: tuple) -> dict:
-    """Cores of 10 and 11 qubits on the grid and segmented rows: each of
-    ``ROUTE_CASES`` (``random_circuit(n, 40, seed=42)``, a seeded k-qubit
-    unitary on qubits lo..lo+k-1, ``random_circuit(n, 40, seed=43)``)
-    through ``StateVectorSimulator(n).run``, counted (the pieces' kernel and
-    one dense pass, or the grid sweep alone at k = 8), against its plain
-    version and the complex128 oracle (1e-6 each), timed (device time from
-    CUDA-graph replays below 20 qubits), with the peak device memory of one
-    run beside the state's own bytes: the pass writes a new state."""
+    """Dense cores that the route cuts or holds, on the grid and segmented
+    rows: each of ``ROUTE_CASES`` (``random_circuit(n, 40, seed=42)``, a
+    seeded k-qubit unitary on qubits lo..lo+k-1, ``random_circuit(n, 40,
+    seed=43)``) through ``StateVectorSimulator(n).run``, counted (the
+    pieces' kernel and one dense pass, or the one program's kernel), against
+    its plain version and, up to 26 qubits, the complex128 oracle (1e-6
+    each), timed (device time from CUDA-graph replays below 20 qubits), with
+    the peak device memory of one run beside the state's own bytes (the
+    pass writes a new state), a split's pass alone beside its bound, and
+    from 27 qubits the torch engine's run of the same circuit."""
     from tpu_qsim_torch.kernels.time_run import wide_circuit
 
     pool, futures = oracles
@@ -1262,12 +1320,16 @@ def phase_route_by_width(oracles: tuple) -> dict:
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         _, prog = sim.compiled_run(c)
-        if engines is None:
-            check(sim.engine == "grid_sweep" and launches == {"grid_sweep": prog.num_sweeps}
-                  and max(t.max_core for t in prog.tables) == k,
+        if isinstance(engines, str):
+            check(sim.engine == engines and launches.get(ROUTE_KERNEL[engines], 0) >= 1
+                  and set(launches) == {ROUTE_KERNEL[engines]},
                   f"{name} ran on {sim.engine}, launches {launches}")
+            if engines == "grid_sweep":     # the core in the grid sweep's tiled op
+                check(launches == {"grid_sweep": prog.num_sweeps}
+                      and max(t.max_core for t in prog.tables) == k,
+                      f"{name}: launches {launches}, tables' cores")
         else:
-            piece = {"grid_sweep": "grid_sweep", "segmented": "segment"}[engines[0]]
+            piece = ROUTE_KERNEL[engines[0]]
             check(prog.engines == engines and sim.engine == f"{engines[0]}+dense_pass",
                   f"{name} ran on {sim.engine} {getattr(prog, 'engines', None)}")
             check(launches.get("dense_pass") == 1 and launches.get(piece, 0) >= 2
@@ -1300,10 +1362,21 @@ def phase_route_by_width(oracles: tuple) -> dict:
             state[0] = prog.run(state[0])
 
         ms = graph_ms(step) if n < 20 else median_ms(step)
-        row = {"engine": "+".join(engines) if engines else "grid_sweep", "launches": launches,
-               "ms": ms, "max_abs_err_vs_plain": err_plain, "fidelity": fid,
-               "max_abs_err_vs_oracle": err_oracle,
+        row = {"engine": engines if isinstance(engines, str) else "+".join(engines),
+               "launches": launches, "ms": ms, "max_abs_err_vs_plain": err_plain,
+               "fidelity": fid, "max_abs_err_vs_oracle": err_oracle,
                "peak_gib_over_state": peak / 2 ** 30, "state_gib": 8 * (1 << n) / 2 ** 30}
+        if not isinstance(engines, str):
+            # the pass alone on the same input: the core's width as cut and
+            # as launched (widened), beside the gate's 3xTF32 bound (its
+            # core as cut: the widening's identity is no work of the gate)
+            step_ = next(s for s in prog.steps if isinstance(s, DensePass))
+            row.update(core_k=k, pass_k=step_.k,
+                       pass_ms=median_ms(lambda: step_.run(state[0])),
+                       pass_bound=bound(step_.bytes_moved(), 3 * step_.flops(), TF32_FLOP_PER_S))
+        if n >= ROUTE_TORCH_QUBITS:
+            row["torch_engine_ms"] = torch_engine_ms(c, 1)
+            row["torch_engine_over_ms"] = row["torch_engine_ms"] / ms
         log(f"phase {name}: wall_s={time.perf_counter() - t0:.3f} "
             f"oracle_s={oracle_s if err_oracle is not None else None} {json.dumps(row)}")
         check(err_plain <= 1e-6, f"{name} vs plain {err_plain} > 1e-6")
@@ -2237,7 +2310,6 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
     cross = phase_sweeps_cross_engine()
     wide = phase_wide_cores()
     passes = phase_dense_pass()
-    route = phase_route_by_width(oracles)
     main_res = phase_28q_main()
     nat = phase_native(main_res)
     flo = phase_floor(main_res)
@@ -2254,6 +2326,8 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
         paths[name] = phase()
         paths[name]["phase_s"] = time.perf_counter() - t0
         log(f"phase {name}: {paths[name]['phase_s']:.1f} s")
+    # late, so that the host oracles started with the build have finished
+    route = phase_route_by_width(oracles)
     sharded = phase_sharded()
     paths["demo"] = phase_demo()
     paths["profiler"] = phase_profiler()
@@ -2332,6 +2406,8 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
             "fallback_max_abs_err": fallback["fallback_err"],
             "fault1_22q_max_abs_err": fault1["max_abs_err"],
             "cross_engine_max_abs_err": fallback["cross_err"],
+            "route_by_width": {name: r for name, r in route.items()
+                               if r["launches"].get("segment")},
         })
     # unit_stage: the low sweep's unit stage, launched alone on the wide
     # instance (its tiled op, ops.cuh); its library call one torch.matmul

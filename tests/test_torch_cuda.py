@@ -18,7 +18,8 @@ also with fewer groups than a warp tile, and its SASS holds tensor-core
 products and no float32 FMA. A sweep's launches (tile runs, its unit
 stage alone, from 10 qubits the dense pass) run each against the plain
 version of its gates, and each row's cut by width (cores of 10 and 11
-qubits take the dense pass): 135 cases.
+qubits take the dense pass), and the grid row's cut at 7-9-qubit cores and
+at gates its planner refuses (a 6-qubit core widened to 7): 141 cases.
 
 Every test here needs a CUDA card and skips elsewhere. The file imports
 neither JAX nor the JAX package (the machine with the card has no JAX), so
@@ -37,7 +38,7 @@ import torch
 
 import tpu_qsim_torch as tq
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
-from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, reset_launches
+from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, dispatch, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
 from tpu_qsim_torch.kernels import segmented as seg
@@ -210,14 +211,22 @@ def test_simulator_routes_by_size(cuda_device):
 
 
 def test_grid_fallback_routes_to_segments(cuda_device):
+    # the row's engines run the circuit on the segments; from 22q the route
+    # cuts at the refused gate instead (dispatch.GRID_CUTS): both on the card
     c = _wide_circuit(22, 6)
+    name, prog = dispatch._plan_piece(c, "grid_sweep")
+    assert name == "segmented"
+    reset_launches()
+    got = prog.run(tq.apply.initial_state(22, np.float32, device=cuda_device))
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"segment": 1}
+    assert dict(SEGMENT_KINDS) == {"segment": 1, "scatter_segment": 1}
+    want = prog.run_plain(tq.apply.initial_state(22, np.float32, device=cuda_device))
+    assert float((got - want).abs().max()) <= 1e-6
     reset_launches()
     sim = tq.StateVectorSimulator(22).run(c)
     torch.cuda.synchronize()
-    assert sim.engine == "segmented" and dict(LAUNCHES) == {"segment": 1}
-    assert dict(SEGMENT_KINDS) == {"segment": 1, "scatter_segment": 1}
-    _, prog = sim.compiled_run(c)
-    want = prog.run_plain(tq.apply.initial_state(22, np.float32, device=cuda_device))
+    assert sim.engine == "grid_sweep+dense_pass" and LAUNCHES["dense_pass"] == 1
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
 
 
@@ -365,15 +374,25 @@ def _dense_core_circuit(n: int, k: int, lo: int) -> tq.Circuit:
 ])
 def test_wide_core_on_each_kernel(cuda_device, n, k, lo, engine):
     # cores of 10 qubits and more take the dense pass between the row's
-    # pieces (the route by width)
+    # pieces (the route by width); so do, from 22q, a 7-9-qubit core that
+    # the grid takes and one it refuses in place of the segments
+    # (dispatch.GRID_CUTS): the row's program planned whole holds the core,
+    # and both it and the route run on the card
     c = _dense_core_circuit(n, k, lo)
+    x0 = tq.apply.initial_state(n, np.float32, device=cuda_device)
+    cut = n >= 22 and engine in ("grid_sweep", "segmented")
+    if cut:
+        name, whole = dispatch._plan_piece(c, "grid_sweep")
+        assert name == engine
+        got = whole.run(x0.clone())
+        assert float((got - whole.run_plain(x0)).abs().max()) <= 1e-6
     reset_launches()
     sim = tq.StateVectorSimulator(n).run(c)
     torch.cuda.synchronize()
-    assert sim.engine == engine
+    assert sim.engine == ("grid_sweep+dense_pass" if cut else engine)
     assert sum(LAUNCHES.values()) >= 1
     _, prog = sim.compiled_run(c)
-    want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
+    want = prog.run_plain(x0)
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
 
 
@@ -572,6 +591,25 @@ def test_route_by_width_cuts_each_row(cuda_device, n, k, lo, engines):
               "whole_circuit": "whole_circuit"}[piece]
     assert prog.engines == engines and sim.engine == f"{piece}+dense_pass"
     assert set(LAUNCHES) == {kernel, "dense_pass"} and LAUNCHES["dense_pass"] == 1
+    want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
+    assert float((sim.state_planes - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n,k,lo", [(27, 9, 18), (28, 6, 11), (28, 8, 20), (30, 7, 23),
+                                    (24, 6, 18), (22, 7, 0)])
+def test_refused_gate_runs_on_grid_pieces_and_a_pass(cuda_device, n, k, lo):
+    # a 6-9-qubit core that the grid planner refuses (above 26q the torch
+    # engine ran the whole circuit; at 24q the segments), or, at 22q, one it
+    # takes on the lowest qubits: grid pieces and one pass (a 6-qubit core
+    # widened to 7), against the plain version
+    c = _dense_core_circuit(n, k, lo)
+    reset_launches()
+    sim = tq.StateVectorSimulator(n).run(c)
+    torch.cuda.synchronize()
+    _, prog = sim.compiled_run(c)
+    assert prog.engines == ["grid_sweep", "dense_pass", "grid_sweep"]
+    assert prog.steps[1].k == max(k, 7) and set(LAUNCHES) == {"grid_sweep", "dense_pass"}
+    assert LAUNCHES["dense_pass"] == 1
     want = prog.run_plain(tq.apply.initial_state(n, np.float32, device=cuda_device))
     assert float((sim.state_planes - want).abs().max()) <= 1e-6
 

@@ -39,6 +39,7 @@ from test_torch_gridsweeps import _mixed_circuit, emulate_sweep as emulate_grid_
 from test_torch_segmented import emulate_segments
 from test_torch_sweeps import emulate_sweep, jax_oracle, register_both, tiled_bases
 from test_torch_whole_circuit import emulate_whole_circuit
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-5
 CHUNK_COLUMNS = 32   # ops.cuh's TILE_CHUNK k8 steps of 4 complex columns

@@ -34,6 +34,7 @@ from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
 from test_torch_sweeps import jax_oracle
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-6
 CUDA = torch.device("cuda")
@@ -124,15 +125,21 @@ def test_sweeps_route_splits_too():
 
 
 def test_pieces_above_the_segmented_range_take_the_torch_engine():
-    # at 28 qubits a piece the grid planner refuses (an 8-qubit core on
-    # 20-27) takes the torch engine, as the whole circuit did before
+    # at 28 qubits a piece that the grid planner refuses (an 8-qubit core on
+    # 20-27) takes the torch engine on the row's engines, as the whole
+    # circuit did before; the grid row now cuts at that gate too, so the
+    # route runs it as a pass and keeps the torch engine for a refused gate
+    # whose core the pass cannot take
     n = 28
     c = tq.Circuit(n).append(_gate(tuple(range(20, 28)), seed=8)).h(0)
     c.append(_gate(tuple(range(12)), seed=2)).h(1)
+    parts = dispatch.split_at_wide_cores(c)
+    assert dispatch._plan_piece(parts[0], "grid_sweep") == ("torch", None)
+    assert [len(p.gates) for p in parts[0::2]] == [2, 1]
     got, prog = dispatch.plan_run(c, np.float32, CUDA)
-    assert got == "torch+dense_pass+grid_sweep"
-    assert prog.engines == ["torch", "dense_pass", "grid_sweep"]
-    assert [len(s.gates) for s in prog.steps[:1]] == [2]
+    assert got == "dense_pass+grid_sweep"
+    assert prog.engines == ["dense_pass", "grid_sweep", "dense_pass", "grid_sweep"]
+    assert [s.k for s in prog.steps[0::2]] == [8, 12]
     # the torch piece applies its gates through apply.py, as the plain version
     small = tq.random_circuit(6, 20, seed=1)
     piece = dispatch._TorchPiece(small)

@@ -383,26 +383,40 @@ def test_dispatch_raises_for_unplaceable_circuit():
         tgs.GridSweepProgram(c)
     with pytest.raises(ValueError):
         SweepProgram(c)
-    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    engine, prog = dispatch._plan_piece(c, "grid_sweep")     # the row's engines
     assert engine == "segmented" and prog.local_bits == fc.MAX_BLOCK_BITS
     assert max(s.table.max_core for s in prog.steps) == 7
+    # from 22q the route cuts at the refused gate instead of the segments
+    # (dispatch.GRID_CUTS): here the circuit is that one gate, a pass
+    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    assert engine == "dense_pass" and prog.steps[0].targets == tuple(range(15, 22))
 
 
 def test_dispatch_routes_unplaceable_circuit_to_segmented():
-    # the grid planner refuses the circuit; dispatch routes it to the
-    # segmented engine, the JAX package's final fallback up to 26q
+    # the grid planner refuses the circuit; the row's engines route it to
+    # the segmented engine, the JAX package's final fallback up to 26q, and
+    # from 22q the route cuts at the refused gate instead (the split beat
+    # the segments there, dispatch.GRID_CUTS): a pass, its core widened
     c = _unplaceable(22)
     with pytest.raises(ValueError):
         tgs.GridSweepProgram(c)
-    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    engine, prog = dispatch._plan_piece(c, "grid_sweep")
     assert engine == "segmented" and prog.num_segments >= 1
     assert prog.local_bits >= 13                 # room for 6 relocated qubits
+    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    assert engine == "dense_pass" and prog.steps[0].targets == (0, *range(16, 22))
 
 
 def test_dispatch_unplaceable_above_segmented_range_takes_torch_engine():
-    # above 26q the JAX package takes its XLA engine; the port its torch engine
-    engine, prog = dispatch.plan_run(_unplaceable(28), np.float32, torch.device("cuda"))
-    assert engine == "torch" and prog is None
+    # above 26q the JAX package takes its XLA engine, and so did the port's
+    # row (its torch engine) until the grid row cut at refused gates: the
+    # row's engines alone still give the circuit to the torch engine, and
+    # the route runs the gate as a dense pass (its 6-qubit core widened)
+    c = _unplaceable(28)
+    assert dispatch._plan_piece(c, "grid_sweep") == ("torch", None)
+    engine, prog = dispatch.plan_run(c, np.float32, torch.device("cuda"))
+    assert engine == "dense_pass" and prog.engines == ["dense_pass"]
+    assert prog.steps[0].targets == (0, *range(22, 28))
 
 
 @pytest.mark.parametrize("n,engine", [

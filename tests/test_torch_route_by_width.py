@@ -32,6 +32,7 @@ from tpu_qsim_torch.kernels.time_run import kron_gate
 
 from conftest import random_state
 from test_torch_sweeps import jax_oracle
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-5
 CUDA = torch.device("cuda")
@@ -55,6 +56,11 @@ def test_one_constant_sets_every_route():
     parts = dispatch.split_at_wide_cores(_circuit(12, k, 2))
     assert [isinstance(p, tq.Circuit) for p in parts] == [True, False, True]
     assert tuple(parts[1].qubits) == tuple(range(2, 2 + k))
+    # on every row but the grid's, and on the grid's below 22q; from 22q
+    # the grid row's width by size (dispatch.GRID_CUTS, measured on the card)
+    for engine, n in (("whole_circuit", 18), ("segmented", 19), ("grid_sweep", 21)):
+        assert dispatch.cuts_for(engine, n) == (k, False)
+    assert [dispatch.cuts_for("grid_sweep", n) for n in (22, 26, 27, 28, 30)] == [(7, True)] * 5
 
 
 ROW_PIECES = {"grid_sweep": tgs.GridSweepProgram, "segmented": seg.SegmentedProgram,

@@ -36,6 +36,7 @@ from tpu_qsim_torch.kernels import segmented as seg
 
 from conftest import random_state
 from test_torch_gridsweeps import emulate_block
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 13
 

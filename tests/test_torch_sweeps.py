@@ -35,6 +35,7 @@ from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
 from test_torch_gridsweeps import core_matrix, emulate_block
+from torch_threads import one_blas_thread  # noqa: F401
 
 P_JAX = js.SweepParams(k_bits=2, rb_bits=2)     # blk_bits 9, 4 parts
 P = ts.SweepParams(k_bits=2, rb_bits=2)

@@ -30,6 +30,7 @@ from tpu_qsim_torch.kernels import fused_circuit as fc
 
 from conftest import random_state
 from test_torch_sweeps import emulate_sweep
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 2e-6
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import tpu_qsim_torch as tq
+from tpu_qsim_torch.circuit import Gate
 from tpu_qsim_torch.kernels import dispatch
 from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
@@ -28,6 +29,7 @@ from test_torch_gridsweeps import emulate_sweep as emulate_grid_sweep
 from test_torch_segmented import emulate_segments
 from test_torch_sweeps import register_both, emulate_sweep, jax_oracle
 from test_torch_whole_circuit import emulate_whole_circuit
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-5
 CUDA = torch.device("cuda")
@@ -37,6 +39,8 @@ def _dense(k: int, controls: int = 0) -> str:
     """A random k-qubit unitary under ``controls`` MSB controls, registered
     in both packages."""
     name = f"torch_wide_dense{k}" + (f"_c{controls}" if controls else "")
+    if name in tq.gates.GATE_ARITY:     # registered in both (register_both)
+        return name
     rng = np.random.default_rng(100 + 10 * k + controls)
     m = rng.standard_normal((1 << k, 1 << k)) + 1j * rng.standard_normal((1 << k, 1 << k))
     u = np.eye(1 << (k + controls), dtype=np.complex128)
@@ -73,7 +77,8 @@ def test_op_table_takes_wide_cores_column_major(k):
     assert t.ints[fc.HEADER_MAX_CORE] == k
 
 
-def test_core_past_the_limit_raises_naming_it():
+@pytest.mark.parametrize("case", ["core9", "core10", "segments", "controls", "core12"])
+def test_core_past_the_limit_raises_naming_it(case):
     # since the tiled op, cores of 9 and 10 qubits plan on the whole-circuit
     # kernel at 12 qubits and match the JAX package's oracle (planned
     # directly: the route by width sends a 10-qubit core to the dense
@@ -81,42 +86,50 @@ def test_core_past_the_limit_raises_naming_it():
     # kernel's block (a segment keeps 5 of its at most 14 bits in place)
     assert fc.MAX_DENSE_QUBITS == 11
     n = 12
-    for k, qubits in ((9, (11, 0, 7, 3, 9, 1, 5, 2, 10)), (10, tuple(range(2, 12)))):
+    if case in ("core9", "core10"):
+        k, qubits = {"core9": (9, (11, 0, 7, 3, 9, 1, 5, 2, 10)),
+                     "core10": (10, tuple(range(2, 12)))}[case]
         c = _between_random(n, (_dense(k), qubits))
         prog = fc.WholeCircuitProgram(c)
         assert prog.table.max_core == k
         psi = random_state(n, np.random.default_rng(k))
         np.testing.assert_allclose(emulate_whole_circuit(psi, prog), jax_oracle(c, psi),
                                    atol=TOL, rtol=0)
-    wide = tq.Circuit(15).add(_dense(10), *range(5, 15))
-    with pytest.raises(ValueError, match="a 10-qubit gate needs local_bits >= 15"):
-        seg.SegmentedProgram(wide)
-    # controls peel off: a 9-qubit gate with an 8-qubit core is taken
-    ok = tq.Circuit(n).add(_dense(8, controls=1), *range(9))
-    engine, prog = dispatch.plan_run(ok, np.float32, CUDA)
-    assert engine == "whole_circuit" and prog.table.max_core == 8
-    # a 12-qubit core on qubits 0-11 of 16 (the JAX package runs it with
-    # _emit_gate_generic): the tiled op streams whole columns of the core
-    # through a 16 KB panel, so the op table refuses cores wider than
-    # MAX_DENSE_QUBITS = 11, and dispatch splits the circuit there: the
-    # gate is a whole-state dense pass between whole-circuit launches, and
-    # the run matches the oracle (the core a product of random 1-qubit
-    # unitaries: dense, and cheaper to make than a QR)
-    rng = np.random.default_rng(12)
-    u12 = np.ones((1, 1), np.complex128)
-    for _ in range(12):
-        m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
-        u12 = np.kron(u12, np.linalg.qr(m)[0])
-    register_both("torch_wide_kron12", u12)
-    wide12 = _between_random(16, ("torch_wide_kron12", tuple(range(12))))
-    with pytest.raises(ValueError, match="at most MAX_DENSE_QUBITS = 11"):
-        fc.build_op_table(fc.as_pgates(wide12.gates), fc.BlockLayout(16, 16, ()), max_bits=16)
-    engine, prog = dispatch.plan_run(wide12, np.float32, CUDA)
-    assert engine == "whole_circuit+dense_pass"
-    assert prog.engines == ["whole_circuit", "dense_pass", "whole_circuit"]
-    psi = random_state(16, np.random.default_rng(16))
-    got = tq.apply.to_complex(prog.run(tq.apply.from_complex(psi, np.float32, "cpu")))
-    np.testing.assert_allclose(got, jax_oracle(wide12, psi), atol=TOL, rtol=0)
+    elif case == "segments":
+        wide = tq.Circuit(15).add(_dense(10), *range(5, 15))
+        with pytest.raises(ValueError, match="a 10-qubit gate needs local_bits >= 15"):
+            seg.SegmentedProgram(wide)
+    elif case == "controls":
+        # controls peel off: a 9-qubit gate with an 8-qubit core is taken
+        ok = tq.Circuit(n).add(_dense(8, controls=1), *range(9))
+        engine, prog = dispatch.plan_run(ok, np.float32, CUDA)
+        assert engine == "whole_circuit" and prog.table.max_core == 8
+    else:
+        # a 12-qubit core on qubits 0-11 of 16 (the JAX package runs it with
+        # _emit_gate_generic): the tiled op streams whole columns of the core
+        # through a 16 KB panel, so the op table refuses cores wider than
+        # MAX_DENSE_QUBITS = 11, and dispatch splits the circuit there: the
+        # gate is a whole-state dense pass between whole-circuit launches, and
+        # the run matches the oracle (the core a product of random 1-qubit
+        # unitaries: dense, and cheaper to make than a QR; carried inline,
+        # since a registry's unitarity check of 4096 x 4096 takes seconds)
+        rng = np.random.default_rng(12)
+        u12 = np.ones((1, 1), np.complex128)
+        for _ in range(12):
+            m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+            u12 = np.kron(u12, np.linalg.qr(m)[0])
+        wide12 = tq.random_circuit(16, 30, seed=3)
+        wide12.append(Gate("torch_wide_kron12", tuple(range(12)), matrix_bytes=u12.tobytes()))
+        wide12.extend(tq.random_circuit(16, 30, seed=4).gates)
+        with pytest.raises(ValueError, match="at most MAX_DENSE_QUBITS = 11"):
+            fc.build_op_table(fc.as_pgates(wide12.gates), fc.BlockLayout(16, 16, ()),
+                              max_bits=16)
+        engine, prog = dispatch.plan_run(wide12, np.float32, CUDA)
+        assert engine == "whole_circuit+dense_pass"
+        assert prog.engines == ["whole_circuit", "dense_pass", "whole_circuit"]
+        psi = random_state(16, np.random.default_rng(16))
+        got = tq.apply.to_complex(prog.run(tq.apply.from_complex(psi, np.float32, "cpu")))
+        np.testing.assert_allclose(got, jax_oracle(wide12, psi), atol=TOL, rtol=0)
 
 
 def test_whole_circuit_refuses_a_cluster_wider_than_the_core_groups():
@@ -265,8 +278,14 @@ def test_sweep_emulation(k, controls, group_bits):
     (22, 7, 15, "segmented"),    # grid and sweeps refuse (mid + top)
 ])
 def test_dispatch_plans_wide_core_circuits(n, k, lo, engine):
+    # the row's engines plan the whole circuit; the route cuts it instead
+    # where the grid row's split measured faster (dispatch.GRID_CUTS: a
+    # 7-qubit core the grid takes, and a gate it refuses in place of the
+    # segments, from 22q)
     c = tq.Circuit(n).h(0).add(_dense(k), *range(lo, lo + k)).cnot(0, n - 1)
-    got, prog = dispatch.plan_run(c, np.float32, CUDA)
+    route, _ = dispatch.plan_run(c, np.float32, CUDA)
+    assert route == (engine if engine == "sweeps" else "grid_sweep+dense_pass")
+    got, prog = dispatch._plan_piece(c, dispatch.engine_for_size(n))
     assert got == engine
     kind = {"sweeps": ts.SweepProgram, "grid_sweep": tgs.GridSweepProgram,
             "segmented": seg.SegmentedProgram}[engine]
@@ -289,10 +308,16 @@ def test_dispatch_raises_when_every_engine_refuses():
     refuse it, and its segmented planner spins, 10 qubits > 16 - 7). Since
     the grid and segmented rows send cores of 10 qubits and more to the
     dense pass, it runs: the pieces on their engines (the 8-qubit core's on
-    segments), the core as a pass, against the oracle."""
+    segments), the core as a pass, against the oracle. Since the grid row's
+    cuts (dispatch.GRID_CUTS) the route cuts at the refused 8-qubit gate
+    too, in place of the segments."""
     n = 22
     c = tq.Circuit(n).h(0).add(_dense(8), *range(14, 22)).cnot(0, n - 1)
+    # the route cuts at the refused gate from 22q (dispatch.GRID_CUTS);
+    # the row's engines still take the circuit whole on the segments
     engine, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert prog.engines == ["grid_sweep", "dense_pass", "grid_sweep"]
+    engine, prog = dispatch._plan_piece(c, "grid_sweep")
     assert engine == "segmented" and isinstance(prog, seg.SegmentedProgram)
     assert (prog.local_bits, prog.swap_min) == (fc.MAX_BLOCK_BITS, 6)
     assert max(s.table.max_core for s in prog.steps) == 8
@@ -306,13 +331,21 @@ def test_dispatch_raises_when_every_engine_refuses():
     msg = str(err.value)
     for name in ("grid_sweep:", "sweeps:", "segmented:"):
         assert name in msg
-    engine, prog = dispatch.plan_run(c10, np.float32, CUDA)
+    engine, prog = dispatch.plan_split(c10, "grid_sweep")     # the cut at 10+ only
     assert engine == "segmented+dense_pass+grid_sweep"
     assert prog.engines == ["segmented", "dense_pass", "grid_sweep"]
     assert prog.steps[1].k == 10
     x = tq.apply.from_complex(psi, np.float32, "cpu")
-    np.testing.assert_allclose(tq.apply.to_complex(prog.run_plain(x)), jax_oracle(c10, psi),
-                               atol=TOL, rtol=0)
-    # above the segmented engine's range the torch engine takes it
+    want = jax_oracle(c10, psi)
+    np.testing.assert_allclose(tq.apply.to_complex(prog.run_plain(x)), want, atol=TOL, rtol=0)
+    # the route cuts at the refused 8-qubit gate too
+    engine, prog = dispatch.plan_run(c10, np.float32, CUDA)
+    assert prog.engines == ["grid_sweep", "dense_pass", "dense_pass", "grid_sweep"]
+    assert [s.k for s in prog.steps[1:3]] == [8, 10]
+    np.testing.assert_allclose(tq.apply.to_complex(prog.run_plain(x)), want, atol=TOL, rtol=0)
+    # above the segmented engine's range the row's engines give it to the
+    # torch engine; the grid row cuts at the refused gate there instead
     c28 = tq.Circuit(28).add(_dense(8), *range(20, 28))
-    assert dispatch.plan_run(c28, np.float32, CUDA) == ("torch", None)
+    assert dispatch._plan_piece(c28, "grid_sweep") == ("torch", None)
+    engine, prog = dispatch.plan_run(c28, np.float32, CUDA)
+    assert engine == "dense_pass" and prog.steps[0].targets == tuple(range(20, 28))

@@ -23,8 +23,9 @@ from . import LAUNCHES
 from .fused_circuit import MAX_DENSE_QUBITS, PGate, _is_diagonal, _peel_controls, check_planes
 
 # the kernel takes cores of at least 2^7 rows (a tile of its large
-# instance, a chunk of its small one); the route sends it only cores wider
-# than the tiled op's
+# instance, a chunk of its small one); a narrower core that the route cuts
+# (a gate the grid planner refuses, of 6 qubits) is widened to it on the
+# host (:func:`widened`)
 MIN_PASS_CORE = 7
 # dense_pass.cu's instances: (rows, groups) of a CTA's tile, and the
 # launcher's number for each
@@ -57,6 +58,22 @@ def pass_core(g: PGate, wider_than: int = MAX_DENSE_QUBITS) -> tuple | None:
         return None
     ctrls, core, qs = _peel_controls(g.u, tuple(g.qubits))
     return (tuple(ctrls), core, tuple(qs)) if len(qs) > wider_than else None
+
+
+def widened(found: tuple, n: int) -> tuple | None:
+    """``found`` ((controls, core, core qubits), as :func:`pass_core` gives
+    it) with a core of fewer than ``MIN_PASS_CORE`` qubits widened to that
+    many by an identity on the lowest qubits of the n outside its core and
+    its controls, as the core's index MSBs (kron(I, core)); ``found`` itself
+    for a core that is wide enough; None where too few qubits are left."""
+    ctrls, core, qs = found
+    extra = MIN_PASS_CORE - len(qs)
+    if extra <= 0:
+        return found
+    free = [q for q in range(n) if q not in qs and q not in ctrls]
+    if len(free) < extra:
+        return None
+    return ctrls, np.kron(np.eye(1 << extra), core), (*free[:extra], *qs)
 
 
 def core_operand(core: np.ndarray, qubits: tuple[int, ...]) -> np.ndarray:
@@ -153,7 +170,8 @@ def dense_pass(
 class DensePass:
     """One gate whose peeled core takes a dense pass (``found``, what
     :func:`pass_core` gives for it; by default a core wider than
-    ``MAX_DENSE_QUBITS``), as a step of a split run or a sweep's unit stage:
+    ``MAX_DENSE_QUBITS``; a core of fewer than ``MIN_PASS_CORE`` qubits is
+    :func:`widened`), as a step of a split run or a sweep's unit stage:
     ``run`` maps (2, 2^n) float32 planes to new planes, through
     :func:`dense_pass` on a CUDA tensor and :meth:`run_plain` on a CPU
     one."""
@@ -162,6 +180,10 @@ class DensePass:
         found = found or pass_core(gate)
         if found is None:
             raise ValueError(f"gate on {gate.qubits} has no core wider than {MAX_DENSE_QUBITS} qubits")
+        self.core_k = len(found[2])        # the gate's core, before widening
+        found = widened(found, n)
+        if found is None:
+            raise ValueError(f"no qubit of {n} is left to widen the core of the gate on {gate.qubits}")
         self.num_qubits = n
         self.controls, self.core, self.targets = found
         self.k = len(self.targets)
@@ -202,11 +224,12 @@ class DensePass:
         return apply_controlled(state, self.core, self.targets, self.controls)
 
     def flops(self) -> float:
-        """Real flops of the product: 8 per complex multiply-add, 2^k of them
-        per amplitude whose controls pass."""
-        return 8.0 * (1 << self.k) * (1 << (self.num_qubits - len(self.controls)))
+        """Real flops of the gate's product: 8 per complex multiply-add, 2^k
+        of them per amplitude whose controls pass, k the core's width before
+        widening (the identity adds none to the function)."""
+        return 8.0 * (1 << self.core_k) * (1 << (self.num_qubits - len(self.controls)))
 
     def bytes_moved(self) -> int:
-        """Device-memory bytes the pass must move: the core once, the state
-        read and written once."""
-        return (8 << 2 * self.k) + 16 * (1 << self.num_qubits)
+        """Device-memory bytes the gate must move: its core once (before
+        widening), the state read and written once."""
+        return (8 << 2 * self.core_k) + 16 * (1 << self.num_qubits)

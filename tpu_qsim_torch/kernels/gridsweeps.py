@@ -197,6 +197,36 @@ def _two_sweep_partition(
     return sweeps
 
 
+def default_params(gates: list[PGate]) -> GridParams:
+    """The card's geometry for a sweep program over ``gates``:
+    :data:`BLK_BITS`, or :data:`WIDE_BLK_BITS` where a dense core has
+    ``TILE_CORE`` qubits or more."""
+    widest = max((len(moving_qubits(g.u, g.qubits)) for g in gates), default=0)
+    return GridParams(WIDE_BLK_BITS if widest >= TILE_CORE else BLK_BITS)
+
+
+def high_moving(g: PGate, params: GridParams) -> int:
+    """How many high qubits (at or above ``params.blk_bits``) ``g`` moves."""
+    return sum(q >= params.blk_bits for q in moving_qubits(g.u, g.qubits))
+
+
+def _is_swap(g: PGate) -> bool:
+    return g.u.shape[0] == 4 and not np.any(g.u - _SWAP_U)
+
+
+def refuses(g: PGate, n: int, params: GridParams | None = None) -> bool:
+    """Whether the grid planner refuses ``g`` in an n-qubit circuit: it moves
+    more high qubits than a sweep's active budget (``params.a_max``, at most
+    the ``n - blk_bits`` high bits there are), and it is no SWAP (which the
+    planner runs as 3 CNOTs). ``params`` None: the geometry that
+    :class:`GridSweepProgram` picks for a circuit holding ``g``
+    (:func:`default_params`)."""
+    if params is None:
+        params = default_params([g])
+    a_max = min(params.a_max, n - params.blk_bits)
+    return not _is_swap(g) and high_moving(g, params) > a_max
+
+
 def plan_grid_sweeps(
     circuit,
     n: int | None = None,
@@ -212,7 +242,8 @@ def plan_grid_sweeps(
     gate fits a sweep iff its moving qubits >= blk_bits fit the sweep's
     active budget. Diagonal/controlled structure along high bits costs
     nothing (the kernel reads those bits from the global index), so e.g. a
-    CZ or a control anywhere always rides the current sweep. The frontier
+    CZ or a control anywhere always rides the current sweep. A gate that
+    fits no sweep (:func:`refuses`) raises a ValueError. The frontier
     scheduling runs in the native library
     (``native/fusion.cpp::qsim_plan_grid_sweeps``).
     """
@@ -236,20 +267,17 @@ def plan_grid_sweeps(
     _cnot = None
     gates: list[PGate] = []
     for g in as_pgates(raw):
-        mv = moving_qubits(g.u, g.qubits)
-        if len(mv & high) > a_max:
-            if g.u.shape[0] == 4 and not np.any(g.u - _SWAP_U):
-                if _cnot is None:
-                    _cnot = gate_matrix("cnot").astype(np.complex128)
-                a, b = g.qubits
-                gates += as_pgates(
-                    [(_cnot, (a, b)), (_cnot, (b, a)), (_cnot, (a, b))]
-                )
-                continue
+        if refuses(g, n, params):
             raise ValueError(
-                f"gate on {g.qubits} moves {len(mv & high)} high "
+                f"gate on {g.qubits} moves {high_moving(g, params)} high "
                 f"qubits; the grid engine stacks at most {a_max}"
             )
+        if _is_swap(g) and high_moving(g, params) > a_max:
+            if _cnot is None:
+                _cnot = gate_matrix("cnot").astype(np.complex128)
+            a, b = g.qubits
+            gates += as_pgates([(_cnot, (a, b)), (_cnot, (b, a)), (_cnot, (a, b))])
+            continue
         gates.append(g)
 
     # fold same-qubit 1q runs BEFORE sweep planning: fewer gates to place
@@ -526,9 +554,8 @@ class GridSweepProgram:
     ):
         n = circuit.num_qubits
         if params is None:
-            gates = as_pgates(circuit.gates) if plan is None else [g for s in plan for g in s.gates]
-            widest = max((len(moving_qubits(g.u, g.qubits)) for g in gates), default=0)
-            params = GridParams(WIDE_BLK_BITS if widest >= TILE_CORE else BLK_BITS)
+            params = default_params(
+                as_pgates(circuit.gates) if plan is None else [g for s in plan for g in s.gates])
         if n <= params.blk_bits:
             raise ValueError(f"n must exceed blk_bits={params.blk_bits}")
         self.num_qubits = n

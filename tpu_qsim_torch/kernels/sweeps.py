@@ -491,10 +491,11 @@ class SweepLaunch:
 # tiled op: on the H100 the pass took 8.3803 / 15.0828 ms at k = 10 / 11 on
 # a 26-qubit state against 10.0425 / 36.8317 for a low sweep holding the
 # core alone, and tied at k = 9 (5.1486 against 5.0910; PERF.md). The
-# dispatch cuts every kernel row's circuits at the same width (the route by
-# width, kernels/dispatch.py): there the pass beat the grid sweep's tiled
-# op at k = 10-11 at 20-28 qubits, the whole circuit's at 10, 11, 12, 16
-# and 18, and a segment holds no core wider than 9 qubits. So `run` never
+# dispatch cuts every kernel row's circuits at this width too (the route by
+# width, kernels/dispatch.py), the grid row's from 22 qubits at a narrower
+# one (dispatch.GRID_CUTS): there the pass beat the grid sweep's tiled op
+# at k = 10-11 at 20-28 qubits, the whole circuit's at 10, 11, 12, 16 and
+# 18, and a segment holds no core wider than 9 qubits. So `run` never
 # hands a SweepProgram such a core; plan_launches keeps its own pass for a
 # SweepProgram planned directly (tune_sweeps, floor --sweeps, the tests),
 # so that a unit of 10-11 qubits never rides the tiled op, which the pass

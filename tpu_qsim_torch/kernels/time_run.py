@@ -10,7 +10,8 @@ Rows (``ROWS``):
   qubits 10-17, ``random_circuit(26, 40, seed=43)``);
 * circuits with one wide dense gate, built the same way (a 6-qubit core at
   22 and 26 qubits; an 8-qubit core on qubits 14-21 of 22 and a 6-qubit
-  core on qubits 18-23 of 24, which only the segmented engine takes);
+  core on qubits 18-23 of 24, which of the engines planned whole only the
+  segmented one takes, and which the route cuts since ``GRID_CUTS``);
 * ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid-sweep
   programs, each forced, and ``random_circuit(24, 100, seed=42)`` through
   the segmented program, forced (traffic the dispatcher sends to the grid
@@ -26,6 +27,10 @@ Rows (``ROWS``):
   on qubits 0..k-1, k = 8 and 10; a 10-qubit core on qubits 12-21 of 22 and
   9-18 of 19, an 11-qubit core on 17-27 of 28; a 10-qubit core on 7-16
   of 26, which the sweeps took whole before the route by width);
+* circuits built the same way with a 6-9-qubit core that the grid planner
+  refuses (9 on 18-26 of 27, 6 on 11-16 and 8 on 20-27 of 28, 7 on 23-29
+  of 30: the torch engine ran them whole before the cut at refused gates;
+  8 on 18-25 of 26: the segments);
 * a 12-qubit dense gate on qubits 0-11 (a Kronecker product of seeded
   random 1-qubit unitaries), built as above at 16 and 22 qubits: the run
   (whole-circuit or grid-sweep launches around one dense pass), and the
@@ -70,8 +75,8 @@ ROWS = {
     "19q_segment_0_ops": (19, 0, 0),
     "19q_segment_1_op": (19, 0, 0),
     "19q_segment_relabel_1_op": (19, 0, 0),
-    "22q_dense8_on_14": (22, 8, 14),    # grid and sweeps refuse it: segments
-    "24q_dense6_on_18": (24, 6, 18),    # grid and sweeps refuse it: segments
+    "22q_dense8_on_14": (22, 8, 14),    # grid and sweeps refuse it: segments,
+    "24q_dense6_on_18": (24, 6, 18),    # since dispatch.GRID_CUTS grid + pass
     "24q_random_on_segments": (24, 0, 0),
     "22q_dense6_on_8": (22, 6, 8),      # the grid refuses it: sweeps
     "26q_dense6_on_0": (26, 6, 0),      # grid sweep, the wide instance
@@ -82,13 +87,22 @@ ROWS = {
     # the route by width: cores of 10+ qubits on the grid and segmented
     # rows take the dense pass (a checkout without it prints its own route:
     # the grid's tiled op, a refusal or the torch engine)
-    "26q_grid_dense8_on_0": (26, 8, 0),     # grid sweep, the tiled op
+    "26q_grid_dense8_on_0": (26, 8, 0),     # grid sweep, the tiled op (since
+                                            # dispatch.GRID_CUTS + dense pass)
     "26q_grid_dense10_on_0": (26, 10, 0),   # grid sweep + dense pass
     "28q_dense11_on_17": (28, 11, 17),      # grid sweep + dense pass
     "22q_dense10_on_12": (22, 10, 12),      # grid sweep + dense pass
     "19q_dense10_on_9": (19, 10, 9),        # segments + dense pass
     "26q_dense10_on_7": (26, 10, 7),        # grid sweep + dense pass (before
                                             # the route by width: the sweeps)
+    # a gate that the grid planner refuses: above 26q the torch engine ran
+    # the whole circuit before the cut at refused gates, grid pieces and a
+    # pass now (a 6-qubit core widened to 7); at 26q in place of the segments
+    "27q_dense9_on_18": (27, 9, 18),
+    "28q_dense6_on_11": (28, 6, 11),
+    "28q_dense8_on_20": (28, 8, 20),
+    "30q_dense7_on_23": (30, 7, 23),
+    "26q_dense8_on_18": (26, 8, 18),
 }
 # the one-segment rows' gates
 SEGMENT_GATES = {

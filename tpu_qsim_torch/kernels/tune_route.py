@@ -2,7 +2,7 @@
 kernel's tiled op and takes the dense pass, and what the grid sweep's wide
 instance costs by itself.
 
-    python -m tpu_qsim_torch.kernels.tune_route [--instances N] [--crossover]
+    python -m tpu_qsim_torch.kernels.tune_route [--instances N] [--crossover] [--passes N]
         [--grid-qubits N ...] [--whole-qubits N ...] [--segment-qubits N ...]
         [--cores K ...] [--device cpu]
 
@@ -17,16 +17,30 @@ Modes:
   then one sweep holding one k-qubit op on qubits 0..k-1 for each of
   ``--cores`` (the wide instance), so that an op's own cost is its sweep
   less the 1-qubit sweep on the wide instance.
-* ``--crossover``: a k-qubit dense gate on qubits 0..k-1 between two random
-  layers (``time_run.wide_circuit``) on each route, as one program holding
-  the core in its tiled op (``GridSweepProgram``, ``WholeCircuitProgram``,
-  ``SegmentedProgram``; a refusal is printed) and as the route by width
-  runs it: the pieces on the route's program and the gate as a dense pass
-  (``split_program``: ``dispatch``'s split, at k), each against the other.
-  Grid sweep at ``--grid-qubits`` (20, 24, 28), whole circuit at
-  ``--whole-qubits`` (12, 16, 18), segments at ``--segment-qubits`` (19);
-  cores ``--cores`` (8-11 on the grid, 10-11 on the others); ``--routes``
-  picks some of the three.
+* ``--crossover``: a k-qubit dense gate between two random layers
+  (``time_run.wide_circuit``) on each route, as one program holding the
+  core (the "tiled" candidate: the route's program, planned whole by
+  ``dispatch._plan_piece``; on the grid row that is the grid sweep's tiled
+  op where the grid planner takes the core, else the row's fallback, the
+  sweeps or the segments at 20-26q; above 26q the torch engine, which is
+  printed as refused and timed once, at ``--torch-at`` qubits with k = 8 on
+  the highest qubits) and as the route by width runs it (the "split": the
+  pieces on the route's program and the gate as a dense pass,
+  ``dispatch.plan_split`` cut at k and at the gate the grid planner
+  refuses). Grid sweep at ``--grid-qubits`` (20, 22, 24, 26, 27, 28, 30)
+  with the core on the lowest, the middle (from n/2 - k/2) or the highest
+  qubits (``--placements``), whole circuit at ``--whole-qubits`` (12, 16,
+  18), segments at ``--segment-qubits`` (19), each on the lowest qubits;
+  cores ``--cores`` (5-9 on the grid, 10-11 on the others); ``--routes``
+  picks some of the three. The two candidates are timed in turns, tiled /
+  split / split / tiled, each turn a median of 7.
+
+* ``--passes N``: the dense pass alone on an N-qubit state: a 6-qubit core
+  on the middle qubits widened to 7 by an identity on the lowest free qubit
+  (the route's choice, ``dense_pass.widened``), on the qubit below the core
+  and on the one above it; and 7-9-qubit cores on the lowest, the middle
+  and the highest qubits; each beside the gate's 3xTF32 bound (of its core
+  as cut: the widening adds no work).
 
 Times are medians of 7 CUDA-event timings after a warm-up, device time from
 CUDA-graph replays below 20 qubits. With ``--device cpu`` it runs the plain
@@ -48,20 +62,20 @@ import torch
 from .. import apply as ap
 from ..circuit import Circuit, random_circuit
 from . import LAUNCHES, reset_launches
-from .fused_circuit import TILE_CORE, WholeCircuitProgram
+from .fused_circuit import TILE_CORE
 from .gridsweeps import GridSweepProgram, grid_sweep
-from .segmented import SegmentedProgram
 
 SEED = 42
-GRID_QUBITS = (20, 24, 28)
+GRID_QUBITS = (20, 22, 24, 26, 27, 28, 30)
 WHOLE_QUBITS = (12, 16, 18)
 SEGMENT_QUBITS = (19,)
-GRID_CORES = (8, 9, 10, 11)
+GRID_CORES = (5, 6, 7, 8, 9)
 BLOCK_CORES = (10, 11)
 INSTANCE_CORES = (5, 6, 7, 8, 9)
+PLACEMENTS = ("low", "middle", "high")
+TORCH_AT = 28
 REPS = 7
-TILED = {"grid_sweep": GridSweepProgram, "whole_circuit": WholeCircuitProgram,
-         "segmented": SegmentedProgram}
+ROUTES = ("grid_sweep", "whole_circuit", "segmented")
 
 
 def _times_ms(fn, device: torch.device, reps: int = REPS) -> list[float]:
@@ -111,9 +125,11 @@ def _median(times: list[float]) -> dict:
 
 
 def _state(n: int, device: torch.device) -> torch.Tensor:
-    rng = np.random.default_rng(n)
-    psi = rng.standard_normal((2, 1 << n)).astype(np.float32)
-    return torch.from_numpy(psi / np.linalg.norm(psi)).to(device)
+    """A seeded random normalised state, made on ``device`` (at 30 qubits
+    the host's normals took tens of seconds a case)."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    psi = torch.randn((2, 1 << n), generator=gen, device=device)
+    return psi / torch.linalg.vector_norm(psi)
 
 
 def instances(n: int, device: torch.device, cores=INSTANCE_CORES) -> list[dict]:
@@ -146,76 +162,133 @@ def instances(n: int, device: torch.device, cores=INSTANCE_CORES) -> list[dict]:
     return rows
 
 
-def split_program(circuit: Circuit, route: str, k: int):
-    """``circuit`` as the route by width runs a core of 10+ qubits, at any
-    width k: its pieces before and after its one k-qubit gate on ``route``'s
-    program, the gate as a dense pass (:class:`dispatch.SplitProgram`)."""
+def passes(n: int, device: torch.device, cores=(7, 8, 9)) -> list[dict]:
+    """``--passes N``: the 6-qubit core widened three ways, then each of
+    ``cores`` on each placement, the pass alone on one random state."""
     from .dense_pass import DensePass, pass_core
-    from .dispatch import SplitProgram, _plan_piece
     from .fused_circuit import as_pgates
+    from .time_run import dense_gate
 
-    n = circuit.num_qubits
-    (at,) = [i for i, g in enumerate(circuit.gates) if len(g.qubits) == k]
-    steps, engines = [], []
-    for gates in (circuit.gates[:at], None, circuit.gates[at + 1:]):
-        if gates is None:
-            (pg,) = as_pgates([circuit.gates[at]])
-            steps.append(DensePass(pg, n, pass_core(pg, k - 1)))
-            engines.append("dense_pass")
-            continue
-        piece = Circuit(n)
-        for g in gates:
-            piece.append(g)
-        name, prog = _plan_piece(piece, route)
-        if prog is None:
-            raise ValueError(f"{route} gives a {n}-qubit piece to the torch engine")
-        steps.append(prog)
-        engines.append(name)
-    return SplitProgram(steps, engines)
+    x = _state(n, device)
+    cases = []
+    lo = placement(n, 6, "middle")
+    (g,) = as_pgates(Circuit(n).add(dense_gate(6), *range(lo, lo + 6)).gates)
+    ctrls, core, qs = pass_core(g, 0)
+    for name, extra in (("lowest_free", 0), ("below", lo - 1), ("above", lo + 6)):
+        wide = (ctrls, np.kron(np.eye(2), core), (extra, *qs))
+        cases.append((f"{n}q_pass_dense6_on_{lo}_widened_{name}", DensePass(g, n, wide)))
+    for k in cores:
+        for where in PLACEMENTS:
+            lo = placement(n, k, where)
+            (g,) = as_pgates(Circuit(n).add(dense_gate(k), *range(lo, lo + k)).gates)
+            cases.append((f"{n}q_pass_dense{k}_on_{lo}", DensePass(g, n, pass_core(g, 0))))
+    rows = []
+    for name, step in cases:
+        flops = 3 * step.flops()       # three TF32 products per real one, of the core as cut
+        bound_ms = max(step.bytes_moved() / 3.35e12, flops / 495e12) * 1e3
+        rows.append({"row": name, "targets": list(step.targets), "k": step.k, "core_k": step.core_k,
+                     "bound_ms": bound_ms, **_median(_times_ms(lambda: step.run(x), device))})
+    return rows
 
 
-def crossover_case(route: str, n: int, k: int, device: torch.device) -> dict:
-    """One route at n qubits with a k-qubit core: the tiled op's program
-    (or its refusal) against the route by width's split, each timed, their
-    outputs compared."""
+def placement(n: int, k: int, where: str) -> int:
+    """The lowest qubit of a k-qubit core on the ``where`` qubits of n."""
+    return {"low": 0, "middle": n // 2 - k // 2, "high": n - k}[where]
+
+
+def split_program(circuit: Circuit, route: str, k: int):
+    """``circuit`` as the route by width runs it when it cuts at k qubits:
+    the pieces around its k-qubit gate on ``route``'s program, the gate as a
+    dense pass (:func:`dispatch.plan_split` cut at k and at every gate the
+    grid planner refuses)."""
+    from .dispatch import plan_split
+
+    _, prog = plan_split(circuit, route, k, refused=True)
+    if "torch" in getattr(prog, "engines", ["torch"]):
+        raise ValueError(f"{route} gives a {circuit.num_qubits}-qubit piece to the torch engine")
+    return prog
+
+
+def _torch_engine(circuit: Circuit):
+    """The torch engine's run of ``circuit``, as ``StateVectorSimulator``
+    builds it where the table gives no kernel."""
+    from ..config import DEFAULT_CONFIG
+    from ..fusion import fuse_circuit
+    from ..statevector import build_torch_run_fn
+
+    return build_torch_run_fn(fuse_circuit(circuit, DEFAULT_CONFIG.max_fused_qubits), np.float32)
+
+
+def crossover_case(route: str, n: int, k: int, device: torch.device, where: str = "low",
+                   torch_engine: bool = False) -> dict:
+    """One route at n qubits with a k-qubit core on the ``where`` qubits:
+    the route's program holding the core (or its refusal) against the
+    route by width's split, timed in turns (tiled / split / split / tiled),
+    their outputs compared; with ``torch_engine`` the torch engine's run
+    beside them."""
+    from .dispatch import _plan_piece
     from .time_run import wide_circuit
 
-    c = wide_circuit(n, k, 0)
+    lo = placement(n, k, where)
+    c = wide_circuit(n, k, lo)
     x = _state(n, device)
-    row = {"row": f"{route}_{n}q_dense{k}", "route": route, "n": n, "k": k}
+    row = {"row": f"{route}_{n}q_dense{k}_on_{lo}", "route": route, "n": n, "k": k,
+           "placement": where, "lo": lo}
     timer = _graph_times_ms if n < 20 and device.type == "cuda" else _times_ms
-    outs = {}
-    for name in ("tiled", "split"):
+    progs, outs = {}, {}
+    for name in ("tiled", "split", "torch"):
         try:
             if name == "tiled":
-                prog = TILED[route](c)
-            else:
+                engine, prog = _plan_piece(c, route)
+                if prog is None:
+                    raise ValueError(f"{route} gives the circuit to the torch engine")
+                engines = [engine]
+            elif name == "split":
                 prog = split_program(c, route, k)
+                engines = prog.engines
+            elif torch_engine:
+                prog, engines = _torch_engine(c), ["torch"]
+            else:
+                continue
         except ValueError as e:
             row[name] = {"refused": str(e)[:200]}
             continue
         reset_launches()
-        outs[name] = prog.run(x.clone())
-        launches = dict(LAUNCHES)
-        state = x.clone()
+        outs[name] = prog(x.clone())
+        progs[name] = prog
+        row[name] = {"engines": engines, "launches": dict(LAUNCHES), "turns": []}
+    state = {}
 
-        def step(prog=prog):
-            nonlocal state
-            state = prog.run(state)
+    def turn(name: str) -> None:
+        state[name] = x.clone()
 
-        row[name] = {"engines": getattr(prog, "engines", [route]), "launches": launches,
-                     **_median(timer(step, device))}
-        del state
-    if len(outs) == 2:
+        def step():
+            state[name] = progs[name](state[name])
+
+        row[name]["turns"].append(_median(timer(step, device)))
+        del state[name]
+
+    order = [name for name in ("tiled", "split", "split", "tiled") if name in progs]
+    for name in order + (["torch"] if "torch" in progs else []):
+        turn(name)
+    for name in progs:
+        times = [t for turn_ in row[name]["turns"] for t in turn_["all_ms"]]
+        row[name]["ms"] = statistics.median(times)
+    if "tiled" in outs and "split" in outs:
         row["max_abs_diff"] = float(torch.max(torch.abs(outs["tiled"] - outs["split"])))
-    if "ms" in row.get("tiled", {}) and "ms" in row.get("split", {}):
         row["split_over_tiled"] = row["split"]["ms"] / row["tiled"]["ms"]
+    if "torch" in outs and "split" in outs:
+        row["max_abs_diff_vs_torch"] = float(torch.max(torch.abs(outs["torch"] - outs["split"])))
+        row["split_over_torch"] = row["split"]["ms"] / row["torch"]["ms"]
     return row
 
 
 def crossover(device: torch.device, grid=GRID_QUBITS, whole=WHOLE_QUBITS,
-              segment=SEGMENT_QUBITS, cores=None, routes=tuple(TILED)) -> list[dict]:
-    """``--crossover``: every (route, n, k) case of ``routes``."""
+              segment=SEGMENT_QUBITS, cores=None, routes=ROUTES,
+              placements=("low",), torch_at=None) -> list[dict]:
+    """``--crossover``: every (route, n, k) case of ``routes``, the grid's at
+    each of ``placements``; the torch engine beside the split once, at
+    ``torch_at`` qubits with k = 8 on the highest qubits."""
     rows = []
     for route, sizes, widths in (("grid_sweep", grid, cores or GRID_CORES),
                                  ("whole_circuit", whole, cores or BLOCK_CORES),
@@ -226,9 +299,11 @@ def crossover(device: torch.device, grid=GRID_QUBITS, whole=WHOLE_QUBITS,
             for k in widths:
                 if k > n:
                     continue
-                rows.append(crossover_case(route, n, k, device))
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
+                for where in placements if route == "grid_sweep" else ("low",):
+                    once = route == "grid_sweep" and n == torch_at and k == 8 and where == "high"
+                    rows.append(crossover_case(route, n, k, device, where, torch_engine=once))
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
     return rows
 
 
@@ -236,12 +311,17 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--instances", type=int, default=None, metavar="N")
     parser.add_argument("--crossover", action="store_true")
+    parser.add_argument("--passes", type=int, default=None, metavar="N")
     parser.add_argument("--grid-qubits", type=int, action="append", default=None)
     parser.add_argument("--whole-qubits", type=int, action="append", default=None)
     parser.add_argument("--segment-qubits", type=int, action="append", default=None)
     parser.add_argument("--cores", type=int, action="append", default=None, metavar="K")
-    parser.add_argument("--routes", action="append", choices=tuple(TILED), default=None,
+    parser.add_argument("--routes", action="append", choices=ROUTES, default=None,
                         help="--crossover on these routes only (repeatable; default all)")
+    parser.add_argument("--placements", action="append", choices=PLACEMENTS, default=None,
+                        help="--crossover's grid cores on these qubits (repeatable; default all)")
+    parser.add_argument("--torch-at", type=int, default=TORCH_AT, metavar="N",
+                        help="--crossover times the torch engine once at N qubits")
     parser.add_argument("--device", default=None, help="default: the CUDA card")
     args = parser.parse_args()
     dev = ap.resolve_device(args.device)
@@ -256,11 +336,15 @@ def main() -> None:
     if args.instances:
         for row in instances(args.instances, dev, args.cores or INSTANCE_CORES):
             print(json.dumps(row), flush=True)
+    if args.passes:
+        for row in passes(args.passes, dev):
+            print(json.dumps(row), flush=True)
     if args.crossover:
         for row in crossover(dev, args.grid_qubits or GRID_QUBITS,
                              args.whole_qubits or WHOLE_QUBITS,
                              args.segment_qubits or SEGMENT_QUBITS, args.cores,
-                             tuple(args.routes or TILED)):
+                             tuple(args.routes or ROUTES), tuple(args.placements or PLACEMENTS),
+                             args.torch_at):
             print(json.dumps(row), flush=True)
 
 

@@ -4,8 +4,10 @@ The counterpart of ``tpu_qsim/statevector.py``. ``run`` routes a circuit
 through :mod:`tpu_qsim_torch.kernels.dispatch`: float32 states on the card
 go through the hand-written kernels (whole-circuit at 10-18 qubits,
 segmented at 19, grid-sweep at 20-30; where the grid planner refuses a
-circuit, the sweeps engine at 22-26 qubits and then the segmented engine up
-to 26); everything else goes through the fused torch engine. Readout is inherited from
+circuit, the sweeps engine at 22-26 qubits, else the segmented engine at
+20-21, and from 22 the circuit cut at each refused gate into grid sweeps and
+dense passes; ``engine`` names the route, e.g. ``grid_sweep+dense_pass``);
+everything else goes through the fused torch engine. Readout is inherited from
 :class:`tpu_qsim_torch.base.BaseSimulator`.
 
 Parameterized runs (``run_parameterized``, ``build_expectation_fn``) go
