@@ -43,17 +43,21 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
    path: ``random_circuit(26, 40, seed=42)``, an 8-qubit dense gate on
    qubits 10-17 (the grid planner refuses it), ``random_circuit(26, 40,
    seed=43)`` through ``StateVectorSimulator(26).run`` then readout,
-   counted (only ``low_sweep``/``high_sweep``/``unit_stage``), its stages as
-   planned (one tile stage per sweep but the low sweep with the 8-qubit
-   core: tile, unit, tile) and its launches (each run of tile stages one
-   launch of the instance for narrow cores, the unit stage alone on the
-   wide instance), against its plain version (1e-7, 1 - fidelity <= 1e-5),
-   and each launch against the plain version of its gates on one input
-   (1e-7);
+   counted (only ``low_sweep``/``high_sweep``/``dense_pass``, the pass on
+   the stream instance), its stages as planned (one tile stage per sweep
+   but the low sweep with the 8-qubit core: tile, unit, tile) and its
+   launches (each run of tile stages one launch of the instance for narrow
+   cores, the unit stage through the dense pass,
+   ``sweeps.MIN_UNIT_PASS_CORE``), against its plain version (1e-7, 1 -
+   fidelity <= 1e-5), and each launch against the plain version of its
+   gates on one input (1e-7); the unit stage on its own path (the route
+   reaches it no more): ``SweepProgram`` of the same circuit with a 5-qubit
+   core on 10-14, counted (one ``unit_stage``), against its plain version;
    ``random_circuit(26, 100, seed=42)`` through the sweeps (at most 6 tile
    stages) and the grid-sweep programs agrees within 1e-6;
 8. dense cores of 7-10 qubits through ``run`` (the tiled op up to 9
-   qubits, 10 through the dense pass between the row's pieces): the whole
+   qubits, 10 through the dense pass between the row's pieces; the
+   sweeps' unit stages from 6): the whole
    circuit at 12 qubits, and a 9-qubit core at 10 (its tiled op on more
    threads than the tile has), against the oracle, segments at 22 (7
    qubits on 15-21), the grid sweep at 26 (on qubits 0..k-1) and the low
@@ -71,6 +75,14 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     beside both at 16 and 22 qubits, with two bounds and the share of each:
     the float32 FMAs' (any design without tensor cores) and this design's
     (three TF32 tensor-core products per real one);
+8d. dense cores of 7-9 qubits alone (``tune_route --passes``): at 26 and
+    28 qubits a 7-, 8- and 9-qubit core on the lowest, middle and highest
+    qubits, an 8-qubit core under a control, and the 6-qubit core widened
+    to 7, each on ``dense_pass.cu``'s stream and large instances in turns,
+    each launch's instance asserted by ``PASS_INSTANCES``, against the
+    plain version and ``torch.matmul`` of the core (1e-7 each), timed
+    beside the matmul (TF32 off; without and with the planes-to-complex64
+    copies), the plain version and the 3xTF32 bound;
 8c. the route by width: cores of 10 and 11 qubits on the grid and
     segmented rows, and on the grid row from 22 qubits cores of 7+ (8+ at
     27) and every gate the grid planner refuses where the segments or the
@@ -82,8 +94,8 @@ Needs one NVIDIA H100 (sm_90a) and ``nvcc``; imports nothing of JAX. Phases:
     core on 17-27 of 28, and the refused cores 9 on 18-26 of 27, 6 on
     11-16 (widened to 7) and 8 on 20-27 of 28, 7 on 23-29 of 30 (the torch
     engine ran these whole before) and 8 on 18-25 of 26 (the segments):
-    each through ``StateVectorSimulator(n).run``, engines and launches
-    asserted, against its plain version and (up to 26 qubits) the
+    each through ``StateVectorSimulator(n).run``, engines, launches and
+    the pass's instance asserted, against its plain version and (up to 26 qubits) the
     complex128 oracle (1e-6; the 26-qubit ones computed in worker
     processes from the start of the run, the phase run late), timed, with
     the peak device memory of one run over the state's, the pass alone
@@ -229,7 +241,9 @@ from tpu_qsim_torch import certify, fixture_corpus, fusion, native, utils
 from tpu_qsim_torch.base import counts_to_histogram
 from tpu_qsim_torch.fusion import fuse_circuit
 from tpu_qsim_torch.gates import GATE_ARITY, register_gate
-from tpu_qsim_torch.kernels import LAUNCHES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches
+from tpu_qsim_torch.kernels import (
+    LAUNCHES, PASS_INSTANCES, SEGMENT_KINDS, _build, dispatch, gridsweeps, reset_launches,
+)
 from tpu_qsim_torch.kernels.dense_pass import MIN_PASS_CORE, DensePass, core_operand, dense_pass, pass_instance
 from tpu_qsim_torch.kernels import floor, sass_census
 from tpu_qsim_torch.kernels.fused_circuit import (
@@ -240,8 +254,11 @@ from tpu_qsim_torch.kernels.gridsweeps import (
     A_MAX, WIDE_BLK_BITS, GridParams, GridSweepProgram, grid_sweep,
 )
 from tpu_qsim_torch.kernels.segmented import SegmentedProgram, resident_ctas
-from tpu_qsim_torch.kernels.sweeps import MIN_SWEEP_PASS_CORE, SweepProgram, build_sweep_run
+from tpu_qsim_torch.kernels.sweeps import (
+    MIN_SWEEP_PASS_CORE, MIN_UNIT_PASS_CORE, SweepProgram, build_sweep_run,
+)
 from tpu_qsim_torch.kernels.time_run import kron_gate
+from tpu_qsim_torch.kernels.tune_route import passes as stream_passes
 from tpu_qsim_torch.parallel import ShardedBatchedSimulator, ShardedStateVectorSimulator, make_mesh
 from tpu_qsim_torch.ranks import run_ranks
 from tpu_qsim_torch.statevector import build_torch_run_fn
@@ -1025,6 +1042,10 @@ def phase_22q_sweeps_oracle() -> dict:
 
 
 SWEEP_KEYS = ("low_sweep", "high_sweep", "unit_stage")
+# the sweeps main path's kernels: its 8-qubit unit stage takes the dense
+# pass (sweeps.MIN_UNIT_PASS_CORE); the unit stage's own path is
+# phase_sweeps_unit's
+MAIN_SWEEP_KEYS = ("low_sweep", "high_sweep", "dense_pass")
 
 
 def launch_key(kind: str, route: str) -> str:
@@ -1038,31 +1059,34 @@ def phase_sweeps_main() -> dict:
     """26q, the sweeps main path: a circuit the grid planner refuses (an
     8-qubit dense gate on qubits 10-17) through the simulator, counted; its
     stages and its launches as planned (each run of tile stages one launch
-    on the instance for narrow cores, the unit stage alone on the wide
-    one); each launch against the plain version of its gates on one input."""
+    on the instance for narrow cores, the unit stage through the dense
+    pass); each launch against the plain version of its gates on one
+    input."""
     n = N_SWEEPS
     c = wide_core_circuit(n, 8, 10)
     check(grid_planner_refuses(c), "the grid planner took the sweeps main-path circuit")
-    res = phase_main(n, "sweeps", SWEEP_KEYS, circuit=c)
+    res = phase_main(n, "sweeps", MAIN_SWEEP_KEYS, circuit=c)
     prog = res["prog"]
     kinds = prog.sweep_kinds
     routes = [[ln.route for ln in sweep] for sweep in prog.launches]
     want = collections.Counter(launch_key(k, r) for k, rs in zip(kinds, routes) for r in rs)
-    check(res["launches"] == {key: want[key] for key in SWEEP_KEYS},
+    check(res["launches"] == {key: want[key] for key in MAIN_SWEEP_KEYS},
           f"launches {res['launches']} for sweeps {kinds} routes {routes}")
+    check(dict(PASS_INSTANCES) == {"stream": 1}, f"the main path's pass ran {dict(PASS_INSTANCES)}")
+    res["pass_instances"] = dict(PASS_INSTANCES)
     stages = [[st.kind for st in sweep] for sweep in prog.stages]
-    instances = [["narrow" if ln.max_core <= NARROW_CORE else "wide" for ln in sweep]
-                 for sweep in prog.launches]
+    instances = [["pass" if ln.route == "pass" else "narrow" if ln.max_core <= NARROW_CORE
+                  else "wide" for ln in sweep] for sweep in prog.launches]
     log(f"phase {n}q_sweeps_stages: tile_bits={prog.tile_bits} stages={stages} "
         f"ops={[[len(st.gates) for st in sweep] for sweep in prog.stages]} "
         f"launches={routes} instances={instances}")
     check(stages == [["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]],
           f"sweeps main path stages {stages}")
-    check(routes == [["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]],
+    check(routes == [["tile"], ["tile", "pass", "tile"], ["tile"], ["tile"]],
           f"sweeps main path launches {routes}")
-    check(instances == [["narrow"], ["narrow", "wide", "narrow"], ["narrow"], ["narrow"]],
+    check(instances == [["narrow"], ["narrow", "pass", "narrow"], ["narrow"], ["narrow"]],
           f"sweeps main path instances {instances}")
-    step_err = {key: 0.0 for key in SWEEP_KEYS}
+    step_err = {key: 0.0 for key in MAIN_SWEEP_KEYS}
     t0 = time.perf_counter()
     x = random_planes(n, 5)
     for i, kind in enumerate(kinds):
@@ -1083,6 +1107,47 @@ def phase_sweeps_main() -> dict:
     res["step_err"] = step_err
     res["circuit"] = c
     return res
+
+
+def phase_sweeps_unit() -> dict:
+    """The sweeps' unit stage on its own path: since the route sends unit
+    stages of ``MIN_UNIT_PASS_CORE`` qubits or more to the dense pass and
+    circuits with a narrower dense core to the grid sweep, a unit stage
+    runs only in a ``SweepProgram`` planned directly (as the tune and floor
+    modules plan it): ``wide_core_circuit(26, 5, 10)``, its 5-qubit core a
+    unit stage on the wide instance, run counted, each launch against the
+    plain version of its gates."""
+    n = N_SWEEPS
+    c = wide_core_circuit(n, 5, 10)
+    prog = SweepProgram(c)
+    routes = [[ln.route for ln in sweep] for sweep in prog.launches]
+    check(sum(r.count("unit") for r in routes) == 1, f"5-qubit core's sweeps launches {routes}")
+    x = random_planes(n, 6)
+    reset_launches()
+    y = prog.run(x.clone())
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in SWEEP_KEYS}
+    check(launches["unit_stage"] == 1 and sum(launches.values()) == sum(LAUNCHES.values()),
+          f"5-qubit core's sweeps launched {dict(LAUNCHES)}")
+    err, fid = compare(y, prog.run_plain(x))
+    del y
+    step_err = {key: 0.0 for key in SWEEP_KEYS}
+    for i, kind in enumerate(prog.sweep_kinds):
+        for j, ln in enumerate(prog.launches[i]):
+            got = prog.launch_one(x.clone(), i, j)
+            want_ij = prog.launch_plain(x, i, j)
+            e, _ = compare(got, want_ij)
+            key = launch_key(kind, ln.route)
+            step_err[key] = max(step_err[key], e)
+            del got
+            x = want_ij
+    del x
+    log(f"phase {n}q_sweeps_unit: launches={launches} routes={routes} max_abs_err={err:.3e} "
+        f"(tol 1e-7) fidelity={fid:.9f} step_err={step_err}")
+    check(err <= 1e-7 and max(step_err.values()) <= 1e-7,
+          f"5-qubit core's sweeps vs plain {err}, launches {step_err}")
+    return {"prog": prog, "launches": launches, "max_abs_err": err, "fidelity": fid,
+            "step_err": step_err}
 
 
 def grid_planner_refuses(c) -> bool:
@@ -1164,8 +1229,8 @@ def phase_wide_cores() -> dict:
         check(ran == engine and sum(launches.values()) >= 1 and err <= 1e-6,
               f"{k}-qubit core at {n}q: engine {ran} (want {engine}), "
               f"launches {launches}, error {err}")
-        if engine == "sweeps":   # the unit stage: the tiled op below 10 qubits, else the pass
-            via_pass = k >= MIN_SWEEP_PASS_CORE
+        if engine == "sweeps":   # the unit stage: the tiled op below 6 qubits, else the pass
+            via_pass = k >= MIN_UNIT_PASS_CORE
             check(launches.get("dense_pass", 0) == int(via_pass)
                   and launches.get("unit_stage", 0) == int(not via_pass),
                   f"{k}-qubit unit stage at {n}q: launches {launches}")
@@ -1252,6 +1317,41 @@ def phase_dense_pass() -> dict:
     return out
 
 
+STREAM_PASS_QUBITS = (26, 28)
+
+
+def phase_stream_passes() -> dict:
+    """The dense pass alone where the route sends 7-9-qubit cores
+    (``tune_route --passes``): at 26 and 28 qubits, a 7-, 8- and 9-qubit
+    core on the lowest, middle and highest qubits, an 8-qubit core under a
+    control on the highest qubit, and the 6-qubit core widened to 7 three
+    ways, each on the instance ``pass_instance`` picks and on the other of
+    the stream and large instances (forced), in turns, each launch's
+    instance asserted by its tally in ``PASS_INSTANCES``; each against the
+    plain version (1e-7) and, for contiguous targets, ``torch.matmul`` of the
+    core with TF32 off (1e-7; timed without and with the planes-to-complex64
+    copies), beside the plain version's time and the gate's 3xTF32 bound."""
+    out = {}
+    for n in STREAM_PASS_QUBITS:
+        t0 = time.perf_counter()
+        rows = stream_passes(n, torch.device("cuda"), plain_reps=1)
+        for row in rows:
+            log(f"phase {n}q_stream_passes: {json.dumps(row)}")
+            k, name = row["k"], row["row"]
+            check(row["picked"] == pass_instance(k, n - k - len(row["controls"])),
+                  f"{name}: picked {row['picked']}")
+            for inst in ("stream", "large"):
+                check(row[inst]["max_abs_err"] <= 1e-7,
+                      f"{name}: {inst} vs plain {row[inst]['max_abs_err']} > 1e-7")
+            if "matmul_ms" in row:
+                check(row["picked_vs_matmul_max_abs_err"] <= 1e-7,
+                      f"{name}: vs torch.matmul {row['picked_vs_matmul_max_abs_err']} > 1e-7")
+        out[n] = rows
+        log(f"phase {n}q_stream_passes: wall_s={time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
+    return out
+
+
 # The route by width: (name, qubits, core width, lowest core qubit, engines
 # of the split, or the one program that holds the core)
 SPLIT = ["grid_sweep", "dense_pass", "grid_sweep"]
@@ -1318,7 +1418,7 @@ def phase_route_by_width(oracles: tuple) -> dict:
         sim = tq.StateVectorSimulator(n, seed=1)
         sim.run(c)
         torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        launches, instances = dict(LAUNCHES), dict(PASS_INSTANCES)
         _, prog = sim.compiled_run(c)
         if isinstance(engines, str):
             check(sim.engine == engines and launches.get(ROUTE_KERNEL[engines], 0) >= 1
@@ -1334,6 +1434,9 @@ def phase_route_by_width(oracles: tuple) -> dict:
                   f"{name} ran on {sim.engine} {getattr(prog, 'engines', None)}")
             check(launches.get("dense_pass") == 1 and launches.get(piece, 0) >= 2
                   and set(launches) == {piece, "dense_pass"}, f"{name} launches {launches}")
+            step_ = next(s for s in prog.steps if isinstance(s, DensePass))
+            picked = pass_instance(step_.k, n - step_.k - len(step_.controls))
+            check(instances == {picked: 1}, f"{name}: pass instances {instances}, not {picked}")
         x0 = ap.initial_state(n, np.float32, device="cuda")
         err_plain, fid = compare(sim.state_planes, prog.run_plain(x0))
         err_oracle = None
@@ -1363,7 +1466,8 @@ def phase_route_by_width(oracles: tuple) -> dict:
 
         ms = graph_ms(step) if n < 20 else median_ms(step)
         row = {"engine": engines if isinstance(engines, str) else "+".join(engines),
-               "launches": launches, "ms": ms, "max_abs_err_vs_plain": err_plain,
+               "launches": launches, "pass_instances": instances, "ms": ms,
+               "max_abs_err_vs_plain": err_plain,
                "fidelity": fid, "max_abs_err_vs_oracle": err_oracle,
                "peak_gib_over_state": peak / 2 ** 30, "state_gib": 8 * (1 << n) / 2 ** 30}
         if not isinstance(engines, str):
@@ -1547,8 +1651,10 @@ def sweeps_timing(prog, label: str) -> dict:
     each launch takes its own operations and, where the bytes are longer,
     a share of the difference by its stages. ``launch_passes_ms`` is what
     the launches cost as launched instead, a pass of bytes each (or its
-    operations). For a unit stage's launch also one ``torch.matmul`` of its
-    core (TF32 off)."""
+    operations). For a unit stage's launch and a dense pass's also one
+    ``torch.matmul`` of its core (TF32 off); for a dense pass also its own
+    bound as ``phase_dense_pass`` takes it (its bytes, or its core's
+    operations in 3xTF32)."""
     n = prog.num_qubits
     x = random_planes(n, 2)
     ms = median_ms(lambda: prog.run(x))
@@ -1576,7 +1682,11 @@ def sweeps_timing(prog, label: str) -> dict:
                    "fp32_flops_ms": (core + rest) / FP32_FLOP_PER_S * 1e3,
                    "extra_bytes_ms": launch_bytes_ms - pass_bytes_ms}
             row["launch_passes_ms"] = max(launch_bytes_ms, row["flops_ms"])
-            if ln.route == "unit":
+            if ln.route == "pass":
+                own = bound(ln.step.bytes_moved(), 3 * ln.step.flops(), TF32_FLOP_PER_S)
+                row["own_bound_ms"] = own["bound_ms"]
+                row["own_bound_by"] = own["bound_by"]
+            if ln.route in ("unit", "pass"):
                 allow = torch.backends.cuda.matmul.allow_tf32
                 torch.backends.cuda.matmul.allow_tf32 = False
                 try:
@@ -1589,7 +1699,7 @@ def sweeps_timing(prog, label: str) -> dict:
                 finally:
                     torch.backends.cuda.matmul.allow_tf32 = allow
                 check(row["library_max_abs_err"] <= 1e-7,
-                      f"unit stage vs torch.matmul {row['library_max_abs_err']} > 1e-7")
+                      f"{ln.route} vs torch.matmul {row['library_max_abs_err']} > 1e-7")
             rows.append(row)
     del x
     # each kind's bound (one pass a sweep, or its operations), split between
@@ -1613,7 +1723,7 @@ def sweeps_timing(prog, label: str) -> dict:
     ops_ms = (3 * sum(tiled) / TF32_FLOP_PER_S + (sum(flops) - sum(tiled)) / FP32_FLOP_PER_S) * 1e3
     b["tf32x3_bound_ms"] = max(b["bytes_ms"], ops_ms)
     kernels = {}
-    for key in SWEEP_KEYS:
+    for key in (*SWEEP_KEYS, "dense_pass"):
         mine = [r for r in rows if r["key"] == key]
         if not mine:
             continue
@@ -1623,10 +1733,16 @@ def sweeps_timing(prog, label: str) -> dict:
             "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": bound_ms,
             "bound_by": "bytes" if part >= bound_ms - part else "operations",
-            "library_ms": sum(r["library_ms"] for r in mine) if key == "unit_stage" else None,
+            "library_ms": (sum(r["library_ms"] for r in mine)
+                           if key in ("unit_stage", "dense_pass") else None),
             "fp32_bound_ms": sum(r["fp32_bound_ms"] for r in mine),
             "launch_passes_ms": sum(r["launch_passes_ms"] for r in mine),
             "per_launch_ms": [r["ms"] for r in mine]}
+        if key == "dense_pass":
+            own = sum(r["own_bound_ms"] for r in mine)
+            kernels[key]["own_bound_ms"] = own
+            kernels[key]["own_bound_by"] = ("bytes" if all(r["own_bound_by"] == "bytes" for r in mine)
+                                            else "operations")
     for r in rows:
         log(f"phase timing_sweeps: {label} n={n} sweep[{r['sweep']}] launch {r['launch']} "
             f"{r['key']} ({r['route']}, stages {r['stages']}): ms={r['ms']:.4f} "
@@ -1646,13 +1762,15 @@ def sweeps_timing(prog, label: str) -> dict:
             "per_launch": rows, **b}
 
 
-def phase_timing_sweeps(main_prog, cross: dict) -> dict:
+def phase_timing_sweeps(main_prog, cross: dict, unit_prog) -> dict:
     """The sweeps main path's run (an 8-qubit core among 80 random gates),
-    then ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid
+    the unit stage's path (``phase_sweeps_unit``: a 5-qubit core), then
+    ``random_circuit(26, 100, seed=42)`` through the sweeps and the grid
     sweep, then the wide-core op's cost: one op of a k-qubit core in a low
     sweep (qubits 17-k..16) and in a grid sweep (qubits 0..k-1) at 26q, less
     the same sweep with one 1-qubit op."""
     res = {"main": sweeps_timing(main_prog, "main_path"),
+           "unit": sweeps_timing(unit_prog, "unit_stage_k5"),
            "random": sweeps_timing(cross["sprog"], "random_circuit_100")}
     n = N_SWEEPS
     x = random_planes(n, 3)
@@ -1699,7 +1817,7 @@ def phase_timing_dense_op() -> dict:
             gprog = GridSweepProgram(tq.Circuit(n).add(gate, *range(k)), WIDE_GRID)
             check(sprog.sweep_kinds == ["low"] and gprog.num_sweeps == 1, "one-op programs")
             check([ln.route for ln in route.launches[0]]
-                  == ["pass" if k >= MIN_SWEEP_PASS_CORE else "unit" if k >= 5 else "tile"],
+                  == ["pass" if k >= MIN_UNIT_PASS_CORE else "unit" if k >= 5 else "tile"],
                   f"{k}-qubit one-op sweep launches {route.launches[0]}")
             one_op[k] = (median_ms(lambda: sprog.launch(x, 0)), median_ms(lambda: gprog.run(x)))
             if k == 1:
@@ -1762,7 +1880,7 @@ def phase_timing_dense_op() -> dict:
     faster = [k for k, r in rows.items() if "dense_pass_ms" in r
               and r["dense_pass_ms"] < r["one_op_low_sweep_ms"]]
     log(f"phase timing_dense_op: the dense pass beats the low sweep holding the core alone "
-        f"at k = {faster}; the sweeps route takes it from k = {MIN_SWEEP_PASS_CORE}")
+        f"at k = {faster}; the sweeps route takes it from k = {MIN_UNIT_PASS_CORE}")
     return rows
 
 
@@ -2307,9 +2425,11 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
     fault1 = phase_fault1_segmented()
     sweeps_oracle = phase_22q_sweeps_oracle()
     sweeps = phase_sweeps_main()
+    unit = phase_sweeps_unit()
     cross = phase_sweeps_cross_engine()
     wide = phase_wide_cores()
     passes = phase_dense_pass()
+    streams = phase_stream_passes()
     main_res = phase_28q_main()
     nat = phase_native(main_res)
     flo = phase_floor(main_res)
@@ -2318,7 +2438,7 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
     timing = phase_timing(main_res["sim"], main_res["prog"])
     t_whole = phase_timing_whole_circuit()
     t_seg = phase_timing_segmented(seg["prog"])
-    t_sweeps = phase_timing_sweeps(sweeps["prog"], cross)
+    t_sweeps = phase_timing_sweeps(sweeps["prog"], cross, unit["prog"])
     paths = {}
     for name, phase in (("certify", phase_certify), ("noisy", phase_noisy),
                         ("density", phase_density), ("variational", phase_variational)):
@@ -2409,17 +2529,23 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
             "route_by_width": {name: r for name, r in route.items()
                                if r["launches"].get("segment")},
         })
-    # unit_stage: the low sweep's unit stage, launched alone on the wide
-    # instance (its tiled op, ops.cuh); its library call one torch.matmul
+    # unit_stage: the low sweep's unit stage on the wide instance (its tiled
+    # op, ops.cuh). No route reaches it since the sweeps send unit stages of
+    # MIN_UNIT_PASS_CORE qubits or more to the dense pass (the main path's
+    # 8-qubit one among them) and the grid planner refuses no narrower core:
+    # its main-path launches are 0, and its figures come from its own path
+    # outside the main one (phase_sweeps_unit: a 5-qubit core in a
+    # SweepProgram planned directly); its library call one torch.matmul
     for name, line in (("low_sweep", 292), ("high_sweep", 370), ("unit_stage", 292)):
-        k = t_sweeps["main"]["kernels"][name]
-        kernels.append({
+        path, timed = (unit, t_sweeps["unit"]) if name == "unit_stage" else (sweeps, t_sweeps["main"])
+        k = timed["kernels"][name]
+        entry = {
             "name": name,
             "route": "cuda",
             "source": "tpu_qsim_torch/kernels/csrc/sweep.cu",
             "replaces": f"tpu_qsim/kernels/sweeps.py:{line}",
-            "launches": sweeps["launches"][name],
-            "max_abs_err": sweeps["step_err"][name],
+            "launches": sweeps["launches"].get(name, 0),
+            "max_abs_err": path["step_err"][name],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
@@ -2439,25 +2565,43 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
             "wide_op_ms": t_sweeps["wide_op_ms"],
             "wide_core_max_abs_err": wide,
             "tiled_op_sass": build["tiled_op_sass"],
-        })
-    main_pass = passes[DENSE_PASS_QUBITS[0]]
+        }
+        if name == "unit_stage":
+            entry["figures_from"] = ("off_main_path: 26q_sweeps_unit, a 5-qubit core in a "
+                                     "SweepProgram planned directly (no route reaches it)")
+            entry["off_main_path_launches"] = unit["launches"][name]
+            entry["off_main_path_core_qubits"] = 5
+        kernels.append(entry)
+    # dense_pass: the sweeps main path's own pass (its 8-qubit core on
+    # qubits 10-17, the stream instance), launched once there; its time,
+    # plain version and torch.matmul from that launch on one input, its
+    # bound its own (bytes, or the core's operations in 3xTF32); the
+    # 12-qubit passes (phase_dense_pass) and the 7-9-qubit cores alone
+    # (phase_stream_passes) beside it
+    main_pass = t_sweeps["main"]["kernels"]["dense_pass"]
     kernels.append({
         "name": "dense_pass",
         "route": "cuda",
         "source": "tpu_qsim_torch/kernels/csrc/dense_pass.cu",
         "replaces": "tpu_qsim/kernels/fused_circuit.py:569",
-        "launches": main_pass["launches"],
-        "max_abs_err": main_pass["max_abs_err"],
+        "launches": sweeps["launches"]["dense_pass"],
+        "instances": sweeps["pass_instances"],
+        "max_abs_err": sweeps["step_err"]["dense_pass"],
         "ms": main_pass["ms"],
         "plain_ms": main_pass["plain_ms"],
-        "bound_ms": main_pass["bound_ms"],
-        "bound_by": main_pass["bound_by"],
+        "bound_ms": main_pass["own_bound_ms"],
+        "bound_by": main_pass["own_bound_by"],
         "library_ms": main_pass["library_ms"],
-        "max_abs_err_vs_matmul": main_pass["max_abs_err_vs_matmul"],
-        "fp32_bound_ms": main_pass["fp32_bound_ms"],
-        "run_oracle_max_abs_err": main_pass["run_oracle_max_abs_err"],
+        "main_path": f"{N_SWEEPS}q sweeps main path: an 8-qubit core on qubits 10-17",
         "by_qubits": passes,
         "route_by_width": {name: r for name, r in route.items() if r["launches"].get("dense_pass")},
+        # the 7-9-qubit cores alone, by instance (phase_stream_passes)
+        "by_instance": {row["row"]: {
+            "picked": row["picked"], "bound_ms": row["bound_ms"],
+            **{f"{i}_ms": row[i]["ms"] for i in ("stream", "large")},
+            **{f"{i}_share": row[i]["share"] for i in ("stream", "large")},
+            "matmul_ms": row.get("matmul_ms"), "matmul_with_copies_ms": row.get("matmul_with_copies_ms"),
+            "plain_ms": row["plain"]["ms"]} for rows in streams.values() for row in rows},
     })
     vpu = flo["vpu"]
     kernels.append({
@@ -2489,7 +2633,9 @@ def run_phases(card: str, build: dict, oracles: tuple) -> int:
                             for f, sc in flo["scale"].items()},
         "census_model_plan_ops_ms": [flo["census"]["plan_ops_fast_sel_ms"], flo["census"]["plan_ops_ms"]],
     })
-    check(all(k["launches"] > 0 for k in kernels),
+    # every kernel a route reaches was launched on its path (the unit stage,
+    # which none reaches, on its own: phase_sweeps_unit checks it)
+    check(all(k["launches"] > 0 for k in kernels if k["name"] != "unit_stage"),
           f"a kernel was not launched on its path: {[(k['name'], k['launches']) for k in kernels]}")
     log(f"paths: {json.dumps(paths, default=float)}")
     log(f"sharded: {json.dumps(sharded, default=float)}")

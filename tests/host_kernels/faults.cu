@@ -15,7 +15,7 @@ using namespace qsim;
 
 constexpr int THREADS = 32;
 constexpr int GROUP = 128;                   // a warpgroup
-constexpr int B_FLOATS = 8 * 64;             // wgmma m64n64k8's B
+constexpr int RING_ITEMS = 4, RING_SLOTS = 2;  // ring's items of 32 floats, its slots
 
 // each thread's element through shared memory at t + over: with over = 1
 // the last thread writes one float past the launch's dynamic bytes
@@ -49,45 +49,82 @@ __global__ void shift(float* state, int bits) {
   state[threadIdx.x] = (float)((1u << bits) >> 31);
 }
 
-// D = A B by one warpgroup's wgmma m64n64k8: B (8 x 64, row k) the first
-// plane's first 512 elements, A[r][k] = 1 where r % 8 == k (so row r of D
-// is row r % 8 of B), D (64 x 64, row-major) into the second plane (dim >=
-// 4096). `fault` 1 reads D before its wgmma.wait_group, 2 stores into B
-// while the product is in flight, 3 leaves out fence.proxy.async, 4 leaves
-// out wgmma.fence.
+// D = A B by one warpgroup's wgmma m64nNk8 (N = 64 or 128): B (8 x N, row
+// k) the first plane's first 8 N elements, A[r][k] = 1 where r % 8 == k (so
+// row r of D is row r % 8 of B), D (64 x N, row-major) into the second
+// plane (dim >= 64 N). `fault` 1 reads D before its wgmma.wait_group, 2
+// stores into B while the product is in flight, 3 leaves out
+// fence.proxy.async, 4 leaves out wgmma.fence.
+template <int N>
 __global__ void wgmma_product(float* state, long long dim, int fault) {
   QSIM_DYNAMIC_SHARED(float4, smem4);
   float* b = reinterpret_cast<float*>(smem4);
   const unsigned t = threadIdx.x, lane = t % 32, warp = t / 32;
   // B's element (k, n) in core matrix (k / 4, n / 8) of 8 rows of 4 TF32:
-  // 1024 bytes from one core matrix to the next along K, 128 along N
-  for (unsigned i = t; i < B_FLOATS; i += GROUP) {
-    const unsigned k = i / 64, n = i % 64;
-    b[(k / 4 * 8 + n / 8) * 32 + n % 8 * 4 + k % 4] = state[i];
+  // 16 N bytes from one core matrix to the next along K, 128 along N
+  for (unsigned i = t; i < 8 * N; i += GROUP) {
+    const unsigned k = i / N, n = i % N;
+    b[(k / 4 * (N / 8) + n / 8) * 32 + n % 8 * 4 + k % 4] = state[i];
   }
   if (fault != 3) fence_proxy_async();
   __syncthreads();
   const unsigned base = (unsigned)__cvta_generic_to_shared(b);
-  const uint64_t desc = (uint64_t)((base >> 4) & 0x3fffu) | ((uint64_t)(1024 >> 4) << 16) |
+  const uint64_t desc = (uint64_t)((base >> 4) & 0x3fffu) | ((uint64_t)(16 * N >> 4) << 16) |
                         ((uint64_t)(128 >> 4) << 32);
   const unsigned g = lane / 4, q = lane % 4;  // rows g (+ 8) of the warp's 16, columns q (+ 4)
   const uint32_t one = __float_as_uint(1.f);
   const uint32_t a[4] = {g == q ? one : 0u, g == q ? one : 0u, g == q + 4 ? one : 0u,
                          g == q + 4 ? one : 0u};
-  float d[32], early[32];
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  float d[N / 2], early[N / 2];
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
   if (fault != 4) wgmma_fence();
-  wgmma<1>(d, a, desc, 0);
+  if constexpr (N == 64) wgmma<1>(d, a, desc, 0);
+  else wgmma128<1>(d, a, desc, 0);
   wgmma_commit();
   if (fault == 1)
-    for (int i = 0; i < 32; ++i) early[i] = d[i];
+    for (int i = 0; i < N / 2; ++i) early[i] = d[i];
   if (fault == 2 && t == 0) b[0] += 1.f;
   wgmma_wait<0>();
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N / 8; ++j)
     for (int v = 0; v < 4; ++v) {
       const unsigned row = warp * 16 + g + (v >> 1) * 8, col = 8 * j + 2 * q + (v & 1);
-      state[dim + row * 64 + col] = fault == 1 ? early[4 * j + v] : d[4 * j + v];
+      state[dim + row * N + col] = fault == 1 ? early[4 * j + v] : d[4 * j + v];
     }
+}
+
+// A ring of RING_SLOTS slots of 32 floats through shared memory, with
+// mbarriers full (32 arrivals) and empty (32): warp 1 produces item i (the
+// first plane's floats [32 i, 32 i + 32)) into slot i % 2, warp 0 consumes
+// it into the second plane, plus 1. `mode` 1: the consumer skips its wait
+// on full for item 2 (slot 0's second lap); 2: the producer skips its wait
+// on empty for item 2; 3: full counts one arrival more than are made; 4:
+// the consumer arrives on a barrier never initialised; 5: a store over
+// full[0]'s word.
+__global__ void ring(float* state, long long dim, int mode) {
+  QSIM_DYNAMIC_SHARED(float4, smem4);
+  float* slots = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + RING_SLOTS * 32);
+  uint64_t* empty = full + RING_SLOTS;
+  const unsigned t = threadIdx.x, lane = t % 32;
+  if (t == 0)
+    for (int s = 0; s < RING_SLOTS; ++s) {
+      mbar_init(full + s, mode == 3 ? 33 : 32);
+      if (!(mode == 4 && s == 1)) mbar_init(empty + s, 32);
+    }
+  __syncthreads();
+  if (mode == 5 && t == 0) full[0] = 0;
+  for (unsigned i = 0; i < RING_ITEMS; ++i) {
+    const unsigned s = i % RING_SLOTS, lap = i / RING_SLOTS;
+    if (t >= 32) {
+      if (lap > 0 && !(mode == 2 && i == 2)) mbar_wait(empty + s, (lap - 1) & 1);
+      slots[s * 32 + lane] = state[i * 32 + lane];
+      mbar_arrive(full + s);
+    } else {
+      if (!(mode == 1 && i == 2)) mbar_wait(full + s, lap & 1);
+      state[dim + i * 32 + lane] = slots[s * 32 + lane] + 1.f;
+      mbar_arrive(empty + s);
+    }
+  }
 }
 
 // Two stages on the (2, dim) planes, dim = 64, CTA b on elements [32 b,
@@ -107,9 +144,11 @@ __global__ void grid_stages(float* state, long long dim, unsigned* counter, int 
 }  // namespace
 
 // kind 0: shared_write, 1: global_write, 2: async_copy, 3: shift, one CTA of
-// 32 threads; 4-7: wgmma_product with fault kind - 3, one warpgroup; 8:
+// 32 threads; 4-7: wgmma_product<64> with fault kind - 3, one warpgroup; 8:
 // grid_stages, a cooperative launch of two CTAs of 32 threads on `counter`
-// (one zeroed word); `arg` the kernel's switch, on the (2, dim) planes
+// (one zeroed word); 9: ring, one CTA of 64 threads; 10-13:
+// wgmma_product<128> with fault kind - 9; `arg` the kernel's switch, on the
+// (2, dim) planes
 extern "C" int host_fault_launch(int kind, float* state, long long dim, int arg,
                                  unsigned* counter) {
   const size_t smem = THREADS * sizeof(float);
@@ -122,10 +161,20 @@ extern "C" int host_fault_launch(int kind, float* state, long long dim, int arg,
     case 5:
     case 6:
     case 7:
-      return (int)launch_kernel(wgmma_product, 1, GROUP, B_FLOATS * sizeof(float), nullptr, state,
+      return (int)launch_kernel(wgmma_product<64>, 1, GROUP, 8 * 64 * sizeof(float), nullptr, state,
                                 dim, arg ? kind - 3 : 0);
     case 8:
       return (int)launch_cooperative(grid_stages, 2, THREADS, 0, nullptr, state, dim, counter, arg);
+    case 9:
+      return (int)launch_kernel(ring, 1, 2 * THREADS,
+                                RING_SLOTS * (32 * sizeof(float) + 2 * sizeof(uint64_t)), nullptr,
+                                state, dim, arg);
+    case 10:
+    case 11:
+    case 12:
+    case 13:
+      return (int)launch_kernel(wgmma_product<128>, 1, GROUP, 8 * 128 * sizeof(float), nullptr,
+                                state, dim, arg ? kind - 9 : 0);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,7 @@
 // CUDA, on the CPU. Qualifiers are empty, vector types carry CUDA's
 // alignment (so UBSan reports a misaligned vector access), intrinsics call
 // the host runtime (qsim_host.h), and the runtime API answers for a device
-// of qsim_host::SMS multiprocessors.
+// of qsim_host::sms() multiprocessors.
 
 #pragma once
 
@@ -126,7 +126,7 @@ inline cudaError_t cudaGetDevice(int* dev) {
 
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int dev) {
   if (attr != cudaDevAttrMultiProcessorCount || dev != 0) return cudaErrorInvalidValue;
-  *value = qsim_host::SMS;
+  *value = qsim_host::sms();
   return cudaSuccess;
 }
 

@@ -18,7 +18,12 @@
 // __syncthreads, at a warp collective (__shfl_xor_sync, mma, ldmatrix: a
 // 32-lane barrier around an exchange buffer), at a warpgroup collective
 // (wgmma and its fence, commit and wait: a 128-lane barrier of four
-// consecutive warps) and in a spin on device memory. Its shared memory is
+// consecutive warps), at an mbarrier wait whose phase has not completed
+// (the fiber runs again when the last arrival completes it) and in a spin
+// on device memory. The fibers start in thread order, each running until
+// it waits. An mbarrier lives in a side table of the CTA, keyed by its
+// shared address; the arena's 8 bytes there hold a mark that a plain store
+// overwrites, so a store over a live barrier traps at its next use. Its shared memory is
 // one arena: the launch's dynamic bytes, then each static __shared__ array
 // of the kernel, with poisoned bytes (AddressSanitizer) after each region,
 // so an access past the launch's dynamic size or past an array is reported.
@@ -50,7 +55,7 @@ extern thread_local dim3 gridDim;
 
 namespace qsim_host {
 
-constexpr int SMS = 2;                        // the device's multiprocessors
+int sms();  // the device's multiprocessors: QSIM_HOST_SMS if set, else 2
 constexpr int MAX_THREADS_PER_SM = 2048;
 constexpr int MAX_CTAS_PER_SM = 2;            // so a launch sizes 2-4 resident CTAs
 constexpr size_t SHARED_PER_CTA = 232448;     // 227 KB, static and dynamic
@@ -76,11 +81,11 @@ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 // this lane's 16-byte row in, its four words of the four tiles out
 void ldmatrix(uint32_t (&d)[4], const uint32_t (&row)[4]);
 
-// wgmma m64n64k8 (TF32): this lane's A fragment, B's shared-memory
-// descriptor, scale-d (0: d is overwritten) and scale-a (+1 or -1). `d`, the
-// lane's 32 accumulators, holds NaN from issue until the wgmma_wait that
-// covers the product's group, and the result from there.
-void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a);
+// wgmma m64nNk8 (TF32, N = 64 or 128): this lane's A fragment, B's
+// shared-memory descriptor, scale-d (0: d is overwritten) and scale-a (+1 or
+// -1). `d`, the lane's N / 2 accumulators, holds NaN from issue until the
+// wgmma_wait that covers the product's group, and the result from there.
+void wgmma(float* d, int n, const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a);
 void wgmma_fence();
 void wgmma_commit();
 void wgmma_wait(int groups_in_flight);
@@ -91,6 +96,12 @@ void fence_proxy_async();
 void cp_async(unsigned addr, const void* data, unsigned bytes);
 void cp_async_commit();
 void cp_async_wait(int groups_in_flight);
+
+// mbarriers at shared addresses: init with an arrival count, arrive, and
+// wait (the fiber blocks) until the phase of `parity` has completed
+void mbar_init(unsigned addr, unsigned count);
+void mbar_arrive(unsigned addr);
+void mbar_wait(unsigned addr, unsigned parity);
 
 void poll(const void* addr, unsigned value);  // one turn of a spin on *addr, which held value
 long long clock_ns();

@@ -12,7 +12,7 @@
 //   - mma truncates its TF32 inputs (the low 13 mantissa bits dropped) and
 //     accumulates in float32; a warp collective with a lane that has exited,
 //     or lanes at different collectives, traps;
-//   - wgmma (m64n64k8, TF32) and its fence, commit and wait are warpgroup
+//   - wgmma (m64n64k8 and m64n128k8, TF32) and its fence, commit and wait are warpgroup
 //     collectives: the 128 threads of four consecutive warps, with the warp
 //     collective's rules (a lane that has exited, lanes at different
 //     collectives or with different descriptors, scales or wait counts
@@ -39,7 +39,17 @@
 //     too: a store to either while the product is in flight traps;
 //   - a wgmma with no wgmma.fence since the thread's last wgmma.wait_group
 //     (or the kernel's start) traps, where the card needs the fence only
-//     before registers touched since then.
+//     before registers touched since then;
+//   - an mbarrier (init, arrive, wait on a phase's parity) must be 8-byte
+//     aligned in the arena and initialised before its first arrive or
+//     wait, with a count of 1 to 2^20 - 1, else the run traps; a plain
+//     store over its word traps at its next use; a wait whose phase never
+//     completes is a deadlock, reported with each thread's wait ("mbar").
+//     An arrival releases everything the CTA wrote (the card releases the
+//     arriving thread's writes), and the fibers start in thread order and
+//     run until they wait, so a consumer in lower warps than its producer
+//     that skips its wait reads the ring before it is filled, and a
+//     producer that skips its wait refills a slot before it is read.
 
 #pragma once
 
@@ -132,7 +142,12 @@ inline void ldmatrix4(uint32_t (&d)[4], const float* row) {
 template <int SCALE_A>
 inline void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   static_assert(SCALE_A == 1 || SCALE_A == -1, "scale-a is +1 or -1");
-  qsim_host::wgmma(d, a, desc, scale_d, SCALE_A);
+  qsim_host::wgmma(d, 64, a, desc, scale_d, SCALE_A);
+}
+template <int SCALE_A>
+inline void wgmma128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  static_assert(SCALE_A == 1 || SCALE_A == -1, "scale-a is +1 or -1");
+  qsim_host::wgmma(d, 128, a, desc, scale_d, SCALE_A);
 }
 inline void wgmma_fence() { qsim_host::wgmma_fence(); }
 inline void wgmma_commit() { qsim_host::wgmma_commit(); }
@@ -143,7 +158,17 @@ inline void wgmma_wait() {
 inline void fence_proxy_async() { qsim_host::fence_proxy_async(); }
 // compiler barriers on the card
 inline void fence_operands(float (&)[32]) {}
+inline void fence_operands(float (&)[64]) {}
 inline void fence_operands(uint32_t (&)[4][4]) {}
+
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  qsim_host::mbar_init((unsigned)__cvta_generic_to_shared(bar), count);
+}
+inline void mbar_arrive(uint64_t* bar) { qsim_host::mbar_arrive((unsigned)__cvta_generic_to_shared(bar)); }
+// blocks (a wait that never completes is a deadlock, not a spin)
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  qsim_host::mbar_wait((unsigned)__cvta_generic_to_shared(bar), parity);
+}
 
 // a measurement build's SASS marker: nothing on the host
 template <int ID>

@@ -1,6 +1,6 @@
 // The host runtime of the port's kernels (qsim_host.h): launches, CTAs of
 // fibers, barriers, warp and warpgroup collectives, shared-memory arenas,
-// cp.async and wgmma.
+// cp.async, wgmma and mbarriers.
 
 #include <pthread.h>
 #include <sanitizer/asan_interface.h>
@@ -81,7 +81,7 @@ constexpr size_t REDZONE = 64;               // poisoned bytes after each shared
 constexpr size_t STATIC_ROOM = 64 << 10;     // the arena's room for static arrays
 constexpr int MAX_WORKERS = 4;               // OS threads of a launch that is not cooperative
 
-enum class Wait { NONE, BARRIER, WARP, WARPGROUP, SPIN };
+enum class Wait { NONE, BARRIER, WARP, WARPGROUP, SPIN, MBAR };
 enum class Collective { NONE, SHFL, MMA, LDMATRIX, WGMMA, WGMMA_FENCE, WGMMA_COMMIT, WGMMA_WAIT };
 
 struct Copy {
@@ -90,13 +90,26 @@ struct Copy {
 };
 
 constexpr uint32_t IN_FLIGHT = 0xffffffffu;  // an in-flight wgmma's accumulators (NaN)
+constexpr int MAX_N = 128;                   // the widest wgmma modelled (m64n128k8)
+constexpr int MAX_ACC = MAX_N / 2;           // a lane's accumulators
+constexpr uint64_t MBAR_MARK = 0x5242414d48534f51ull;  // an mbarrier's word in the arena
 
 // An accumulator array of a thread's in-flight wgmma, and the value that
 // lands in it at the wait covering `group`.
 struct Accumulator {
   float* d;
   unsigned group;
-  float value[32];
+  int count;
+  float value[MAX_ACC];
+};
+
+struct Fiber;
+
+// An mbarrier: its arrival count, the arrivals its phase still waits for,
+// the phases completed, and the fibers waiting for the current one.
+struct MBarrier {
+  unsigned count = 0, pending = 0, phase = 0;
+  std::vector<Fiber*> waiters;
 };
 
 // An A fragment a thread's in-flight wgmma read, as it read it.
@@ -140,18 +153,18 @@ struct Warp {
 // a lane's words at a warpgroup collective
 struct GroupSlot {
   uint32_t a[4];
-  float c[32];
+  float c[MAX_ACC];
   uint64_t desc;
   int scale_d, scale_a, param;
-  float out[32];
+  float out[MAX_ACC];
 };
 
-// B of an in-flight wgmma: the shared address of each of its 16-byte rows,
-// and the bytes the arena held there at issue
+// B of an in-flight wgmma: the shared address of each of its 16-byte rows
+// (2 N of them), and the bytes the arena held there at issue
 struct Operand {
-  unsigned group;
-  unsigned rows[128];
-  uint32_t words[128][4];
+  unsigned group, count;
+  unsigned rows[2 * MAX_N];
+  uint32_t words[2 * MAX_N][4];
 };
 
 struct WarpGroup {
@@ -220,6 +233,7 @@ struct Cta {
   std::vector<std::pair<const void*, char*>> statics;
   std::vector<std::pair<size_t, size_t>> regions;  // (offset, bytes) of the dynamic bytes and each static array
   std::vector<char> async_view;              // the arena at the last fence.proxy.async
+  std::unordered_map<unsigned, MBarrier> mbarriers;  // by shared address
   // a cooperative launch: the word and value of the CTA's last spin that gave way
   const void* spin_addr = nullptr;
   unsigned spin_value = 0;
@@ -314,6 +328,7 @@ const char* wait_name(Wait w) {
     case Wait::WARP: return "warp";
     case Wait::WARPGROUP: return "wgrp";
     case Wait::SPIN: return "spin";
+    case Wait::MBAR: return "mbar";
     case Wait::NONE: break;
   }
   return "run";
@@ -486,6 +501,15 @@ int set_max_dynamic_shared(const void* kernel, int bytes) {
   return 0;
 }
 
+int sms() {
+  static const int n = [] {
+    const char* s = getenv("QSIM_HOST_SMS");
+    const int v = s ? atoi(s) : 0;
+    return v > 0 ? v : 2;
+  }();
+  return n;
+}
+
 int occupancy(const void* kernel, int threads, size_t smem) {
   if (threads < 1 || threads > 1024 || smem > dynamic_limit(kernel)) return 0;
   int ctas = MAX_THREADS_PER_SM / threads;
@@ -501,7 +525,7 @@ int launch(const void* kernel, dim3 grid, dim3 block, size_t smem, bool cooperat
       block.x > 1024)
     return 9;                                // cudaErrorInvalidConfiguration
   if (smem > dynamic_limit(kernel)) return 1;  // cudaErrorInvalidValue
-  if (cooperative && grid.x > (unsigned)(occupancy(kernel, block.x, smem) * SMS)) return 720;
+  if (cooperative && grid.x > (unsigned)(occupancy(kernel, block.x, smem) * sms())) return 720;
   const unsigned workers = cooperative ? grid.x : grid.x < MAX_WORKERS ? grid.x : MAX_WORKERS;
   Baton bt;
   bt.ctas.assign(grid.x, nullptr);
@@ -706,11 +730,11 @@ GroupSlot& group_collective(Collective kind, const GroupSlot& in, Finish finish)
 
 WarpGroup& warpgroup() { return cta().warpgroups[self().tid >> 7]; }
 
-// B of a wgmma m64n64k8 through its descriptor: the 16-byte rows of its
+// B of a wgmma m64nNk8 through its descriptor: the 16-byte rows of its
 // K-major core matrices (8 rows of N, 4 TF32 of K each), the two along K
-// `lbo` bytes apart, the eight along N `sbo`; row (k / 4, n / 8, n % 8) is
-// rows[(k / 4 * 8 + n / 8) * 8 + n % 8].
-void operand_rows(const Cta& c, uint64_t desc, unsigned (&rows)[128]) {
+// `lbo` bytes apart, the N / 8 along N `sbo`; row (k / 4, n / 8, n % 8) is
+// rows[(k / 4 * N / 8 + n / 8) * 8 + n % 8].
+void operand_rows(const Cta& c, uint64_t desc, unsigned n, unsigned* rows) {
   constexpr uint64_t RESERVED = (3ull << 14) | (3ull << 30) | (7ull << 46) | (1023ull << 52);
   if (desc & RESERVED) trap("a wgmma descriptor with reserved bits set");
   const unsigned mode = (unsigned)(desc >> 62);
@@ -725,8 +749,8 @@ void operand_rows(const Cta& c, uint64_t desc, unsigned (&rows)[128]) {
   const unsigned start = (unsigned)(desc & 0x3fffu) << 4;
   const unsigned lbo = (unsigned)((desc >> 16) & 0x3fffu) << 4;
   const unsigned sbo = (unsigned)((desc >> 32) & 0x3fffu) << 4;
-  for (unsigned i = 0; i < 128; ++i) {
-    const size_t addr = (size_t)start + (i >> 6) * lbo + ((i >> 3) & 7u) * sbo + (i & 7u) * 16;
+  for (unsigned i = 0; i < 2 * n; ++i) {
+    const size_t addr = (size_t)start + (i / n) * lbo + ((i % n) >> 3) * sbo + (i & 7u) * 16;
     if (addr + 16 > c.arena_bytes) trap("a wgmma operand past the CTA's shared memory");
     if (__asan_region_is_poisoned(c.arena + addr, 16))
       trap("a wgmma operand in shared memory past a region (poisoned bytes)");
@@ -741,18 +765,21 @@ void wgmma_product(WarpGroup& g) {
   Cta& c = *current_cta;
   const GroupSlot& s0 = g.slot[0];
   for (const GroupSlot& s : g.slot)
-    if (s.desc != s0.desc || s.scale_d != s0.scale_d || s.scale_a != s0.scale_a)
-      trap("lanes of one warpgroup gave a wgmma different descriptors or scales");
+    if (s.desc != s0.desc || s.scale_d != s0.scale_d || s.scale_a != s0.scale_a ||
+        s.param != s0.param)
+      trap("lanes of one warpgroup gave a wgmma different shapes, descriptors or scales");
+  const unsigned n = (unsigned)s0.param;
   if (c.async_view.empty()) c.async_view.assign(c.arena_bytes, (char)0xff);
   Operand op;
   op.group = g.committed;
-  operand_rows(c, s0.desc, op.rows);
-  float B[8][64];
-  for (unsigned i = 0; i < 128; ++i) {
+  op.count = 2 * n;
+  operand_rows(c, s0.desc, n, op.rows);
+  float B[8][MAX_N];
+  for (unsigned i = 0; i < 2 * n; ++i) {
     memcpy(op.words[i], c.arena + op.rows[i], 16);
     uint32_t w[4];
     memcpy(w, c.async_view.data() + op.rows[i], 16);
-    for (unsigned j = 0; j < 4; ++j) B[(i >> 6) * 4 + j][((i >> 3) & 7u) * 8 + (i & 7u)] = tf32(w[j]);
+    for (unsigned j = 0; j < 4; ++j) B[(i / n) * 4 + j][i % n] = tf32(w[j]);
   }
   g.operands.push_back(op);
   float A[64][8];
@@ -768,7 +795,7 @@ void wgmma_product(WarpGroup& g) {
   for (unsigned l = 0; l < 128; ++l) {
     GroupSlot& s = g.slot[l];
     const unsigned r = (l >> 5) * 16 + ((l & 31u) >> 2), q = l & 3u;
-    for (unsigned j = 0; j < 8; ++j)
+    for (unsigned j = 0; j < n / 8; ++j)
       for (unsigned v = 0; v < 4; ++v) {
         const unsigned row = r + (v >> 1) * 8, col = 8 * j + 2 * q + (v & 1);
         float acc = s0.scale_d ? s.c[4 * j + v] : 0.f;
@@ -780,8 +807,10 @@ void wgmma_product(WarpGroup& g) {
 
 }  // namespace
 
-void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a) {
+void wgmma(float* d, int n, const uint32_t (&a)[4], uint64_t desc, int scale_d, int scale_a) {
   Fiber& f = self();
+  if (n != 64 && n != 128) trap("a wgmma of a shape the host does not model");
+  const int count = n / 2;
   if (!f.wgmma_fenced)
     trap("a wgmma with no wgmma.fence since the thread's last wgmma.wait_group (or the kernel's start)");
   auto pending = [&f, &d]() -> Accumulator* {
@@ -792,21 +821,22 @@ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d, i
   GroupSlot in{};
   memcpy(in.a, a, sizeof in.a);
   const Accumulator* chained = pending();  // a product in flight on d: chain on its value
-  memcpy(in.c, chained ? chained->value : d, sizeof in.c);
+  if (chained && chained->count != count) trap("a wgmma chained on accumulators of another shape");
+  memcpy(in.c, chained ? chained->value : d, count * sizeof(float));
   in.desc = desc;
   in.scale_d = scale_d;
   in.scale_a = scale_a;
-  in.param = 0;
+  in.param = n;
   const GroupSlot& out = group_collective(Collective::WGMMA, in, wgmma_product);
   const unsigned group = warpgroup().committed;
   Accumulator* acc = pending();
   if (!acc) {
-    f.accumulators.push_back(Accumulator{d, 0, {}});
+    f.accumulators.push_back(Accumulator{d, 0, count, {}});
     acc = &f.accumulators.back();
   }
   acc->group = group;
-  memcpy(acc->value, out.out, sizeof acc->value);
-  for (float& x : d) memcpy(&x, &IN_FLIGHT, 4);
+  memcpy(acc->value, out.out, count * sizeof(float));
+  for (int i = 0; i < count; ++i) memcpy(d + i, &IN_FLIGHT, 4);
   Fragment frag{a, group, {a[0], a[1], a[2], a[3]}};
   f.fragments.push_back(frag);
 }
@@ -831,7 +861,7 @@ void wgmma_wait(int groups_in_flight) {
     size_t kept = 0;
     for (Operand& op : g.operands) {
       if (op.group + keep < g.committed) {
-        for (unsigned i = 0; i < 128; ++i)
+        for (unsigned i = 0; i < op.count; ++i)
           if (memcmp(op.words[i], c.arena + op.rows[i], 16))
             trap("shared operand of an in-flight wgmma was written");
       } else {
@@ -846,9 +876,9 @@ void wgmma_wait(int groups_in_flight) {
   size_t kept = 0;
   for (Accumulator& acc : f.accumulators) {
     if (acc.group + keep < committed) {
-      for (unsigned i = 0; i < 32; ++i)
+      for (int i = 0; i < acc.count; ++i)
         if (memcmp(acc.d + i, &IN_FLIGHT, 4)) trap("an accumulator of an in-flight wgmma was written");
-      memcpy(acc.d, acc.value, sizeof acc.value);
+      memcpy(acc.d, acc.value, acc.count * sizeof(float));
     } else {
       f.accumulators[kept++] = acc;
     }
@@ -871,6 +901,56 @@ void fence_proxy_async() {
   Cta& c = cta();
   if (c.async_view.empty()) c.async_view.assign(c.arena_bytes, (char)0xff);
   for (const auto& [off, bytes] : c.regions) memcpy(c.async_view.data() + off, c.arena + off, bytes);
+}
+
+namespace {
+
+// The live mbarrier at `addr`, its word checked.
+MBarrier& mbarrier(const char* op, unsigned addr) {
+  Cta& c = cta();
+  auto it = c.mbarriers.find(addr);
+  if (it == c.mbarriers.end()) {
+    char what[128];
+    snprintf(what, sizeof what, "an mbarrier %s at shared address %u, where no mbarrier.init made one", op, addr);
+    trap(what);
+  }
+  uint64_t word;
+  memcpy(&word, shared_at(addr, 8, 8), 8);
+  if (word != MBAR_MARK) trap("an mbarrier's word in shared memory was overwritten by a store");
+  return it->second;
+}
+
+}  // namespace
+
+void mbar_init(unsigned addr, unsigned count) {
+  Cta& c = cta();
+  char* p = shared_at(addr, 8, 8);
+  if (__asan_region_is_poisoned(p, 8)) trap("an mbarrier in shared memory past a region (poisoned bytes)");
+  if (count < 1 || count >= (1u << 20)) trap("an mbarrier.init with a count outside 1 to 2^20 - 1");
+  memcpy(p, &MBAR_MARK, 8);
+  MBarrier& b = c.mbarriers[addr];
+  if (!b.waiters.empty()) trap("an mbarrier.init of a barrier that threads wait on");
+  b.count = b.pending = count;
+  b.phase = 0;
+}
+
+void mbar_arrive(unsigned addr) {
+  MBarrier& b = mbarrier("arrive", addr);
+  if (--b.pending) return;
+  ++b.phase;                                 // the phase completes; the next one starts
+  b.pending = b.count;
+  for (Fiber* f : b.waiters) release(f);
+  b.waiters.clear();
+}
+
+// A waiter released by the arrival that completes the phase returns, as a
+// suspended try_wait on the card wakes at that completion, whatever later
+// arrivals do before it runs.
+void mbar_wait(unsigned addr, unsigned parity) {
+  MBarrier& b = mbarrier("wait", addr);
+  if ((b.phase & 1u) != (parity & 1u)) return;  // the phase of that parity has completed
+  b.waiters.push_back(cta().current);
+  block(Wait::MBAR);
 }
 
 void cp_async(unsigned addr, const void* data, unsigned bytes) {

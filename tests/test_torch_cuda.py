@@ -325,11 +325,11 @@ def test_sweep_geometries_agree(cuda_device, geometry):
     assert float((got - want).abs().max()) <= 1e-7
 
 
-@pytest.mark.parametrize("n,k,lo", [(22, 8, 9), (22, 10, 7), (24, 11, 6)])
+@pytest.mark.parametrize("n,k,lo", [(22, 8, 9), (22, 10, 7), (24, 11, 6), (22, 5, 9)])
 def test_sweeps_route_launches_match_plain(cuda_device, n, k, lo):
     # a unit stage between tile stages: each launch (tile runs on the narrow
     # instance, the unit stage alone on the wide one, or from
-    # MIN_SWEEP_PASS_CORE qubits the dense pass) against the plain version
+    # MIN_UNIT_PASS_CORE qubits the dense pass) against the plain version
     # of its gates, and the run against the plan before the split (one
     # launch a sweep, the tiled op)
     c = _dense_core_circuit(n, k, lo)
@@ -345,7 +345,7 @@ def test_sweeps_route_launches_match_plain(cuda_device, n, k, lo):
             assert float((got - want).abs().max()) <= 1e-6, (i, j, ln.route)
             y = want
     routes = [ln.route for sw in prog.launches for ln in sw]
-    core = "pass" if k >= ts.MIN_SWEEP_PASS_CORE else "unit"
+    core = "pass" if k >= ts.MIN_UNIT_PASS_CORE else "unit"
     assert routes.count(core) == 1 and "mixed" not in routes
     assert LAUNCHES["dense_pass"] == int(core == "pass")
     assert LAUNCHES["unit_stage"] == int(core == "unit")
@@ -413,7 +413,7 @@ def _tiled_case(kernel: str, n: int, k: int, qubits: tuple[int, ...], seed: int)
         u[-(1 << k):, -(1 << k):] = core
     c = tq.Circuit(n).append(Gate(f"tiled{k}", tuple(qubits), matrix_bytes=u.tobytes()))
     # the sweeps: the tiled op at every width (the route sends unit stages
-    # of MIN_SWEEP_PASS_CORE+ qubits to the dense pass; one launch a sweep
+    # of MIN_UNIT_PASS_CORE+ qubits to the dense pass; one launch a sweep
     # keeps them)
     sweeps = lambda c: ts.SweepProgram(c, _one_launch=True)   # noqa: E731
     prog = {"whole_circuit": fc.WholeCircuitProgram, "low_sweep": sweeps,
@@ -531,13 +531,27 @@ def _kron_core(k: int, seed: int) -> np.ndarray:
     return u
 
 
+# the stream instance at 23 qubits: 7-9-qubit cores on the lowest, middle
+# and highest qubits, uncontrolled and under a control (on the highest
+# qubit, on bit 0, on bit 1)
+STREAM_PASSES = [
+    (23, tuple(range(lo, lo + k)), ctrl)
+    for k in (7, 8, 9)
+    for lo, ctrl in ((0, ()), (11 - k // 2, ()), (23 - k, ()), (11 - k // 2, (22,)),
+                     (23 - k, (0,)), (2, (1,)))
+]
+
+
 @pytest.mark.parametrize("n,targets,controls", [
     (16, tuple(range(12)), ()),                    # 16 groups: the small instance
     (14, (3, 0, 5, 1, *range(6, 14)), (2,)),       # a control on a low bit
     (22, tuple(range(10, 22)), ()),                # 1024 groups: the large instance
     (14, (13, 2, 9, 0, 7, 5, 11), (4, 12)),        # a 7-qubit core, two controls: medium
+    (23, (13, 2, 9, 0, 7, 5, 11, 20), (4,)),       # scrambled targets: the stream instance
+    *STREAM_PASSES,
 ])
 def test_dense_pass_matches_plain(cuda_device, n, targets, controls):
+    from tpu_qsim_torch.kernels import PASS_INSTANCES
     from tpu_qsim_torch.kernels import dense_pass as dp
 
     core = _kron_core(len(targets), n)
@@ -547,6 +561,9 @@ def test_dense_pass_matches_plain(cuda_device, n, targets, controls):
     got = dp.dense_pass(x, u, sum(1 << q for q in targets), sum(1 << q for q in controls))
     torch.cuda.synchronize()
     assert LAUNCHES["dense_pass"] == 1
+    picked = dp.pass_instance(len(targets), n - len(targets) - len(controls))
+    assert dict(PASS_INSTANCES) == {picked: 1}
+    assert (picked == "stream") == (len(targets) <= 9 and n - len(controls) >= 21)
     want = dp.apply_controlled(x, core, targets, controls)
     assert float((got - want).abs().max()) <= 1e-6
 
@@ -596,12 +613,13 @@ def test_route_by_width_cuts_each_row(cuda_device, n, k, lo, engines):
 
 
 @pytest.mark.parametrize("n,k,lo", [(27, 9, 18), (28, 6, 11), (28, 8, 20), (30, 7, 23),
-                                    (24, 6, 18), (22, 7, 0)])
+                                    (24, 6, 18), (22, 7, 0), (22, 5, 0), (26, 6, 0)])
 def test_refused_gate_runs_on_grid_pieces_and_a_pass(cuda_device, n, k, lo):
     # a 6-9-qubit core that the grid planner refuses (above 26q the torch
-    # engine ran the whole circuit; at 24q the segments), or, at 22q, one it
-    # takes on the lowest qubits: grid pieces and one pass (a 6-qubit core
-    # widened to 7), against the plain version
+    # engine ran the whole circuit; at 24q the segments), or, from 22q, a
+    # 5-9-qubit one it takes on the lowest qubits (dispatch.GRID_CUTS): grid
+    # pieces and one pass (a 5- or 6-qubit core widened to 7), against the
+    # plain version
     c = _dense_core_circuit(n, k, lo)
     reset_launches()
     sim = tq.StateVectorSimulator(n).run(c)

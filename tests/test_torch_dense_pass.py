@@ -5,15 +5,17 @@
   table's engine, each such gate becomes a ``DensePass``, in circuit order;
   a circuit without such a gate plans exactly as before.
 * :func:`emulate_dense_pass`, a numpy mirror of ``csrc/dense_pass.cu`` (its
-  three instances' CTA tiles in their launch order, the gather of X in slot
+  four instances' CTA tiles in their launch order, the stream instance's
+  persistent CTAs each walking its group tiles, the gather of X in slot
   order chunk by chunk, U's two row-major planes, the 3xTF32 split of every
   operand, the output tile in slot order, the copy of the groups whose
   controls fail), and the pass's plain version (the torch engine's
   ``apply_unitary`` under the controls) agree with the JAX package's
   complex128 oracle within 1e-6 at 14-16 qubits with a 12-qubit core,
   uncontrolled and with a control peeled, and with 7-qubit cores on the
-  large and the medium instance; the mirror agrees with the plain version
-  within 1e-7. (float32 planes and coefficients, amplitudes <= 1: a
+  large and the medium instance, and 7-9-qubit cores on the stream
+  instance (one group tile, several walked by each CTA, a partial one);
+  the mirror agrees with the plain version within 1e-7. (float32 planes and coefficients, amplitudes <= 1: a
   4096-term sum rounds at ~1e-8 here, and the split's dropped terms are
   below 2^-21 of each product.)
 The kernel itself runs only on the card (tests/test_torch_cuda.py).
@@ -195,8 +197,25 @@ def _low_bits(mask: int, count: int) -> int:
     return out
 
 
-# dense_pass.cu's columns a chunk (BK) of each instance
-INSTANCE_BK = {"small": 128, "medium": 64, "large": 32}
+# dense_pass.cu's columns a chunk (BK) of each instance: the stream
+# instance's stage is one k8 step
+INSTANCE_BK = {"small": 128, "medium": 64, "large": 32, "stream": 8}
+# the H100's multiprocessors: the stream instance's launcher makes RT x
+# min(SMs / RT, group tiles) persistent CTAs, RT = 2^k / 128 row tiles
+STREAM_SMS = 132
+
+
+def instance_walk(instance: str, row_tiles: int, group_tiles: int,
+                  sms: int = STREAM_SMS) -> list[tuple[int, int]]:
+    """(row tile, group tile) of each CTA tile in dense_pass.cu's order: one
+    CTA a tile, the group tiles of a row tile together; for "stream" on a
+    device of ``sms`` multiprocessors, each persistent CTA b keeps row tile
+    b % RT and walks the group tiles b / RT, b / RT + C / RT, ..."""
+    if instance != "stream":
+        return [(c // group_tiles, c % group_tiles) for c in range(row_tiles * group_tiles)]
+    ctas = row_tiles * max(1, min(sms // row_tiles, group_tiles))
+    return [(b % row_tiles, t) for b in range(ctas)
+            for t in range(b // row_tiles, group_tiles, ctas // row_tiles)]
 
 
 def tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -214,12 +233,15 @@ def tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 def emulate_dense_pass(
     x: np.ndarray, u: np.ndarray, tmask: int, cmask: int = 0, instance: str | None = None,
+    sms: int = STREAM_SMS,
 ) -> np.ndarray:
     """The pass as dense_pass.cu computes it, on complex64 amplitudes ``x``
-    and the operand ``u`` (``core_operand``'s (2, 2^k, 2^k) float32): CTA by
-    CTA in launch order (tiles of BM rows x BN groups of ``instance``, by
-    default the one the wrapper picks, the group tiles of a row tile
-    together), X gathered chunk by chunk of BK columns in slot order, each
+    and the operand ``u`` (``core_operand``'s (2, 2^k, 2^k) float32): tile
+    by tile in the order of :func:`instance_walk` (tiles of BM rows x BN
+    groups of ``instance``, by default the one the wrapper picks; ``sms``
+    multiprocessors for the stream instance's walk), X
+    gathered chunk by chunk of BK columns (the lowest log2(BK) targets) in
+    slot order, each
     real product hi.hi + hi.lo + lo.hi of the operands' TF32 parts
     (:func:`tf32_split`), summed here in float64, the tile's output written
     in slot order, then the copy of the groups whose controls fail. Slots
@@ -250,8 +272,8 @@ def emulate_dense_pass(
     yr, yg = _extract(ye, rlow), _extract(ye, flow)
     out = np.zeros(dim, np.complex128)
     written = np.zeros(dim, np.int64)
-    for cta in range(row_tiles * group_tiles):
-        r0, g0 = (cta // group_tiles) * bm, (cta % group_tiles) * bn
+    for rt, gt in instance_walk(instance, row_tiles, group_tiles, sms):
+        r0, g0 = rt * bm, gt * bn
         gbase = int(_deposit(np.array([g0]), free)[0]) | cmask
         his = gbase | _deposit(np.arange(d // bk), thigh)
         idx = np.zeros((d, 1 << log2tg), np.int64)     # slot of X[c, g]
@@ -303,6 +325,44 @@ def test_mirror_and_plain_match_oracle(n, k, controls):
     np.testing.assert_allclose(got, tq.apply.to_complex(plain), atol=1e-7, rtol=0)
 
 
+@pytest.mark.parametrize("n,k,controls", [(15, 7, 0), (14, 8, 1), (14, 9, 0), (13, 7, 0)])
+def test_stream_mirror_and_plain_match_oracle(n, k, controls):
+    # the stream instance forced: targets scrambled, on the lane bits, with
+    # a control on bit 2; 15q k = 7: two group tiles, walked by one CTA (a
+    # device of one SM); the others part of a 128-group tile
+    qubits = (2,) * controls + (3, 0, 5, 1, *range(6, 2 + k))
+    c = tq.Circuit(n).append(_gate(qubits, controls, seed=n + k))
+    (g,) = fc.as_pgates(c.gates)
+    ctrls, core, targets = fc._peel_controls(g.u, g.qubits)
+    tmask, cmask = sum(1 << q for q in targets), sum(1 << q for q in ctrls)
+    psi = random_state(n, np.random.default_rng(n))
+    want = jax_oracle(c, psi)
+    got = emulate_dense_pass(psi.astype(np.complex64), dp.core_operand(core, tuple(targets)),
+                             tmask, cmask, "stream", sms=1)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    plain = dp.apply_controlled(tq.apply.from_complex(psi, np.float32, "cpu"), core,
+                                tuple(targets), tuple(ctrls))
+    np.testing.assert_allclose(got, tq.apply.to_complex(plain), atol=1e-7, rtol=0)
+
+
+def test_stream_walk_covers_each_tile_once():
+    # persistent CTAs, one an SM: every (row tile, group tile) once, the RT
+    # CTAs sharing a group tile at the same step of their walks, on the
+    # H100's SMs and on the host check's devices of one and two
+    for sms in (1, 2, STREAM_SMS):
+        for rt, tiles in ((1, 2), (1, 8192), (2, 1), (2, 4), (4, 1024), (8, 512), (2, 8192),
+                          (8, 3)):
+            walk = instance_walk("stream", rt, tiles, sms)
+            assert sorted(walk) == [(r, t) for r in range(rt) for t in range(tiles)]
+            ctas = rt * max(1, min(sms // rt, tiles))
+            assert ctas <= max(rt, sms)
+            steps = {}
+            for b in range(ctas):
+                for i, t in enumerate(range(b // rt, tiles, ctas // rt)):
+                    steps.setdefault(t, set()).add(i)
+            assert all(len(v) == 1 for v in steps.values())
+
+
 def test_core_operand_orders_bits_and_stores_columns():
     # a 3-qubit core on qubits (5, 1, 3): index MSB qubit 5; the operand's
     # index bit j is the j-th lowest target (1, 3, 5); a real and an
@@ -341,12 +401,22 @@ def test_cpu_pass_runs_plain_version_and_wrapper_refuses_cpu():
 
 def test_pass_instance_follows_the_groups():
     # 16 groups or fewer: small; the large tiles when they make 128 CTAs or
-    # more (one an SM of the H100's 132); medium between
+    # more (one an SM of the H100's 132); medium between; cores of 7-9
+    # qubits take the stream instance where its tiles (2^k / 128 row tiles
+    # x group tiles of 128) number 128 or more: k + groups' bits >= 21
     assert [dp.pass_instance(12, g) for g in (0, 2, 4)] == ["small"] * 3
     assert [dp.pass_instance(12, g) for g in (5, 6, 7)] == ["medium"] * 3
     assert [dp.pass_instance(12, g) for g in (8, 10)] == ["large"] * 2
     assert dp.pass_instance(7, 13) == "large" and dp.pass_instance(7, 12) == "medium"
     assert dp.pass_instance(13, 7) == "large" and dp.MIN_PASS_CORE == 7
+    assert [dp.pass_instance(7, g) for g in (13, 14, 15, 21)] == ["large"] + ["stream"] * 3
+    assert [dp.pass_instance(8, g) for g in (12, 13, 14, 20)] == ["large"] + ["stream"] * 3
+    assert [dp.pass_instance(9, g) for g in (11, 12, 13, 19)] == ["large"] + ["stream"] * 3
+    assert [dp.pass_instance(10, g) for g in (12, 18)] == ["large"] * 2
+    # its tile: 128 rows x 128 groups at every width (U's rows on chip at k
+    # = 7, streamed with each stage at 8-9)
+    assert dp.STREAM_CORES == (7, 8, 9) and dp.INSTANCES["stream"] == (128, 128)
+    assert dp.STREAM_MIN_TILES == 128
 
 
 def test_tf32_split_recovers_float32():

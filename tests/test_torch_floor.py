@@ -142,7 +142,7 @@ def test_decompose_variants(n):
 
 
 @pytest.mark.parametrize("one_launch", [True, False])
-def test_sweeps_streaming_variant(one_launch):
+def test_sweeps_streaming_variant(one_launch, monkeypatch):
     # --sweeps: each launch's stages with their ops removed keep the
     # launch's stage count and tile layouts, and the kernel's reading of
     # them (the sweeps mirror) changes nothing; the CPU run times the plain
@@ -153,6 +153,9 @@ def test_sweeps_streaming_variant(one_launch):
     from test_torch_dense_op import dense_unitary
     from test_torch_sweeps import emulate_sweep as emulate_sweeps_table
 
+    # the 6-qubit core held in a unit stage (the route's width sends it to
+    # the dense pass): this case is a unit launch's streaming variant
+    monkeypatch.setattr(ts, "MIN_UNIT_PASS_CORE", 7)
     n, params = 12, ts.SweepParams(k_bits=2, rb_bits=2)
     c = random_circuit(n, 30, seed=1)
     u = dense_unitary(6, np.random.default_rng(6)).tobytes()

@@ -20,7 +20,12 @@ under AddressSanitizer and UBSan (``-fsanitize=address,undefined
   wrong result in every run, and a barrier that waits for a CTA that never
   comes is reported as a deadlock naming each CTA's wait. A cooperative
   launch of more CTAs than the device keeps resident is refused, as on
-  the card.
+  the card. The same four ``wgmma`` faults at N = 128 (``wgmma128``). Of an
+  mbarrier ring (a producer warp, a consumer warp, two slots): a consumer
+  that skips its wait reads a stale slot, a producer that skips its wait
+  or an arrival missing is a deadlock naming each thread's wait
+  (``mbar``), an arrival on a barrier never initialised and a store over a
+  barrier's word trap.
 * ``csrc/dense_pass.cu``'s three instances, targets in a scrambled order:
   the two ``mma.sync`` ones (small, medium) uncontrolled and controlled at
   k = 7-10, one of each at 11 and 12 (a 12-qubit pass is 3.1 million mma
@@ -28,7 +33,12 @@ under AddressSanitizer and UBSan (``-fsanitize=address,undefined
   it only at 2^7 tiles and more, n >= 20 at k = 12) uncontrolled and
   controlled at k = 7-10 over 64 groups, over 128 (two group tiles), over
   32 (the tile's other columns computed and never stored) and at k = 11
-  (10^5 warpgroup products; the card's ``chip_smoke.py`` runs k = 12).
+  (10^5 warpgroup products; the card's ``chip_smoke.py`` runs k = 12); the
+  stream one (persistent CTAs, a producer warpgroup and two ``wgmma128``
+  warpgroups through an mbarrier ring; forced: ``pass_instance`` takes it
+  from 2^7 tiles) at k = 7-9, uncontrolled and controlled, U's rows on
+  chip and streamed, a partial tile and several tiles a CTA, also against
+  the numpy mirror (``emulate_dense_pass``).
   Each against the plain version (``dense_pass.apply_controlled``) within
   1e-6 and the JAX package's complex128 oracle within 1e-5 (on the
   amplitudes whose controls are 1, the core alone through
@@ -51,17 +61,24 @@ from tpu_qsim_torch.kernels import floor
 import torch_host_harness as host
 from conftest import random_state
 from test_torch_dense_op import dense_unitary
+from test_torch_dense_pass import emulate_dense_pass
 from test_torch_sweeps import jax_oracle
 
 PLAIN_TOL = 1e-6
 ORACLE_TOL = 1e-5
 FAULT_THREADS = 32          # faults.cu's one CTA
-WGMMA_DIM = 4096            # wgmma_product's planes: B in, the 64 x 64 D out
+WGMMA_DIM = 4096            # wgmma_product<64>'s planes: B in, the 64 x 64 D out
+WGMMA128_DIM = 8192         # wgmma_product<128>'s: the 64 x 128 D
 GRID_DIM = 64               # grid_stages' planes: two CTAs of 32
+RING_DIM = 128              # ring's planes: four items of 32
 
 
 def fault_dim(kind: int) -> int:
-    return WGMMA_DIM if 4 <= kind <= 7 else GRID_DIM if kind == 8 else FAULT_THREADS
+    if 4 <= kind <= 7:
+        return WGMMA_DIM
+    if 10 <= kind <= 13:
+        return WGMMA128_DIM
+    return {8: GRID_DIM, 9: RING_DIM}.get(kind, FAULT_THREADS)
 
 
 def fault_input(kind: int) -> np.ndarray:
@@ -87,6 +104,10 @@ def fault_free(kind: int) -> np.ndarray:
         want[0] = 1.0
     if 4 <= kind <= 7:          # D's row r is B's row r % 8
         want[1] = want[0, :512].reshape(8, 64)[np.arange(64) % 8].ravel()
+    if 10 <= kind <= 13:
+        want[1] = want[0, :1024].reshape(8, 128)[np.arange(64) % 8].ravel()
+    if kind == 9:               # each item through the ring, plus 1
+        want[1] = want[0] + 1
     if kind == 8:               # doubled, then the other CTA's half plus 1
         x = want[0].copy()
         want[1] = 2 * x
@@ -105,6 +126,16 @@ REPORTED = {
     "wgmma_without_proxy_fence": (6, 0, 1, WRONG),
     "wgmma_without_fence": (7, 0, 1, "a wgmma with no wgmma.fence"),
     "grid_barrier_skipped": (8, 0, 1, WRONG),
+    "ring_consumer_skips_wait": (9, 0, 1, WRONG),
+    "ring_producer_skips_wait": (9, 0, 2, r"deadlock in CTA 0: t0-63:mbar"),
+    "mbarrier_arrival_missing": (9, 0, 3, r"deadlock in CTA 0: t0-63:mbar"),
+    "mbarrier_not_initialised": (9, 0, 4, "where no mbarrier.init made one"),
+    "mbarrier_word_overwritten": (9, 0, 5, "overwritten by a store"),
+    "wgmma128_read_before_wait": (10, 0, 1, WRONG),
+    "wgmma128_operand_written_in_flight": (11, 0, 1,
+                                           "shared operand of an in-flight wgmma was written"),
+    "wgmma128_without_proxy_fence": (12, 0, 1, WRONG),
+    "wgmma128_without_fence": (13, 0, 1, "a wgmma with no wgmma.fence"),
     "grid_barrier_deadlock": (8, 0, 2, r"deadlock in a cooperative launch of 2 CTAs: "
                                        r"CTA 0 \(word 0x[0-9a-f]+ = 2\): t0:spin t1-31:bar; "
                                        r"CTA 1 \(word 0x[0-9a-f]+ = 2\): t0:spin t1-31:bar;"),
@@ -117,7 +148,7 @@ def test_fault_is_reported(fault):
     if report is WRONG:
         out = fault_run(kind, on)
         assert not np.array_equal(out, fault_free(kind))
-        if 4 <= kind <= 7:      # every element of D read from NaN bytes
+        if 4 <= kind <= 7 or 10 <= kind <= 13:   # every element of D read from NaN bytes
             assert np.isnan(out[1]).all()
     else:
         with pytest.raises(host.HostFault, match=report):
@@ -128,6 +159,18 @@ def test_fault_is_reported(fault):
 def test_kernel_without_its_fault_runs_clean(fault):
     kind, off, _, _ = REPORTED[fault]
     np.testing.assert_array_equal(fault_run(kind, off), fault_free(kind))
+
+
+def test_ring_consumer_without_its_wait_reads_a_stale_slot():
+    # after the barrier that follows mbar_init the threads go on in reverse
+    # order: the producer fills items 0 and 1 and waits on slot 0; the
+    # consumer reads them, frees slot 0 and, skipping its wait for item 2,
+    # reads slot 0 before the producer refills it: item 0 again. (A producer
+    # that skips its wait instead runs full[0] two phases ahead of the
+    # consumer's wait, which then never passes: reported as a deadlock.)
+    out = fault_run(9, 1)
+    x = fault_input(9)[0].reshape(4, 32)
+    np.testing.assert_array_equal(out[1].reshape(4, 32), x[[0, 1, 0, 3]] + 1)
 
 
 def test_skipped_grid_barrier_shows_in_every_run():
@@ -204,6 +247,17 @@ DENSE_CASES = [
 ]
 
 
+# (n, k, controls, SMs) of the stream instance, forced: scrambled targets,
+# 7-9 qubits, uncontrolled and controlled (a control on bit 0: scalar loads
+# and stores), U's rows on chip (k = 7) and streamed (k = 8-9); a full tile
+# of 128 groups, tiles of 64, 32 and 8 groups (their other groups computed
+# and never stored), and at 15 qubits two group tiles walked by one
+# persistent CTA through the ring (a device of one SM)
+STREAM_CASES = [
+    (15, 7, (), 1), (14, 7, (0,), 2), (14, 7, (), 2), (13, 7, (), 2), (14, 8, (3,), 2),
+    (14, 8, (), 1), (14, 9, (), 2), (13, 9, (12,), 2),
+]
+
 # (n, k, controls) of the wgmma instance, forced: 64 groups a tile of 128
 # rows, uncontrolled and controlled, at k = 7-10; 128 groups (two group
 # tiles); 32 groups; k = 11
@@ -224,17 +278,28 @@ def test_dense_pass_wgmma(n, k, controls):
     check_dense_pass(n, k, controls, "large")
 
 
-def check_dense_pass(n, k, controls, instance):
+@pytest.mark.parametrize("n,k,controls,sms", STREAM_CASES)
+def test_dense_pass_stream(n, k, controls, sms):
+    got, psi, core, targets = check_dense_pass(n, k, controls, "stream", sms)
+    # the numpy mirror of the instance's tiles and walk agrees too
+    tmask, cmask = sum(1 << q for q in targets), sum(1 << q for q in controls)
+    mirror = emulate_dense_pass(psi.astype(np.complex64), dp.core_operand(core, targets), tmask,
+                                cmask, "stream", sms)
+    np.testing.assert_allclose(got, mirror, atol=PLAIN_TOL, rtol=0)
+
+
+def check_dense_pass(n, k, controls, instance, sms=None):
     rng = np.random.default_rng(900 + 16 * n + k)
     free = [q for q in range(n) if q not in controls]
     targets = tuple(int(q) for q in rng.permutation(free)[:k])
     core = dense_unitary(k, rng)
     psi = random_state(n, rng)
-    got = host.run_dense_pass(core, targets, controls, psi, instance)
+    got = host.run_dense_pass(core, targets, controls, psi, instance, sms)
     plain = dp.apply_controlled(torch.from_numpy(host.planes(psi)), core, targets, controls)
     np.testing.assert_allclose(got, np.asarray(tq.apply.to_complex(plain)), atol=PLAIN_TOL, rtol=0)
     np.testing.assert_allclose(got, controlled_oracle(core, targets, controls, psi),
                                atol=ORACLE_TOL, rtol=0)
+    return got, psi, core, targets
 
 
 @pytest.mark.parametrize("k", [16, 17])

@@ -285,7 +285,7 @@ def test_split_launches_match_one_launch_mirror(n, rb, k, lo):
         c.append(g)
     prog = ts.SweepProgram(c, params)
     routes = [[ln.route for ln in launches] for launches in prog.launches]
-    core_route = "pass" if k >= ts.MIN_SWEEP_PASS_CORE else "unit"
+    core_route = "pass" if k >= ts.MIN_UNIT_PASS_CORE else "unit"
     (i,) = [i for i, r in enumerate(routes) if core_route in r]
     assert prog.sweep_kinds[i] == "low" and "mixed" not in sum(routes, [])
     assert routes[i].count(core_route) == 1 and set(routes[i]) == {"tile", core_route}
@@ -307,6 +307,9 @@ def test_tile_launches_take_the_tiles_of_a_sweep_with_a_wide_core(monkeypatch):
     # around its unit stage launch at those threads too (at the geometry's
     # they would trap on the table's tile bits)
     monkeypatch.setattr(ts, "WIDE_THREADS", 64)
+    # the 6-qubit core held in a unit stage (the route's width sends it to
+    # the dense pass): this case is the unit stage's geometry
+    monkeypatch.setattr(ts, "MIN_UNIT_PASS_CORE", 7)
     n = 14
     u = dense_unitary(6, np.random.default_rng(960)).tobytes()
     c = tq.random_circuit(n, 30, seed=61)

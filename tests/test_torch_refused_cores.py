@@ -7,9 +7,10 @@ At 20-26 qubits the sweeps or the segments then run the circuit whole;
 above 26 nothing did but the torch engine. Now the grid row's split
 (``dispatch.split_at_wide_cores``, ``dispatch.GRID_CUTS``) cuts there from
 22 qubits where the sweeps refuse too, and the gate runs as a dense pass
-between grid-sweep pieces; a
-6-qubit core is widened to the pass's 7 by an identity on the lowest free
-qubit (``dense_pass.widened``).
+between grid-sweep pieces (and, from 22 qubits, at every dense core of 5
+qubits or more that the grid planner takes); a 5- or 6-qubit core is
+widened to the pass's 7 by an identity on the lowest free qubits
+(``dense_pass.widened``).
 
 * Plan only: ``time_run.wide_circuit(n, k, lo)`` at 27, 28 and 30 qubits,
   k = 5-11, on the lowest, the middle and the highest qubits, plans on
@@ -63,8 +64,8 @@ def _lo(n: int, k: int, where: str) -> int:
 # one case of each column of the probe: (engines of the split, or the one
 # program's engine; the pass's width as launched)
 PINNED = {
-    (28, 5, "high"): ("grid_sweep", None),
-    (27, 6, "low"): ("grid_sweep", None),
+    (28, 5, "high"): (SPLIT, dp.MIN_PASS_CORE),     # cut from 5 qubits (GRID_CUTS)
+    (27, 6, "low"): (SPLIT, dp.MIN_PASS_CORE),
     (27, 7, "low"): (SPLIT, 7),
     (27, 8, "middle"): (SPLIT, 8),
     (30, 6, "high"): (SPLIT, dp.MIN_PASS_CORE),

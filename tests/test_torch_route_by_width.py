@@ -60,7 +60,7 @@ def test_one_constant_sets_every_route():
     # the grid row's width by size (dispatch.GRID_CUTS, measured on the card)
     for engine, n in (("whole_circuit", 18), ("segmented", 19), ("grid_sweep", 21)):
         assert dispatch.cuts_for(engine, n) == (k, False)
-    assert [dispatch.cuts_for("grid_sweep", n) for n in (22, 26, 27, 28, 30)] == [(7, True)] * 5
+    assert [dispatch.cuts_for("grid_sweep", n) for n in (22, 26, 27, 28, 30)] == [(5, True)] * 5
 
 
 ROW_PIECES = {"grid_sweep": tgs.GridSweepProgram, "segmented": seg.SegmentedProgram,
@@ -201,3 +201,54 @@ def test_crossover_tool_plans_both_ways_on_the_cpu():
     (row,) = [r for r in tune_route.instances(13, torch.device("cpu"), cores=(5,))
               if r["row"] == "13q_one_dense5_op_sweep"]
     assert row["max_core"] == 5
+
+
+@pytest.mark.parametrize("n", [22, 24, 26])
+def test_sweeps_send_unit_stages_of_six_qubits_to_the_stream_pass(n):
+    # the sweeps' own width (sweeps.MIN_UNIT_PASS_CORE): a circuit the
+    # sweeps take, its k-qubit core on the middle qubits, runs the core as a
+    # dense pass inside the sweep from 6 qubits (widened to 7), on the
+    # stream instance; a 5-qubit core, which the grid planner takes, the
+    # grid row cuts (GRID_CUTS)
+    from tpu_qsim_torch.kernels import dense_pass as dp
+
+    assert ts.MIN_UNIT_PASS_CORE == 6
+    for k in (5, 6, 7, 8, 9):
+        lo = n // 2 - k // 2
+        engine, prog = dispatch.plan_run(_circuit(n, k, lo), np.float32, CUDA)
+        if k == 5:
+            assert engine == "grid_sweep+dense_pass" and prog.engines[1] == "dense_pass"
+            continue
+        assert engine == "sweeps"
+        routes = [ln.route for sweep in prog.launches for ln in sweep]
+        assert "unit" not in routes and routes.count("pass") == 1
+        (step,) = [ln.step for sweep in prog.launches for ln in sweep if ln.route == "pass"]
+        assert step.k == max(k, dp.MIN_PASS_CORE) and step.targets[-k:] == tuple(range(lo, lo + k))
+        assert dp.pass_instance(step.k, n - step.k - len(step.controls)) == "stream"
+
+
+@pytest.mark.parametrize("shape", ["layer", "spread"])
+@pytest.mark.parametrize("k", [5, 6])
+@pytest.mark.parametrize("n", [22, 28])
+def test_several_narrow_cores_each_take_a_pass(n, k, shape):
+    # tune_route --several's circuits (a layer of n // k dense k-qubit gates
+    # on disjoint qubits, or four spread between random layers): from 22q
+    # the grid row cuts at each of them (GRID_CUTS' width 5, which beat the
+    # grid holding them all by 22-47% on the card), and the route with the
+    # former width, 7, left them in the grid sweep
+    from tpu_qsim_torch.kernels import tune_route
+
+    c = tune_route.several_circuit(n, k, shape)
+    gates = n // k if shape == "layer" else 4
+    engine, prog = dispatch.plan_run(c, np.float32, CUDA)
+    assert engine == "grid_sweep+dense_pass"
+    assert prog.engines.count("dense_pass") == gates
+    assert {s.core_k for s in prog.steps if isinstance(s, DensePass)} == {k}
+    assert set(prog.engines) == {"grid_sweep", "dense_pass"}
+    saved = dispatch.GRID_CUTS
+    try:
+        dispatch.GRID_CUTS = tuple((lo, 7 if lo == 22 else w, r) for lo, w, r in saved)
+        before = dispatch.plan_run(c, np.float32, CUDA)
+    finally:
+        dispatch.GRID_CUTS = saved
+    assert before[0] == "grid_sweep"

@@ -31,6 +31,7 @@ from tpu_qsim_torch.convert import circuit_from_jax
 from tpu_qsim_torch.kernels import LAUNCHES, reset_launches
 from tpu_qsim_torch.kernels import fused_circuit as fc
 from tpu_qsim_torch.kernels import gridsweeps as tgs
+from tpu_qsim_torch.kernels import dense_pass as dp
 from tpu_qsim_torch.kernels import sweeps as ts
 
 from conftest import random_state
@@ -382,13 +383,14 @@ def test_plan_stages_cut_each_sweep_in_order(name):
             ["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]]
 
 
-@pytest.mark.parametrize("k,lo", [(8, 10), (9, 8), (10, 7), (11, 6)])
+@pytest.mark.parametrize("k,lo", [(8, 10), (9, 8), (10, 7), (11, 6), (5, 10), (6, 10)])
 def test_main_path_launches(k, lo):
-    # the 26q sweeps main path (k = 8 on 10-17) and its wider cores: the
-    # plan is the parent's, its sweeps' stages cut into launches: each run of
-    # tile stages one launch on the instance for narrow cores, the unit
-    # stage alone on the wide instance, or from MIN_SWEEP_PASS_CORE qubits
-    # through the dense pass on the gate's state qubits (planning only)
+    # the 26q sweeps main path (k = 8 on 10-17), a 5-qubit core and the
+    # wider cores: the plan is the parent's, its sweeps' stages cut into
+    # launches: each run of tile stages one launch on the instance for
+    # narrow cores, the unit stage alone on the wide instance, or from
+    # MIN_UNIT_PASS_CORE qubits through the dense pass on the gate's state
+    # qubits (planning only)
     from tpu_qsim_torch.kernels.time_run import wide_circuit
 
     c = _main_path_circuit() if k == 8 else wide_circuit(26, k, lo)
@@ -406,18 +408,21 @@ def test_main_path_launches(k, lo):
             else:
                 (st,) = ln.stages
                 assert st.kind == "unit"
-                assert ln.max_core == k and table.max_core == k
-                assert (ln.route == "pass") == (k >= ts.MIN_SWEEP_PASS_CORE)
+                assert (ln.route == "pass") == (k >= ts.MIN_UNIT_PASS_CORE)
+                # a pass's core widened to MIN_PASS_CORE qubits
+                assert table.max_core == k and ln.max_core == (
+                    max(k, dp.MIN_PASS_CORE) if ln.route == "pass" else k)
                 if ln.route == "pass":     # the gate's state qubits, not block bits
-                    assert ln.step.targets == tuple(range(lo, lo + k)) and ln.table is None
+                    assert ln.step.targets[-k:] == tuple(range(lo, lo + k)) and ln.table is None
         # no two tile launches side by side
         routes = [ln.route for ln in launches]
         assert all(a != b for a, b in zip(routes, routes[1:]))
     if k == 8:
         assert prog.sweep_kinds == ["high", "low", "high", "low"]
         assert [[ln.route for ln in sw] for sw in prog.launches] == [
-            ["tile"], ["tile", "unit", "tile"], ["tile"], ["tile"]]
+            ["tile"], ["tile", "pass", "tile"], ["tile"], ["tile"]]
         assert [[ln.route for ln in sw] for sw in one.launches] == [["mixed"]] * 4
+    assert ts.MIN_UNIT_PASS_CORE == 6 and ts.MIN_SWEEP_PASS_CORE == 10
     # a sweep in one launch takes its whole table, not a copy
     for sw, table in zip(one.launches, one.tables):
         assert [ln.table for ln in sw] == [table] and sw[0].table is table

@@ -159,16 +159,20 @@ class HostRun:
                     out.append(struct.pack("<Bq", 0, int(a)))
         return b"".join(out)
 
-    def run(self, timeout: float = RUN_TIMEOUT_S) -> list[int]:
-        """Run the calls in order; return each call's result (a cudaError_t)
-        and replace :attr:`arrays` by the buffers as the calls left them.
-        Raises HostFault when the executable ends without its output."""
+    def run(self, timeout: float = RUN_TIMEOUT_S, sms: int | None = None) -> list[int]:
+        """Run the calls in order, on a device of ``sms`` multiprocessors
+        (by default the runtime's 2); return each call's result (a
+        cudaError_t) and replace :attr:`arrays` by the buffers as the calls
+        left them. Raises HostFault when the executable ends without its
+        output."""
         exe = executable()
         with tempfile.TemporaryDirectory() as tmp:
             src, dst = Path(tmp) / "in", Path(tmp) / "out"
             src.write_bytes(self._input())
             proc = subprocess.run([str(exe), str(src), str(dst)], capture_output=True,
-                                  text=True, timeout=timeout, env={**os.environ, **ENV})
+                                  text=True, timeout=timeout,
+                                  env={**os.environ, **ENV,
+                                       **({"QSIM_HOST_SMS": str(sms)} if sms else {})})
             if proc.returncode != 0 or not dst.exists():
                 raise HostFault(f"qsim_host_run exited with {proc.returncode}:\n{proc.stderr[-20000:]}")
             data = dst.read_bytes()
@@ -190,9 +194,9 @@ class HostRun:
         return rcs
 
 
-def run_checked(run: HostRun) -> None:
+def run_checked(run: HostRun, sms: int | None = None) -> None:
     """:meth:`HostRun.run`, raising RuntimeError where a launcher refused."""
-    rcs = run.run()
+    rcs = run.run(sms=sms)
     bad = [(name, rc) for (name, _), rc in zip(run.calls, rcs) if rc != 0]
     if bad:
         raise RuntimeError(f"launches refused: {bad}")
@@ -355,11 +359,12 @@ def run_segments(prog, psi: np.ndarray, first: int = 0, last: int | None = None)
 
 
 def run_dense_pass(core: np.ndarray, targets, controls, psi: np.ndarray,
-                   instance: str | None = None) -> np.ndarray:
+                   instance: str | None = None, sms: int | None = None) -> np.ndarray:
     """``dense_pass.dense_pass``: ``core`` on ``targets`` (``targets[0]``
     the index MSB) where every bit of ``controls`` is 1, out of place, on
-    ``instance`` ("small", "medium" or "large"), by default the one
-    ``pass_instance`` picks."""
+    ``instance`` ("small", "medium", "large" or "stream"), by default the one
+    ``pass_instance`` picks, on a device of ``sms`` multiprocessors (the
+    stream instance's persistent grid is one CTA an SM)."""
     from tpu_qsim_torch.kernels import dense_pass as dp
 
     n = int(psi.size).bit_length() - 1
@@ -372,7 +377,7 @@ def run_dense_pass(core: np.ndarray, targets, controls, psi: np.ndarray,
     out = run.buffer(_garbage((2, 1 << n), np.float32))
     run.call("dense_pass_launch", state, out, 1 << n, run.buffer(dp.core_operand(core, tuple(targets))),
              k, tmask, cmask, cmask, instance, None)
-    run_checked(run)
+    run_checked(run, sms)
     return complex_of(run.arrays[out.index])
 
 

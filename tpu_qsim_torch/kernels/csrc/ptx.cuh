@@ -130,6 +130,35 @@ __device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SCALE_A));
 }
 
+// The same product at N = 128 (m64n128k8): d the 64 x 128 float32 fragment
+// (columns 8 j + 2 ft (+ 1), rows fg (+ 8) in d[4 j + v], j < 16).
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, %70, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SCALE_A));
+}
+
 // Before a warpgroup's wgmma reads or writes registers that it touched
 // since its last wait.
 __device__ __forceinline__ void wgmma_fence() {
@@ -158,9 +187,46 @@ __device__ __forceinline__ void fence_operands(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 __device__ __forceinline__ void fence_operands(uint32_t (&f)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i / 4][i % 4])::"memory");
+}
+
+// An mbarrier: a 64-bit word in shared memory (8-byte aligned) whose current
+// phase completes when `count` arrivals have been made on it, and the next
+// phase starts. mbar_wait returns once the phase of the given parity has
+// completed: a waiter of phase q passes q & 1 (a fresh barrier is in phase
+// 0). An arrival releases, and a wait that returns acquires, the memory of
+// the CTA's threads; shared-memory stores that wgmma reads also need a
+// fence.proxy.async of the storing thread before its arrival.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
+// A wait that has not returned after 2^36 cycles (about 40 s) traps, so a
+// fault shows as a failed launch and not as a hung card. (try_wait may
+// suspend the thread for a while before it answers.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 36)) __trap();
+  }
 }
 
 // A performance-monitor event of id ID (0-15): the measurement build's marker

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import apply as ap
-from . import LAUNCHES
+from . import LAUNCHES, PASS_INSTANCES
 from .fused_circuit import MAX_DENSE_QUBITS, PGate, _is_diagonal, _peel_controls, check_planes
 
 # the kernel takes cores of at least 2^7 rows (a tile of its large
@@ -28,32 +28,47 @@ from .fused_circuit import MAX_DENSE_QUBITS, PGate, _is_diagonal, _peel_controls
 # host (:func:`widened`)
 MIN_PASS_CORE = 7
 # dense_pass.cu's instances: (rows, groups) of a CTA's tile, and the
-# launcher's number for each
-INSTANCES = {"small": (32, 16), "medium": (32, 64), "large": (128, 64)}
-INSTANCE_CODE = {"small": 0, "medium": 1, "large": 2}
+# launcher's number for each; "stream" is persistent: a CTA keeps its rows
+# and walks over the tiles of groups
+INSTANCES = {"small": (32, 16), "medium": (32, 64), "large": (128, 64), "stream": (128, 128)}
+INSTANCE_CODE = {"small": 0, "medium": 1, "large": 2, "stream": 3}
 # the large instance is taken when it makes at least this many CTAs (about
 # one per SM of the H100's 132); with fewer, the medium one's 2^k / 32 row
 # tiles keep more of the card streaming U
 LARGE_MIN_CTAS = 128
+# the core widths the stream instance takes, where its tiles (row tiles x
+# group tiles) number at least STREAM_MIN_TILES: on the H100 it beat the
+# large instance at every such core measured, at 22-28 qubits (2^7 tiles,
+# a controlled core at 22q, to 2^14; 1.4-3.2x, PERF.md)
+STREAM_CORES = (7, 8, 9)
+STREAM_MIN_TILES = 128
 
 
 def pass_instance(k: int, log2_groups: int) -> str:
     """Which of ``dense_pass.cu``'s instances runs a k-qubit core over
     2^log2_groups groups: "small" (32 x 16 tiles, U's bytes bound the pass)
-    for 16 groups or fewer; "large" (128 x 64 tiles, the tensor cores' rate
-    bounds it) when it fills the card; else "medium" (32 x 64 tiles)."""
+    for 16 groups or fewer; for cores of ``STREAM_CORES`` qubits "stream"
+    (persistent CTAs, 128 x 128 tiles) from ``STREAM_MIN_TILES`` tiles;
+    otherwise "large" (128 x 64 tiles, the tensor cores' rate bounds it)
+    when it fills the card, else "medium" (32 x 64 tiles)."""
     if log2_groups <= 4:
         return "small"
-    rows, groups = INSTANCES["large"]
-    tiles = ((1 << k) // rows) * max(1, (1 << log2_groups) // groups)
-    return "large" if tiles >= LARGE_MIN_CTAS else "medium"
+
+    def tiles(instance: str) -> int:
+        rows, groups = INSTANCES[instance]
+        return ((1 << k) // rows) * max(1, (1 << log2_groups) // groups)
+
+    if k in STREAM_CORES and tiles("stream") >= STREAM_MIN_TILES:
+        return "stream"
+    return "large" if tiles("large") >= LARGE_MIN_CTAS else "medium"
 
 
 def pass_core(g: PGate, wider_than: int = MAX_DENSE_QUBITS) -> tuple | None:
     """(controls, core, core qubits) of a gate that takes a dense pass: a
     dense gate whose peeled core is wider than ``wider_than`` qubits (the
-    route by width: ``sweeps.MIN_SWEEP_PASS_CORE`` - 1, for the split and
-    for the sweeps' unit stages); None for any other gate."""
+    route by width: ``sweeps.MIN_SWEEP_PASS_CORE`` - 1 for the split,
+    ``sweeps.MIN_UNIT_PASS_CORE`` - 1 for the sweeps' unit stages); None
+    for any other gate."""
     if len(g.qubits) <= wider_than or _is_diagonal(g.u):
         return None
     ctrls, core, qs = _peel_controls(g.u, tuple(g.qubits))
@@ -121,11 +136,13 @@ def apply_controlled(
 
 def dense_pass(
     state: torch.Tensor, u: torch.Tensor, tmask: int, cmask: int = 0,
+    instance: str | None = None,
 ) -> torch.Tensor:
     """Launch the dense-pass kernel: a new (2, 2^n) float32 state (allocated
     here with ``torch.empty``) holding ``state`` after the core ``u`` (the
     device copy of :func:`core_operand`) on the bits of ``tmask``, where the
-    bits of ``cmask`` are all 1; the instance :func:`pass_instance` picks.
+    bits of ``cmask`` are all 1; on ``instance``, by default the one
+    :func:`pass_instance` picks (the measurements force the others).
     Raises ValueError on inputs the kernel does not take, RuntimeError when
     the card cannot hold the output buffer or the launch fails. Launches on
     the current stream without synchronizing."""
@@ -154,16 +171,17 @@ def dense_pass(
             f"memory, which the card cannot give"
         ) from e
     log2_groups = (dim.bit_length() - 1) - k - bin(cmask).count("1")
-    instance = INSTANCE_CODE[pass_instance(k, log2_groups)]
+    instance = instance or pass_instance(k, log2_groups)
     lib = _build.library("dense_pass")
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.dense_pass_launch(
             state.data_ptr(), out.data_ptr(), dim, u.data_ptr(), k, tmask, cmask,
-            cmask, instance, stream,
+            cmask, INSTANCE_CODE[instance], stream,
         )
     _build.check("dense_pass", lib, err, "dense_pass launch")
     LAUNCHES["dense_pass"] += 1
+    PASS_INSTANCES[instance] += 1
     return out
 
 

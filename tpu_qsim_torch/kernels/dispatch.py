@@ -15,7 +15,7 @@
 |         |         |        | of the torch engine above)                           |
 | float32 | 10..30  | cuda   | the circuit split at each dense core of              |
 |         |         |        | ``MIN_SWEEP_PASS_CORE`` (10) qubits or more, and on  |
-|         |         |        | the grid row from 22q of 7 qubits or more where the  |
+|         |         |        | the grid row from 22q of 5 qubits or more where the  |
 |         |         |        | grid planner takes it (``GRID_CUTS``): the rows      |
 |         |         |        | above for the pieces, a dense pass for each such gate|
 | any     | any     | any    | torch engine (:mod:`tpu_qsim_torch.apply`)           |
@@ -44,9 +44,9 @@ whole-state pass (:class:`~tpu_qsim_torch.kernels.dense_pass.DensePass`; a
 core of fewer than 7 qubits widened to 7 by an identity), and a
 :class:`SplitProgram` runs them in order; the engine's name joins the
 pieces' engines and ``dense_pass`` (e.g. ``"grid_sweep+dense_pass"``). The
-sweeps, planned whole, send their unit stages of ``MIN_SWEEP_PASS_CORE``
-qubits to the same pass. The JAX package runs such cores inside its
-kernels.
+sweeps, planned whole, send their unit stages of ``sweeps.MIN_UNIT_PASS_CORE``
+(6) qubits or more to the same pass. The JAX package runs such cores
+inside its kernels.
 """
 
 from __future__ import annotations
@@ -68,10 +68,15 @@ MAX_GRID_QUBITS = 30
 # core that the split cuts at where the grid planner takes it, and whether
 # it cuts at every gate that the grid planner refuses where the sweeps
 # refuse the piece too (in place of the segments to 26q and of the torch
-# engine above).
+# engine above). Since the dense pass's stream instance the split won at
+# every core of 5-9 qubits measured from 22q (20-30q, lowest, middle and
+# highest qubits; 5 the narrowest measured), and the grid's tiled op at
+# every one at 20q; also in circuits holding several 5-6-qubit dense gates
+# at 22-30q, by 22-47% (a layer of them on disjoint qubits, or four spread
+# between random layers: tune_route --several, PERF.md).
 GRID_CUTS = (
     (MIN_GRID_QUBITS, MIN_SWEEP_PASS_CORE, False),
-    (22, 7, True),
+    (22, 5, True),
 )
 
 

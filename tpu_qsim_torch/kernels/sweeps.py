@@ -34,7 +34,7 @@ joins stages into the kernel's table. :func:`plan_launches` cuts a sweep's
 stages into launches, each run at the occupancy that suits it: a run of
 tile stages on the instance for narrow cores (two CTAs an SM), a unit stage
 alone on the wide instance (one CTA an SM: the tiled op's 128 registers a
-thread), and a unit stage of ``MIN_SWEEP_PASS_CORE`` qubits or more through
+thread), and a unit stage of ``MIN_UNIT_PASS_CORE`` qubits or more through
 the dense pass (``dense_pass.py``) on the gate's state qubits. On the H100
 the 26-qubit main path's low sweep (tile, unit, tile) ran 0.42 ms faster
 split than in one launch, and fewer units in flight were slower (PERF.md).
@@ -501,13 +501,21 @@ class SweepLaunch:
 # so that a unit of 10-11 qubits never rides the tiled op, which the pass
 # beats 1.2-2.4x.
 MIN_SWEEP_PASS_CORE = 10
+# The sweeps' own width, since the dense pass took a persistent instance for
+# 7-9-qubit cores (csrc/dense_pass.cu "stream"): a unit stage whose core has
+# this many qubits or more runs through the pass (a 6-qubit core widened to
+# 7). On the H100 a sweep holding one k-qubit core on the middle qubits took
+# 1.24-1.92x the pass of the same gate at k = 6-9 at 22, 24 and 26 qubits
+# (tune_route --units; PERF.md). A 5-qubit core keeps its unit stage (the
+# route gives such a circuit to the grid sweep).
+MIN_UNIT_PASS_CORE = 6
 
 
 def plan_launches(
     stages: list[Stage], unit: BlockLayout, tile_bits: int, table: OpTable,
 ) -> list[SweepLaunch]:
     """Cut a sweep's stages (``table`` their :func:`sweep_table`), in order,
-    into launches: a unit stage whose core has ``MIN_SWEEP_PASS_CORE``
+    into launches: a unit stage whose core has ``MIN_UNIT_PASS_CORE``
     qubits or more is a dense pass, any other a launch of its own on the
     wide instance, and each run of tile stages between them one launch on
     the instance for narrow cores. (On the H100 a sweep with a unit stage ran
@@ -532,7 +540,7 @@ def plan_launches(
             continue
         close()
         (g,) = st.gates
-        found = pass_core(g, MIN_SWEEP_PASS_CORE - 1)
+        found = pass_core(g, MIN_UNIT_PASS_CORE - 1)
         if found is not None:
             out.append(SweepLaunch("pass", [st], step=DensePass(g, unit.n, found)))
         else:

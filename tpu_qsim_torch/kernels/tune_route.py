@@ -2,7 +2,8 @@
 kernel's tiled op and takes the dense pass, and what the grid sweep's wide
 instance costs by itself.
 
-    python -m tpu_qsim_torch.kernels.tune_route [--instances N] [--crossover] [--passes N]
+    python -m tpu_qsim_torch.kernels.tune_route [--instances N] [--crossover] [--passes N ...]
+        [--units N ...] [--several N ...]
         [--grid-qubits N ...] [--whole-qubits N ...] [--segment-qubits N ...]
         [--cores K ...] [--device cpu]
 
@@ -38,9 +39,22 @@ Modes:
 * ``--passes N``: the dense pass alone on an N-qubit state: a 6-qubit core
   on the middle qubits widened to 7 by an identity on the lowest free qubit
   (the route's choice, ``dense_pass.widened``), on the qubit below the core
-  and on the one above it; and 7-9-qubit cores on the lowest, the middle
-  and the highest qubits; each beside the gate's 3xTF32 bound (of its core
-  as cut: the widening adds no work).
+  and on the one above it; 7-9-qubit cores (``--cores``) on the lowest, the middle and
+  the highest qubits; and an 8-qubit core on the middle ones under a
+  control on the highest; each on ``dense_pass.cu``'s stream and large
+  instances in turns, against the plain version, beside ``torch.matmul``
+  of the core (TF32 off; without and with the planes-to-complex64 copies),
+  the plain version's time and the gate's 3xTF32 bound (of its core as cut:
+  the widening adds no work).
+* ``--units N``: a 6-9-qubit core alone on the middle qubits of an N-qubit
+  state: the sweeps' program holding it in a unit stage against the dense
+  pass of the gate, in turns (the sweeps' unit-stage width).
+* ``--several N``: circuits holding several 5- or 6-qubit dense gates at N
+  qubits (``several_circuit``: a layer of N // k of them on disjoint random
+  qubits, as a quantum-volume layer, between two random layers; or four of
+  them on random qubits, each after ten random layers), planned by the
+  route (``dispatch.plan_kernels``) with the grid row cutting from 22q at
+  7 qubits and at 5 (``GRID_CUTS``), timed in turns (7 / 5 / 5 / 7).
 
 Times are medians of 7 CUDA-event timings after a warm-up, device time from
 CUDA-graph replays below 20 qubits. With ``--device cpu`` it runs the plain
@@ -162,10 +176,47 @@ def instances(n: int, device: torch.device, cores=INSTANCE_CORES) -> list[dict]:
     return rows
 
 
-def passes(n: int, device: torch.device, cores=(7, 8, 9)) -> list[dict]:
+def core_matmul(step, n: int, x: torch.Tensor):
+    """``step``'s core as one ``torch.matmul`` on the complex64 view of the
+    planes ``x``, where its targets are contiguous ascending qubits lo..lo+k-1
+    and its controls (if any) the highest qubits: (the call, the call with
+    the planes-to-complex64 copies there and back, or None under controls);
+    (None, None) for other placements. ``core_operand``'s index bit j is the
+    j-th lowest target, as the view's."""
+    from .dense_pass import core_operand
+
+    targets = sorted(step.targets)
+    k, lo, c = step.k, targets[0], len(step.controls)
+    if targets != list(range(lo, lo + k)) or sorted(step.controls) != list(range(n - c, n)):
+        return None, None
+    u = torch.from_numpy(core_operand(step.core, step.targets)).to(x.device)
+    um = torch.complex(u[0], u[1])
+    shape = (1 << (n - c - lo - k), 1 << k, 1 << lo)
+    on = (1 << n) - (1 << (n - c))                # the first slot whose controls are all 1
+    z = torch.complex(x[0], x[1])[on:].view(shape)
+
+    def with_copies():
+        y = torch.matmul(um, torch.complex(x[0], x[1]).view(shape)).view(-1)
+        x[0].copy_(y.real)
+        x[1].copy_(y.imag)
+
+    return (lambda: torch.matmul(um, z)), (None if c else with_copies)
+
+
+def passes(n: int, device: torch.device, cores=(7, 8, 9), plain_reps: int = 3) -> list[dict]:
     """``--passes N``: the 6-qubit core widened three ways, then each of
-    ``cores`` on each placement, the pass alone on one random state."""
-    from .dense_pass import DensePass, pass_core
+    ``cores`` on each placement and one 8-qubit core on the middle qubits
+    under a control on the highest, the pass alone on one random state: on
+    the instance ``pass_instance`` picks and on the others of the 7-9-qubit
+    cores' (``stream``, ``large``), in turns (picked / other / other /
+    picked), each held against the plain version (and the instances' launch
+    tallies checked); beside them ``torch.matmul`` of the core with TF32 off
+    (placements of contiguous targets), without and with the
+    planes-to-complex64 copies, the plain version once, and the gate's
+    3xTF32 bound (``plain_reps`` timings of the plain version). On the CPU
+    only the plain version runs."""
+    from . import PASS_INSTANCES
+    from .dense_pass import DensePass, dense_pass, pass_core, pass_instance
     from .fused_circuit import as_pgates
     from .time_run import dense_gate
 
@@ -182,12 +233,193 @@ def passes(n: int, device: torch.device, cores=(7, 8, 9)) -> list[dict]:
             lo = placement(n, k, where)
             (g,) = as_pgates(Circuit(n).add(dense_gate(k), *range(lo, lo + k)).gates)
             cases.append((f"{n}q_pass_dense{k}_on_{lo}", DensePass(g, n, pass_core(g, 0))))
+    lo = placement(n, 8, "middle")
+    c = Circuit(n).add(dense_gate(8), *range(lo, lo + 8))
+    (g,) = as_pgates(c.gates)
+    cg = pass_core(g, 0)
+    cases.append((f"{n}q_pass_dense8_on_{lo}_control_{n - 1}",
+                  DensePass(g, n, ((n - 1,), cg[1], cg[2]))))
     rows = []
-    for name, step in cases:
-        flops = 3 * step.flops()       # three TF32 products per real one, of the core as cut
-        bound_ms = max(step.bytes_moved() / 3.35e12, flops / 495e12) * 1e3
-        rows.append({"row": name, "targets": list(step.targets), "k": step.k, "core_k": step.core_k,
-                     "bound_ms": bound_ms, **_median(_times_ms(lambda: step.run(x), device))})
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, step in cases:
+            flops = 3 * step.flops()       # three TF32 products per real one, of the core as cut
+            bound_ms = max(step.bytes_moved() / 3.35e12, flops / 495e12) * 1e3
+            row = {"row": name, "targets": list(step.targets), "controls": list(step.controls),
+                   "k": step.k, "core_k": step.core_k, "bound_ms": bound_ms}
+            plain = step.run_plain(x)
+            row["plain"] = _median(_times_ms(lambda: step.run_plain(x), device, reps=plain_reps))
+            if device.type == "cuda":
+                picked = pass_instance(step.k, n - step.k - len(step.controls))
+                others = [i for i in ("stream", "large") if i != picked]
+                u = step.u_on(x.device)
+                for inst in (picked, *others):
+                    reset_launches()
+                    got = dense_pass(x, u, step.tmask, step.cmask, inst)
+                    if dict(PASS_INSTANCES) != {inst: 1}:
+                        raise RuntimeError(f"{name}: instance launches {dict(PASS_INSTANCES)}")
+                    row[inst] = {"max_abs_err": float(torch.max(torch.abs(got - plain))),
+                                 "turns": []}
+                    if inst == picked:
+                        picked_out = torch.complex(got[0], got[1])
+                    del got
+                for inst in (picked, *others, *others, picked):
+                    row[inst]["turns"].append(_median(_times_ms(
+                        lambda: dense_pass(x, u, step.tmask, step.cmask, inst), device)))
+                for inst in (picked, *others):
+                    times = [t for turn_ in row[inst].pop("turns") for t in turn_["all_ms"]]
+                    row[inst]["ms"] = statistics.median(times)
+                    row[inst]["share"] = bound_ms / row[inst]["ms"]
+                row["picked"] = picked
+                mm, mm_copy = core_matmul(step, n, x)
+                if mm is not None:
+                    y = mm().reshape(-1)
+                    on = (1 << n) - y.numel()
+                    want = torch.complex(plain[0], plain[1])[on:]
+                    row["matmul_max_abs_err"] = float(torch.max(torch.abs(y - want)))
+                    row["picked_vs_matmul_max_abs_err"] = float(torch.max(torch.abs(
+                        y - picked_out[on:])))
+                    del y, want
+                    row["matmul_ms"] = _median(_times_ms(mm, device))["ms"]
+                del picked_out
+                if mm_copy is not None:
+                    xs = x.clone()
+                    _, mm_copy = core_matmul(step, n, xs)
+                    row["matmul_with_copies_ms"] = _median(_times_ms(mm_copy, device))["ms"]
+                    del xs
+            del plain
+            rows.append(row)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return rows
+
+
+def units(n: int, device: torch.device, cores=(6, 7, 8, 9)) -> list[dict]:
+    """``--units N``: a k-qubit core alone on the middle qubits of an
+    N-qubit state, for each of ``cores``: the sweeps' program holding it
+    (``SweepProgram``: its unit stage on the wide instance below
+    ``MIN_SWEEP_PASS_CORE``) against the dense pass of the same gate, timed
+    in turns (sweeps / pass / pass / sweeps), their outputs compared."""
+    from .dense_pass import DensePass, pass_core
+    from .fused_circuit import as_pgates
+    from .sweeps import SweepProgram
+    from .time_run import dense_gate
+
+    x = _state(n, device)
+    rows = []
+    for k in cores:
+        lo = placement(n, k, "middle")
+        c = Circuit(n).add(dense_gate(k), *range(lo, lo + k))
+        (g,) = as_pgates(c.gates)
+        step = DensePass(g, n, pass_core(g, 0))
+        row = {"row": f"{n}q_unit_dense{k}_on_{lo}", "n": n, "k": k, "lo": lo}
+        try:
+            prog = SweepProgram(c)
+        except ValueError as e:
+            row["sweeps"] = {"refused": str(e)[:200]}
+            rows.append(row)
+            continue
+        row["launches"] = [ln.route for launch in prog.launches for ln in launch]
+        cands = {"sweeps": prog.run, "pass": step.run}
+        row["max_abs_diff"] = float(torch.max(torch.abs(prog.run(x.clone()) - step.run(x))))
+        for name in cands:
+            row[name] = {"turns": []}
+        for name in ("sweeps", "pass", "pass", "sweeps"):
+            row[name]["turns"].append(_median(_times_ms(lambda: cands[name](x.clone()), device)))
+        for name in cands:
+            times = [t for turn_ in row[name].pop("turns") for t in turn_["all_ms"]]
+            row[name]["ms"] = statistics.median(times)
+        row["pass_over_sweeps"] = row["pass"]["ms"] / row["sweeps"]["ms"]
+        rows.append(row)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+SEVERAL_SHAPES = ("layer", "spread")
+
+
+def several_circuit(n: int, k: int, shape: str) -> Circuit:
+    """A circuit holding several k-qubit dense gates (``time_run.dense_gate``)
+    on seeded random qubits: for ``shape`` "layer", n // k of them on
+    disjoint qubits between ``random_circuit(n, 40)`` twice; for "spread",
+    four, each after ten random layers, and ten more at the end."""
+    from .time_run import dense_gate
+
+    rng = np.random.default_rng(1000 * n + k)
+    if shape == "layer":
+        c = random_circuit(n, 40, seed=SEED)
+        perm = rng.permutation(n)
+        for i in range(n // k):
+            c.add(dense_gate(k), *(int(q) for q in perm[i * k:(i + 1) * k]))
+        for g in random_circuit(n, 40, seed=SEED + 1).gates:
+            c.append(g)
+        return c
+    c = Circuit(n)
+    for i in range(5):
+        for g in random_circuit(n, 10, seed=SEED + i).gates:
+            c.append(g)
+        if i < 4:
+            c.add(dense_gate(k), *(int(q) for q in rng.choice(n, k, replace=False)))
+    return c
+
+
+def several(n: int, device: torch.device, cores=(5, 6), widths=(7, 5)) -> list[dict]:
+    """``--several N``: each of :data:`SEVERAL_SHAPES` with k-qubit gates for
+    k in ``cores``, planned by the route with the grid row's cut from 22q at
+    each of ``widths`` (``dispatch.GRID_CUTS`` set for the planning), timed
+    in turns (first / second / second / first), their outputs compared."""
+    from . import dispatch
+
+    x = _state(n, device)
+    rows = []
+    saved = dispatch.GRID_CUTS
+    for k in cores:
+        for shape in SEVERAL_SHAPES:
+            c = several_circuit(n, k, shape)
+            row = {"row": f"{n}q_several_dense{k}_{shape}", "n": n, "k": k, "shape": shape,
+                   "gates": len(c.gates)}
+            progs, outs = {}, {}
+            for w in widths:
+                dispatch.GRID_CUTS = tuple((lo, w if lo == 22 else cw, r) for lo, cw, r in saved)
+                try:
+                    engine, prog = dispatch.plan_kernels(c, "grid_sweep")
+                finally:
+                    dispatch.GRID_CUTS = saved
+                name = f"cut{w}"
+                if prog is None:
+                    row[name] = {"refused": f"{engine} runs the whole circuit"}
+                    continue
+                engines = getattr(prog, "engines", [engine])
+                reset_launches()
+                outs[name] = prog(x.clone())
+                progs[name] = prog
+                row[name] = {"passes": engines.count("dense_pass"), "pieces": len(engines)
+                             - engines.count("dense_pass"), "launches": dict(LAUNCHES),
+                             "turns": []}
+            names = list(progs)
+            for name in names[:1] + names[1:] * 2 + names[:1]:
+                state = {"x": x.clone()}
+
+                def step():
+                    state["x"] = progs[name](state["x"])
+
+                row[name]["turns"].append(_median(_times_ms(step, device)))
+                del state
+            for name in names:
+                times = [t for turn_ in row[name].pop("turns") for t in turn_["all_ms"]]
+                row[name]["ms"] = statistics.median(times)
+            if len(names) == 2:
+                a, b = names
+                row["max_abs_diff"] = float(torch.max(torch.abs(outs[a] - outs[b])))
+                row[f"{b}_over_{a}"] = row[b]["ms"] / row[a]["ms"]
+            rows.append(row)
+            del outs
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -311,7 +543,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--instances", type=int, default=None, metavar="N")
     parser.add_argument("--crossover", action="store_true")
-    parser.add_argument("--passes", type=int, default=None, metavar="N")
+    parser.add_argument("--passes", type=int, action="append", default=None, metavar="N")
+    parser.add_argument("--units", type=int, action="append", default=None, metavar="N")
+    parser.add_argument("--several", type=int, action="append", default=None, metavar="N")
     parser.add_argument("--grid-qubits", type=int, action="append", default=None)
     parser.add_argument("--whole-qubits", type=int, action="append", default=None)
     parser.add_argument("--segment-qubits", type=int, action="append", default=None)
@@ -336,8 +570,14 @@ def main() -> None:
     if args.instances:
         for row in instances(args.instances, dev, args.cores or INSTANCE_CORES):
             print(json.dumps(row), flush=True)
-    if args.passes:
-        for row in passes(args.passes, dev):
+    for n in args.passes or ():
+        for row in passes(n, dev, tuple(args.cores or (7, 8, 9))):
+            print(json.dumps(row), flush=True)
+    for n in args.units or ():
+        for row in units(n, dev):
+            print(json.dumps(row), flush=True)
+    for n in args.several or ():
+        for row in several(n, dev):
             print(json.dumps(row), flush=True)
     if args.crossover:
         for row in crossover(dev, args.grid_qubits or GRID_QUBITS,
